@@ -7,33 +7,60 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the build of every CUDA kernel from ``lstm_ctc_ocr_torch/csrc`` with
-   nvcc (its time and ptxas report).
-2. Kernel phase: ``bilstm_fwd`` against its plain PyTorch version
-   ``bilstm_fwd_reference`` on the card, with residuals on and off, in f32
-   and bf16 at the eval shapes (batch 64; T=23 at the W=96 bucket, T=111 at
-   W=448) and a ragged batch of 37 with some empty rows. Tolerance: f32 max
-   |difference| <= 1e-4; bf16 <= 4 bf16 ulps of the reference's magnitude
-   (4 * max|ref| / 256, as tests/test_rnn_pallas.py defines it). Then CUDA-
-   event timings (median of 50 after warm-up) of the kernel, the plain
-   version, the kernel plus the input projection, and a library yardstick:
-   cuDNN's bidirectional ``torch.nn.LSTM`` on a packed sequence with the
-   same weights (timed here only; the port never calls it).
-3. Eval phase, the port's main path: the evaluation entry point (``engine/test.py``,
-   bf16, greedy, batch 64) on the tracked releases — ``lstm_ctc`` on
-   ``data/val`` under ``BN_EVAL`` batch and moving, ``digit4`` on
-   ``data/val_digit4``. Each accuracy must be within 2 images of the
-   release's recorded accuracy (checkpoints/README.md), and the kernel's
-   launch count must grow by exactly the number of decode calls.
-4. Profile: ``torch.profiler`` over a few warm decode calls at batch 64,
-   W=96: device time by kernel and the device's busy share of the wall.
+   nvcc, one process per source (its time and ptxas report).
+2. Kernel phase: each kernel against its plain PyTorch version on the card.
+   ``bilstm_fwd`` (vs ``bilstm_fwd_reference``), residuals on and off, f32
+   and bf16 at batch 64 with T=23 (the W=96 bucket) and T=111 (W=448), and
+   a ragged batch of 37 with empty rows; tolerance f32 max |difference| <=
+   1e-4, bf16 <= 4 bf16 ulps of the reference's magnitude (4 * max|ref| /
+   256, as tests/test_rnn_pallas.py defines it). ``bilstm_bwd`` (vs
+   ``bilstm_bwd_reference``) on the same cases: f32 <= 1e-4 relative to the
+   largest entry of each output, bf16 within 4 bf16 ulps of it. ``ctc_fwd``
+   and ``ctc_bwd`` (vs ``ctc_forward_reference`` / ``ctc_backward_reference``)
+   at batch 64 with T=23, L=6 and T=111, L=24, each batch ragged with an
+   empty label, an infeasible example and a one-frame example: f32 <= 1e-5
+   on logZ, alphas and gradient. Then CUDA-event timings (median of 50
+   after warm-up) of each kernel's wrapper call, and the kernel's own
+   device time from ``torch.profiler``, beside its plain version, its bound
+   and a library yardstick: cuDNN's bidirectional ``torch.nn.LSTM`` on a packed
+   sequence (forward, and backward alone) and
+   ``torch.nn.functional.ctc_loss`` forward+backward (plain versions:
+   median of 10). Yardsticks are timed here only; the port never calls
+   them.
+3. Eval phase, the serving path: the evaluation entry point
+   (``engine/test.py``, bf16, greedy, batch 64) on the tracked releases —
+   ``lstm_ctc`` on ``data/val`` under ``BN_EVAL`` batch and moving,
+   ``digit4`` on ``data/val_digit4``. Each accuracy must be within 2 images
+   of the release's recorded accuracy (checkpoints/README.md), and
+   ``bilstm_fwd``'s launch count must grow by exactly the number of decode
+   calls.
+4. Train phase, the training path, at the full width of
+   ``lstm/lstm.yml`` (batch 64, bf16, Adam) on a records file written on
+   the spot from ``data/val``: (a) 60 steps from a fresh init through
+   ``train_net`` — every loss finite, the mean of the last 10 below that of
+   the first 10, and each of the four kernels launched exactly once a step
+   (``bilstm_fwd`` also once per validation decode); (b) 20 steps of
+   fine-tuning from the ``lstm_ctc`` release through the training CLI, a
+   snapshot, and the evaluation entry point on it: at least 470/500 on
+   ``data/val`` — the data trained on, so this only shows that training
+   does not wreck a good model; (c) one f32 step's parameter gradients
+   with the kernels against the same step with the plain versions put in
+   their place: each tensor within 1e-4 of its largest entry (or of 1e-3 of
+   the largest gradient overall, for the tensors whose true gradient is
+   zero); then steps/s and images/s over warm steps, CUDA-synchronised.
+5. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
+   warm train steps: device time by kernel and the device's busy share of
+   the wall.
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the last
-line is ``{"ok": true, "device": {...}}``. Per-image eval lines go to
-``chiprun_out/chip_smoke_eval.log``.
+The line before the last is one JSON object ``{"kernels": [...]}`` with the
+four kernels; the last line is ``{"ok": true, "device": {...}}``. Per-image
+eval lines and the training runs' output go to ``chiprun_out/``.
 """
 
+import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -79,6 +106,27 @@ def median_ms(fn, reps=50, warmup=5):
     return statistics.median(times)
 
 
+def device_ms(fn, names, reps=20):
+    """Device time of one call of ``fn`` spent in the kernels whose name
+    contains one of ``names``, from ``torch.profiler`` over ``reps`` calls.
+    A CUDA-event time of one short launch on an idle device is mostly the
+    host's launch path; this is the kernel alone."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(n in e.key for n in names))
+    check(total > 0, 'the profiler saw no device time in {}'.format(names))
+    return total / 1e3 / reps
+
+
 def bilstm_case(t_len, n, dtype, ragged, seed, h=256, d=512):
     """Inputs at an eval shape: x [T, N, D], W [D, 8H], per-direction U [H,
     4H] and b [4H], and the projections xpf/xpb, all on the card."""
@@ -117,6 +165,130 @@ def max_err(got, want, dtype):
         ok = ok and e <= (1e-4 if dtype == torch.float32 else 4 * scale / 256)
         err = max(err, e)
     return err, ok
+
+
+def rel_err(got, want, dtype):
+    """Over the outputs: max |difference|, max |difference| / max|reference|,
+    and whether each output is within 1e-4 (f32) or 4 bf16 ulps (bf16) of
+    its own largest entry."""
+    worst_abs, worst_rel, ok = 0.0, 0.0, True
+    for g, w in zip(got, want):
+        w = w.float()
+        e = float((g.float() - w).abs().max())
+        rel = e / (float(w.abs().max()) or 1.0)
+        ok = ok and rel <= (1e-4 if dtype == torch.float32 else 4 / 256)
+        worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, rel)
+    return worst_abs, worst_rel, ok
+
+
+def bilstm_bwd_args(c, rnn_cuda, seed):
+    """The backward's inputs for a forward case: the residuals the forward
+    kernel writes and random output cotangents."""
+    _, gf, hf, cf, _, gb, hb, cb = rnn_cuda.bilstm_fwd(*kernel_args(c),
+                                                       save_residuals=True)
+    g = torch.Generator().manual_seed(1000 + seed)
+    dof, dob = ((torch.randn(hf.shape, generator=g) * 0.1).cuda().to(hf.dtype)
+                for _ in range(2))
+    return (dof, dob, gf, hf, cf, gb, hb, cb, c['uf'], c['ub'], c['lens'])
+
+
+def bilstm_bwd_bound_ms(c, dtype):
+    """Least time for the backward's work on an H100: dout, gates, h, c and
+    U read once, dx, dU and db written once, over HBM bandwidth; or the live
+    steps' two products (dg U^T and h_prev^T dg, 2*H*4H each per row, step
+    and direction) over the dtype's peak; the larger of the two."""
+    t_len, n, four_h = c['xpf'].shape
+    h = four_h // 4
+    es = torch.tensor([], dtype=dtype).element_size()
+    tn = t_len * n
+    read = (2 * tn * h + 2 * tn * four_h + 4 * tn * h + 2 * h * four_h) * es \
+        + 4 * n
+    written = 2 * tn * four_h * es + 4 * (2 * h * four_h + 2 * four_h)
+    flops = 2 * int(c['lens'].sum()) * 4 * h * four_h
+    t_bytes = (read + written) / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def cudnn_backward_yardstick(c):
+    """cuDNN's bidirectional LSTM backward alone (its input projection's
+    backward included): gradients of a random cotangent with respect to the
+    input and the weights, from one retained forward."""
+    lstm, _ = cudnn_yardstick(c)
+    x = c['x'].clone().requires_grad_()
+    packed = torch.nn.utils.rnn.pack_padded_sequence(
+        x, c['lens'].cpu(), enforce_sorted=False)
+    out = lstm(packed)[0].data
+    gout = torch.randn_like(out)
+    inputs = [x] + list(lstm.parameters())
+    return lambda: torch.autograd.grad(out, inputs, gout, retain_graph=True)
+
+
+def ctc_case(ctc, t_len, l_max, seed, n=64, c=64):
+    """A ragged CTC batch on the card with a repeated label, an empty label
+    (row 1), an infeasible example (row 2) and a one-frame example (row 3),
+    and the kernels' inputs made from it."""
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(n, t_len, c) * 2).astype(np.float32)
+    labels = rng.randint(1, c, (n, l_max)).astype(np.int32)
+    label_lens = rng.randint(max(1, l_max - 2), l_max + 1, n).astype(np.int32)
+    logit_lens = rng.randint(max(1, t_len - 8), t_len + 1, n).astype(np.int32)
+    labels[0, 1] = labels[0, 0]
+    label_lens[0], logit_lens[0] = l_max, t_len
+    label_lens[1] = 0
+    label_lens[2], logit_lens[2] = l_max, l_max - 1
+    label_lens[3], logit_lens[3] = 1, 1
+    for i in range(n):
+        labels[i, label_lens[i]:] = 0
+    case = {k: torch.from_numpy(v).cuda() for k, v in (
+        ('logits', logits), ('labels', labels), ('label_lens', label_lens),
+        ('logit_lens', logit_lens))}
+    ext = ctc.extended_labels(case['labels'])
+    skip, final, valid = (ctc._as_additive(m) for m in
+                          ctc._transition_masks(ext, case['label_lens']))
+    logp = torch.log_softmax(case['logits'], dim=-1)
+    case['g'] = ctc._gather_logp(logp, ext, case['logit_lens']).contiguous()
+    case['masks'] = (skip, valid, final)
+    return case
+
+
+def ctc_bound_ms(case, backward):
+    """Least time for a CTC recursion on an H100: g and the three masks read
+    once (the backward also alphas, logz and lens) and alphas and logz (the
+    backward: grad) written once, over HBM bandwidth; or ~14 f32 operations
+    per (example, frame, state) — three exp, one log, adds and maxima — over
+    the f32 peak; the larger of the two."""
+    n, t_len, s_len = case['g'].shape
+    cube = 4 * n * t_len * s_len
+    nbytes = cube + 3 * 4 * n * s_len + cube + 4 * n
+    if backward:
+        nbytes += cube + 4 * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 14 * n * t_len * s_len / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def ctc_library_yardstick(case):
+    """``torch.nn.functional.ctc_loss`` forward + backward on the case (the
+    one library call that computes what ``ctc_fwd`` and ``ctc_bwd`` compute
+    together); returns the callable and its per-example losses."""
+    lp = torch.log_softmax(case['logits'], dim=-1).transpose(0, 1) \
+        .contiguous().requires_grad_()
+    args = (case['labels'].long(), case['logit_lens'].long(),
+            case['label_lens'].long())
+
+    def run():
+        loss = torch.nn.functional.ctc_loss(lp, *args, blank=0,
+                                            reduction='sum',
+                                            zero_infinity=True)
+        return torch.autograd.grad(loss, lp)
+    with torch.no_grad():
+        losses = torch.nn.functional.ctc_loss(lp, *args, blank=0,
+                                              reduction='none',
+                                              zero_infinity=True)
+    return run, losses
 
 
 def cudnn_yardstick(c, forget_bias=1.0):
@@ -164,7 +336,110 @@ def bound_ms(c, dtype, with_residuals=False):
                                        else 'operations')
 
 
-def kernel_phase(rnn_cuda):
+BILSTM_CASES = [('f32 N=64 T=23', 23, 64, torch.float32, False),
+                ('f32 N=64 T=111', 111, 64, torch.float32, False),
+                ('bf16 N=64 T=23', 23, 64, torch.bfloat16, False),
+                ('bf16 N=64 T=111', 111, 64, torch.bfloat16, False),
+                ('bf16 ragged N=37 T=23', 23, 37, torch.bfloat16, True),
+                ('f32 ragged N=37 T=23', 23, 37, torch.float32, True)]
+
+
+def bilstm_bwd_phase(rnn_cuda):
+    """``bilstm_bwd`` against ``bilstm_bwd_reference`` on every case, then
+    timings at the main path's shapes."""
+    errs = {}
+    for i, (label, t_len, n, dtype, ragged) in enumerate(BILSTM_CASES):
+        c = bilstm_case(t_len, n, dtype, ragged, seed=20 + i)
+        args = bilstm_bwd_args(c, rnn_cuda, i)
+        got = rnn_cuda.bilstm_bwd(*args)
+        want = rnn_cuda.bilstm_bwd_reference(*args)
+        torch.cuda.synchronize()
+        err, rel, ok = rel_err(got, want, dtype)
+        print('bilstm_bwd check {:24s} max|diff| {:.3e} ({:.2e} of the '
+              'largest entry) within tolerance: {}'.format(label, err, rel,
+                                                           ok), flush=True)
+        check(ok, 'bilstm_bwd {}: {} of the largest entry'.format(label, rel))
+        errs[label] = err
+    timings = {}
+    for label, t_len in (('bf16 N=64 T=23', 23), ('bf16 N=64 T=111', 111)):
+        c = bilstm_case(t_len, 64, torch.bfloat16, False, seed=7)
+        args = bilstm_bwd_args(c, rnn_cuda, 7)
+        row = {
+            'kernel_ms': median_ms(lambda: rnn_cuda.bilstm_bwd(*args)),
+            'device_ms': device_ms(lambda: rnn_cuda.bilstm_bwd(*args),
+                                   ['bilstm_bwd_']),
+            'plain_ms': median_ms(
+                lambda: rnn_cuda.bilstm_bwd_reference(*args), reps=10,
+                warmup=2),
+            'library_ms': median_ms(cudnn_backward_yardstick(c)),
+        }
+        row['bound_ms'], row['bound_by'] = bilstm_bwd_bound_ms(
+            c, torch.bfloat16)
+        timings[label] = row
+        print('bilstm_bwd timing {:16s} {}'.format(label, json.dumps(row)),
+              flush=True)
+    return errs, timings
+
+
+def ctc_phase(ctc, ctc_cuda):
+    """``ctc_fwd`` / ``ctc_bwd`` against their plain versions, then timings
+    beside ``torch.nn.functional.ctc_loss``."""
+    errs, timings = {}, {}
+    for label, t_len, l_max in (('N=64 T=23 L=6', 23, 6),
+                                ('N=64 T=111 L=24', 111, 24)):
+        case = ctc_case(ctc, t_len, l_max, seed=t_len)
+        g, masks, lens = case['g'], case['masks'], case['logit_lens']
+        logz, alphas = ctc_cuda.ctc_forward(g, *masks)
+        grad = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
+        logz_r, alphas_r = ctc.ctc_forward_reference(g, *masks)
+        grad_r = ctc.ctc_backward_reference(g, *masks, alphas_r, logz_r, lens)
+        torch.cuda.synchronize()
+
+        def close(a, b):
+            return float((a - b).abs().max()), bool(
+                ((a - b).abs() <= 1e-5 + 1e-5 * b.abs()).all())
+        e_z, ok_z = close(logz, logz_r)
+        e_a, ok_a = close(alphas, alphas_r)
+        e_g, ok_g = close(grad, grad_r)
+        special = (float(logz[2]) <= ctc.NEG_INF / 2 and not bool(grad[2].any())
+                   and bool(torch.isfinite(logz[1])))
+        print('ctc check {:16s} max|diff| logz {:.2e} alphas {:.2e} grad '
+              '{:.2e}; infeasible row: zero gradient, empty label finite: {}'
+              .format(label, e_z, e_a, e_g, special), flush=True)
+        check(ok_z and ok_a and ok_g and special,
+              'ctc {}: out of tolerance'.format(label))
+        errs[label] = {'ctc_fwd': max(e_z, e_a), 'ctc_bwd': e_g}
+
+        lib, lib_losses = ctc_library_yardstick(case)
+        feasible = logz > ctc.NEG_INF / 2
+        row = {
+            'fwd_ms': median_ms(lambda: ctc_cuda.ctc_forward(g, *masks)),
+            'fwd_device_ms': device_ms(
+                lambda: ctc_cuda.ctc_forward(g, *masks), ['ctc_fwd_kernel']),
+            'bwd_ms': median_ms(lambda: ctc_cuda.ctc_backward(
+                g, *masks, alphas, logz, lens)),
+            'bwd_device_ms': device_ms(lambda: ctc_cuda.ctc_backward(
+                g, *masks, alphas, logz, lens), ['ctc_bwd_kernel']),
+            'fwd_plain_ms': median_ms(
+                lambda: ctc.ctc_forward_reference(g, *masks), reps=10,
+                warmup=2),
+            'bwd_plain_ms': median_ms(
+                lambda: ctc.ctc_backward_reference(g, *masks, alphas_r,
+                                                   logz_r, lens), reps=10,
+                warmup=2),
+            'library_fwd_bwd_ms': median_ms(lib),
+            'library_vs_kernel_max_abs_diff': float(
+                (lib_losses + logz)[feasible].abs().max()),
+        }
+        row['fwd_bound_ms'], row['fwd_bound_by'] = ctc_bound_ms(case, False)
+        row['bwd_bound_ms'], row['bwd_bound_by'] = ctc_bound_ms(case, True)
+        timings[label] = row
+        print('ctc timing {:16s} {}'.format(label, json.dumps(row)),
+              flush=True)
+    return errs, timings
+
+
+def bilstm_fwd_phase(rnn_cuda):
     """Correctness on every case, then timings at the eval shapes."""
     cases = [('f32 N=64 T=23', 23, 64, torch.float32, False),
              ('bf16 N=64 T=23', 23, 64, torch.bfloat16, False),
@@ -206,8 +481,13 @@ def kernel_phase(rnn_cuda):
         with torch.no_grad():
             row = {
                 'kernel_ms': median_ms(lambda: rnn_cuda.bilstm_fwd(*args)),
+                'device_ms': device_ms(lambda: rnn_cuda.bilstm_fwd(*args),
+                                       ['bilstm_fwd_kernel']),
+                'kernel_residuals_ms': median_ms(
+                    lambda: rnn_cuda.bilstm_fwd(*args, save_residuals=True)),
                 'plain_ms': median_ms(
-                    lambda: rnn_cuda.bilstm_fwd_reference(*args)),
+                    lambda: rnn_cuda.bilstm_fwd_reference(*args), reps=10,
+                    warmup=2),
                 'kernel_plus_proj_ms': median_ms(with_projection),
                 'library_ms': median_ms(lambda: lstm(packed)),
             }
@@ -282,27 +562,228 @@ def profile_phase(test_mod, load_cfg, reps=5):
     images, steps = np.concatenate(images), np.concatenate(steps)
     for _ in range(3):
         step(images, steps)
+    profile_report('decode call (batch 64, W=96, bf16)',
+                   lambda: step(images, steps), reps)
+
+
+def train_overrides(records_path, exp):
+    return ['DATA_BACKEND', 'records', 'RECORDS_PATH', records_path,
+            'DECODER', "'greedy'", 'TRAIN.DTYPE', "'bfloat16'",
+            'EXP_DIR', exp, 'LOG_DIR', exp]
+
+
+@contextlib.contextmanager
+def plain_versions(rnn_cuda, ctc_cuda, ctc):
+    """Put each kernel's plain version in its wrapper's place."""
+    saved = (rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, ctc_cuda.ctc_forward,
+             ctc_cuda.ctc_backward)
+    rnn_cuda.bilstm_fwd = rnn_cuda.bilstm_fwd_reference
+    rnn_cuda.bilstm_bwd = rnn_cuda.bilstm_bwd_reference
+    ctc_cuda.ctc_forward = ctc.ctc_forward_reference
+    ctc_cuda.ctc_backward = ctc.ctc_backward_reference
+    try:
+        yield
+    finally:
+        (rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, ctc_cuda.ctc_forward,
+         ctc_cuda.ctc_backward) = saved
+
+
+def launch_counts(rnn_cuda, ctc_cuda, reset=False):
+    wrappers = {'bilstm_fwd': rnn_cuda.bilstm_fwd,
+                'bilstm_bwd': rnn_cuda.bilstm_bwd,
+                'ctc_fwd': ctc_cuda.ctc_forward,
+                'ctc_bwd': ctc_cuda.ctc_backward}
+    if reset:
+        for w in wrappers.values():
+            w.launches = 0
+    return {k: w.launches for k, w in wrappers.items()}
+
+
+def train_phase(mods, card, log):
+    """The train step's path at full width; returns the kernels' launch
+    counts over the fresh-init run and that run's model and solver."""
+    load_cfg, train, test_mod = mods['load_cfg'], mods['train'], mods['test']
+    rnn_cuda, ctc_cuda, ctc = mods['rnn_cuda'], mods['ctc_cuda'], mods['ctc']
+    records, get_network = mods['records'], mods['get_network']
+    yml = os.path.join(REPO, 'lstm', 'lstm.yml')
+    out_root = os.path.join(REPO, 'output')
+    for exp in ('chip_smoke_train', 'chip_smoke_finetune'):
+        shutil.rmtree(os.path.join(out_root, exp), ignore_errors=True)
+
+    t0 = time.perf_counter()
+    rec_path = os.path.join(REPO, 'chiprun_out', 'chip_smoke_val.records')
+    n_rec = records.write_image_annotation_pairs_to_records(
+        os.path.join(REPO, 'data', 'val'), rec_path)
+    print('records file: {} images from data/val in {:.1f} s'.format(
+        n_rec, time.perf_counter() - t0), flush=True)
+    check(n_rec == 500, 'records file holds {} images, expected 500'.format(
+        n_rec))
+
+    # (a) fresh init through train_net
+    steps, val_step = 60, 50
+    cfg = load_cfg(yml, train_overrides(rec_path, 'chip_smoke_train')
+                   + ['VAL.VAL_STEP', str(val_step), 'TRAIN.DISPLAY', '10'])
+    check(int(cfg.TRAIN.BATCH_SIZE) == 64 and int(cfg.TRAIN.NUM_HID) == 512
+          and int(cfg.NCLASSES) == 64 and str(cfg.TRAIN.SOLVER) == 'Adam',
+          'lstm.yml is not the full-width default model')
+    net = get_network('LSTM_train', cfg, generator=torch.Generator()
+                      .manual_seed(int(cfg.RNG_SEED)))
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        model, optimizer, losses = train.train_net(
+            net, {'name': 'chip_smoke'}, None,
+            os.path.join(out_root, 'chip_smoke_train'),
+            os.path.join(REPO, 'logs', 'chip_smoke_train'), cfg,
+            max_iters=steps + 1, device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(rnn_cuda, ctc_cuda)
+    val_calls = sum(1 for it in range(1, steps + 1)
+                    if (it + 1) % val_step == 0)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print('train fresh init: {} steps in {:.1f} s (start-up included), total '
+          'loss first 10 {:.4f} -> last 10 {:.4f}, launches {}, {} validation'
+          ' decode(s)'.format(len(losses), wall, first, last,
+                              json.dumps(counts), val_calls), flush=True)
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          'expected {} finite losses, got {}'.format(steps, losses))
+    check(last < first, 'the loss did not fall: {} -> {}'.format(first, last))
+    want = dict.fromkeys(counts, steps)
+    want['bilstm_fwd'] += val_calls
+    check(counts == want, 'launches {} over {} steps, expected {}'.format(
+        counts, steps, want))
+
+    # (b) fine-tune the release through the CLI, snapshot, evaluate
+    release = os.path.join(REPO, 'checkpoints', 'lstm_ctc',
+                           'lstm_ctc_iter_32207.ckpt.npz')
+    with contextlib.redirect_stdout(log):
+        rc = train.main(['--cfg', yml, '--iters', '21', '--pre_train',
+                         release, '--set']
+                        + train_overrides(rec_path, 'chip_smoke_finetune')
+                        # no low-loss snapshots: the one snapshot is iter_21
+                        + ['TRAIN.SNAPSHOT_ITERS', '21', 'TRAIN.DISPLAY', '5',
+                           'TRAIN.LOSS_MIN_SNAPSHOT', '0.0'])
+    check(rc == 0, 'training CLI returned {}'.format(rc))
+    snap = os.path.join(out_root, 'chip_smoke_finetune',
+                        'lstm_ctc_iter_21.ckpt.npz')
+    check(os.path.isfile(snap), 'no snapshot at {}'.format(snap))
+    eval_cfg = load_cfg(yml, ['TEST.BATCH_SIZE', '64', 'DECODER', "'greedy'",
+                              'TRAIN.DTYPE', "'bfloat16'", 'EXP_DIR',
+                              'chip_smoke_finetune'])
+    echoed = []
+    r = test_mod.test_net(eval_cfg, os.path.join(REPO, 'data', 'val'),
+                          device='cuda', echo=echoed.append)
+    log.write('\n'.join(echoed) + '\n')
+    check(any(snap in line for line in echoed if line.startswith('Restored')),
+          'the evaluation did not restore {}'.format(snap))
+    print('train fine-tune: 20 steps from the lstm_ctc release, snapshot, '
+          'eval {}/{} on data/val (the data trained on: shows that training '
+          'does not wreck a good model, not that it generalises)'.format(
+              r.correct, r.total), flush=True)
+    check(r.total == 500 and r.correct >= 470,
+          'fine-tuned snapshot: {}/{} correct, expected >= 470/500'.format(
+              r.correct, r.total))
+
+    # (c) one f32 step: gradients with the kernels vs with the plain versions
+    cfg32 = load_cfg(yml, train_overrides(rec_path, 'chip_smoke_train')
+                     + ['TRAIN.DTYPE', "'float32'"])
+    net32 = get_network('LSTM_train', cfg32, generator=torch.Generator()
+                        .manual_seed(int(cfg32.RNG_SEED))).cuda().train()
+    ds = records.RecordsDataset(rec_path, cfg32)
+    b = ds.batch(range(64))
+    ds.close()
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in (b.image, b.label, b.label_len, b.time_step))
+    loss_fn = train.make_loss_fn(net32, cfg32, None)
+
+    def gradients():
+        net32.zero_grad(set_to_none=True)
+        loss_fn(*batch)[0].backward()
+        return {k: p.grad.clone() for k, p in net32.named_parameters()}
+    before = launch_counts(rnn_cuda, ctc_cuda)
+    with_kernels = gradients()
+    after = launch_counts(rnn_cuda, ctc_cuda)
+    check(all(after[k] == before[k] + 1 for k in after),
+          'one f32 step launched {} -> {}'.format(before, after))
+    with plain_versions(rnn_cuda, ctc_cuda, ctc):
+        with_plain = gradients()
+    check(launch_counts(rnn_cuda, ctc_cuda) == after,
+          'the plain versions launched a kernel')
+    overall = max(float(g.abs().max()) for g in with_plain.values())
+    worst = 0.0
+    for name, ref in with_plain.items():
+        scale = max(float(ref.abs().max()), 1e-3 * overall)
+        rel = float((with_kernels[name] - ref).abs().max()) / scale
+        worst = max(worst, rel)
+        check(rel <= 1e-4, 'gradient of {}: {} of its largest entry'.format(
+            name, rel))
+    print('train gradients, one f32 step: kernels vs plain versions agree to '
+          '{:.2e} of each tensor\'s largest entry ({} tensors)'.format(
+              worst, len(with_plain)), flush=True)
+
+    # rate over warm steps, the records feed included
+    step = train.make_train_step(model, optimizer, cfg,
+                                 train.compute_dtype(cfg))
+    with contextlib.redirect_stdout(log):
+        stream = train.make_train_stream(cfg, 64)
+
+    def one_step():
+        nb = next(stream)
+        return step(*(torch.from_numpy(a).cuda(non_blocking=True) for a in
+                      (nb.image, nb.label, nb.label_len, nb.time_step)))
+    for _ in range(8):
+        one_step()
+    torch.cuda.synchronize()
+    n_timed = 40
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        one_step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rate = {'steps_per_s': n_timed / dt, 'images_per_s': 64 * n_timed / dt,
+            'ms_per_step': 1e3 * dt / n_timed}
+    print('train rate (batch 64, bf16, Adam, records feed, {} warm steps, '
+          'CUDA-synchronised) on {}: {:.2f} steps/s, {:.1f} images/s, {:.3f} '
+          'ms/step'.format(n_timed, card, rate['steps_per_s'],
+                           rate['images_per_s'], rate['ms_per_step']),
+          flush=True)
+    profile_report('train step (batch 64, bf16)', one_step, reps=5)
+    stream.close()
+    return counts, rate
+
+
+def profile_report(what, fn, reps):
+    """``torch.profiler`` over ``reps`` warm calls of ``fn``, each followed
+    to its end on the device: device time by kernel and the device's busy
+    share of the wall time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            step(images, steps)
+            fn()
+        torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / reps
     # device-side kernel events only: the CPU ops that launched them
     # report the same time again
-    rows = [(e.self_device_time_total / 1e3 / reps, e.key)
+    rows = [(e.self_device_time_total / 1e3 / reps, e.count / reps, e.key)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
-    device_ms = sum(ms for ms, _ in rows)
-    print('profile decode call (batch 64, W=96, bf16): wall {:.3f} ms, '
-          'device busy {:.3f} ms ({:.0%}), {} kernels with device time'
-          .format(wall_ms, device_ms, device_ms / wall_ms, len(rows)),
-          flush=True)
-    for ms, name in sorted(rows, reverse=True)[:15]:
-        print('profile {:8.4f} ms {:5.1%}  {}'.format(
-            ms, ms / device_ms if device_ms else 0.0, name[:90]), flush=True)
+    busy_ms = sum(ms for ms, _, _ in rows)
+    launches = sum(n for _, n, _ in rows)
+    print('profile {}: wall {:.3f} ms, device busy {:.3f} ms ({:.0%}), {} '
+          'kernels with device time, {:.0f} launches a call'.format(
+              what, wall_ms, busy_ms, busy_ms / wall_ms, len(rows),
+              launches), flush=True)
+    rows.sort(reverse=True)
+    own = [r for r in rows[15:] if 'bilstm_' in r[2] or 'ctc_' in r[2]]
+    for ms, n, name in rows[:15] + own:         # top 15, and the port's own
+        print('profile {:8.4f} ms {:5.1%} x{:<5.0f} {}'.format(
+            ms, ms / busy_ms if busy_ms else 0.0, n, name[:84]),
+            flush=True)
 
 
 def main():
@@ -312,8 +793,11 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     from lstm_ctc_ocr_torch.config import load_cfg
+    from lstm_ctc_ocr_torch.data import records
     from lstm_ctc_ocr_torch.engine import test as test_mod
-    from lstm_ctc_ocr_torch.ops import _build, rnn_cuda
+    from lstm_ctc_ocr_torch.engine import train
+    from lstm_ctc_ocr_torch.models.factory import get_network
+    from lstm_ctc_ocr_torch.ops import _build, ctc, ctc_cuda, rnn_cuda
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -336,33 +820,96 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print('ptxas {}: {}'.format(name, line.strip()), flush=True)
 
-    errs, timings = kernel_phase(rnn_cuda)
+    errs, timings = bilstm_fwd_phase(rnn_cuda)
+    bwd_errs, bwd_timings = bilstm_bwd_phase(rnn_cuda)
+    ctc_errs, ctc_timings = ctc_phase(ctc, ctc_cuda)
 
-    os.makedirs(os.path.join(REPO, 'chiprun_out'), exist_ok=True)
-    with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke_eval.log'),
-              'w') as log:
-        launches = eval_phase(rnn_cuda, test_mod, load_cfg, log)
+    out_dir = os.path.join(REPO, 'chiprun_out')
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, 'chip_smoke_eval.log'), 'w') as log:
+        eval_launches = eval_phase(rnn_cuda, test_mod, load_cfg, log)
     profile_phase(test_mod, load_cfg)
+    mods = {'load_cfg': load_cfg, 'train': train, 'test': test_mod,
+            'rnn_cuda': rnn_cuda, 'ctc_cuda': ctc_cuda, 'ctc': ctc,
+            'records': records, 'get_network': get_network}
+    with open(os.path.join(out_dir, 'chip_smoke_train.log'), 'w') as log:
+        train_launches, rate = train_phase(mods, card, log)
+    for name, count in train_launches.items():
+        check(count > 0, '{} was not launched on the train path'.format(name))
 
-    main_row = timings['bf16 N=64 T=23']
-    print(json.dumps({'kernels': [{
+    fwd, bwd = timings['bf16 N=64 T=23'], bwd_timings['bf16 N=64 T=23']
+    ctc_row = ctc_timings['N=64 T=23 L=6']
+    common = {'route': 'cuda', 'card': card, 'train_steps': 60}
+    print(json.dumps({'kernels': [dict(common, **{
         'name': 'bilstm_fwd',
-        'route': 'cuda',
         'source': 'lstm_ctc_ocr_torch/csrc/bilstm_fwd.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:398',
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_fwd_kernel',
-        'launches': launches,
+        'launches': eval_launches + train_launches['bilstm_fwd'],
+        'launches_by_path': {'eval': eval_launches,
+                             'train': train_launches['bilstm_fwd']},
         'max_abs_err': errs[('bf16 N=64 T=23', False)],
-        'ms': main_row['kernel_ms'],
-        'kernel_ms': main_row['kernel_ms'],
-        'plain_ms': main_row['plain_ms'],
-        'bound_ms': main_row['bound_ms'],
-        'bound_by': main_row['bound_by'],
-        'library_ms': main_row['library_ms'],
-        'kernel_plus_proj_ms': main_row['kernel_plus_proj_ms'],
+        'ms': fwd['kernel_ms'],
+        'device_ms': fwd['device_ms'],
+        'kernel_ms': fwd['kernel_ms'],
+        'kernel_with_residuals_ms': fwd['kernel_residuals_ms'],
+        'plain_ms': fwd['plain_ms'],
+        'bound_ms': fwd['bound_ms'],
+        'bound_by': fwd['bound_by'],
+        'library_ms': fwd['library_ms'],
+        'kernel_plus_proj_ms': fwd['kernel_plus_proj_ms'],
         'shape': 'bf16 T=23 N=64 H=256',
-        'card': card,
-    }]}), flush=True)
+    }), dict(common, **{
+        'name': 'bilstm_bwd',
+        'source': 'lstm_ctc_ocr_torch/csrc/bilstm_bwd.cu',
+        'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:522',
+        'tpu_kernel': 'ops/rnn_pallas.py:_bi_bwd_kernel',
+        'launches': train_launches['bilstm_bwd'],
+        'launches_by_path': {'train': train_launches['bilstm_bwd']},
+        'max_abs_err': bwd_errs['bf16 N=64 T=23'],
+        'ms': bwd['kernel_ms'],
+        'device_ms': bwd['device_ms'],
+        'plain_ms': bwd['plain_ms'],
+        'bound_ms': bwd['bound_ms'],
+        'bound_by': bwd['bound_by'],
+        'library_ms': bwd['library_ms'],
+        'library': 'cuDNN nn.LSTM backward, input projection included',
+        'shape': 'bf16 T=23 N=64 H=256',
+    }), dict(common, **{
+        'name': 'ctc_fwd',
+        'source': 'lstm_ctc_ocr_torch/csrc/ctc.cu',
+        'replaces': 'lstm_ctc_ocr_tpu/ops/ctc_pallas.py:54',
+        'tpu_kernel': 'ops/ctc_pallas.py:_fwd_kernel',
+        'launches': train_launches['ctc_fwd'],
+        'launches_by_path': {'train': train_launches['ctc_fwd']},
+        'max_abs_err': ctc_errs['N=64 T=23 L=6']['ctc_fwd'],
+        'ms': ctc_row['fwd_ms'],
+        'device_ms': ctc_row['fwd_device_ms'],
+        'plain_ms': ctc_row['fwd_plain_ms'],
+        'bound_ms': ctc_row['fwd_bound_ms'],
+        'bound_by': ctc_row['fwd_bound_by'],
+        'library_ms': ctc_row['library_fwd_bwd_ms'],
+        'library': 'torch.nn.functional.ctc_loss forward+backward, which '
+                   'covers ctc_fwd and ctc_bwd together',
+        'shape': 'f32 T=23 N=64 S=13',
+    }), dict(common, **{
+        'name': 'ctc_bwd',
+        'source': 'lstm_ctc_ocr_torch/csrc/ctc.cu',
+        'replaces': 'lstm_ctc_ocr_tpu/ops/ctc_pallas.py:89',
+        'tpu_kernel': 'ops/ctc_pallas.py:_bwd_kernel',
+        'launches': train_launches['ctc_bwd'],
+        'launches_by_path': {'train': train_launches['ctc_bwd']},
+        'max_abs_err': ctc_errs['N=64 T=23 L=6']['ctc_bwd'],
+        'ms': ctc_row['bwd_ms'],
+        'device_ms': ctc_row['bwd_device_ms'],
+        'plain_ms': ctc_row['bwd_plain_ms'],
+        'bound_ms': ctc_row['bwd_bound_ms'],
+        'bound_by': ctc_row['bwd_bound_by'],
+        'library_ms': ctc_row['library_fwd_bwd_ms'],
+        'library': 'torch.nn.functional.ctc_loss forward+backward, which '
+                   'covers ctc_fwd and ctc_bwd together',
+        'shape': 'f32 T=23 N=64 S=13',
+    })], 'train': rate}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)

@@ -14,8 +14,9 @@ Two differences from the JAX package:
 * YAML files are read by :func:`load_yaml`, a reader for the subset the
   tracked configs use, because PyYAML is not a dependency of the port.
 
-Keys the port does not read yet (training, data backends, parallelism) are
-kept with their defaults so that every config file still merges.
+Keys the port does not read yet (synthetic data backends, parallelism,
+profiling) are kept with their defaults so that every config file still
+merges.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import os
 import os.path as osp
 import re
 from ast import literal_eval
+from time import localtime, strftime
 
 
 class AttrDict(dict):
@@ -142,6 +144,15 @@ def get_output_dir(cfg, weights_filename=None):
         outdir = osp.join(outdir, weights_filename)
     os.makedirs(outdir, exist_ok=True)
     return outdir
+
+
+def get_log_dir(cfg, name):
+    """Timestamped event dir ``<ROOT>/logs/<LOG_DIR>/<name>/<ts>``, created."""
+    log_dir = osp.abspath(osp.join(
+        cfg.ROOT_DIR, 'logs', cfg.LOG_DIR, name,
+        strftime('%Y-%m-%d-%H-%M-%S', localtime())))
+    os.makedirs(log_dir, exist_ok=True)
+    return log_dir
 
 
 def merge_a_into_b(a, b):

@@ -17,6 +17,15 @@ The bridge, :func:`params_from_flat` and its exact inverse
   gate order unchanged;
 * ``bn_state/<layer>/{mean,var}`` <-> the ``<layer>.bn_{mean,var}`` buffers;
 * float leaves (f16 in releases) become f32.
+
+A training snapshot also holds the optimizer state under the keys the JAX
+package's optax chain flattens to: ``opt_state/1/0/.mu/<path>``,
+``opt_state/1/0/.nu/<path>`` and ``opt_state/1/0/.count`` for Adam
+(``.trace`` for Momentum, ``.nu`` alone for RMS) and the schedule's
+``opt_state/1/1/.count``. A moment has its parameter's shape and goes
+through the same bridge (:func:`opt_state_to_flat`,
+:func:`opt_state_from_flat`), so a snapshot written by either package
+restores in the other, optimizer state included.
 """
 
 from __future__ import annotations
@@ -133,14 +142,19 @@ def flat_from_params(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
-def load_into(model: torch.nn.Module, path: str, need_bn_state: bool):
+def load_into(model: torch.nn.Module, path: str, need_bn_state: bool,
+              params_only: bool = False):
     """Restore ``model`` from the checkpoint at ``path``.
 
     Every parameter must be in the file. The moving BN statistics may be
     missing only when ``need_bn_state`` is false; the model then keeps its
     initial ones (the JAX eval path reads them only under ``BN_EVAL:
-    moving``)."""
+    moving``). ``params_only`` leaves the file's moving statistics out, as
+    a warm start from pre-trained weights does."""
     state = params_from_flat(read_flat(path))
+    if params_only:
+        state = {k: v for k, v in state.items()
+                 if '.bn_mean' not in k and '.bn_var' not in k}
     missing, unexpected = model.load_state_dict(state, strict=False)
     if unexpected:
         raise KeyError('checkpoint {} has keys the model lacks: {}'.format(
@@ -153,3 +167,143 @@ def load_into(model: torch.nn.Module, path: str, need_bn_state: bool):
         raise RuntimeError(
             'BN_EVAL=moving but {} has no bn_state: estimate it with '
             'tools/calibrate_bn.py, or evaluate with BN_EVAL=batch'.format(path))
+
+
+# --- optimizer state -------------------------------------------------------------
+
+_OPT = 'opt_state/1/0/'
+_OPT_COUNT = ('opt_state/1/0/.count', 'opt_state/1/1/.count')
+
+
+def opt_state_to_flat(optimizer) -> Dict[str, np.ndarray]:
+    """The solver's state (``engine/train.py:Optimizer``: ``moments``, a
+    dict of per-parameter tensors for each of its slots, and ``count``)
+    under the JAX snapshot keys."""
+    out: Dict[str, np.ndarray] = {}
+    for slot, tensors in optimizer.moments.items():
+        for key, arr in flat_from_params(tensors).items():
+            out['{}.{}/{}'.format(_OPT, slot, key[len('params/'):])] = arr
+    counts = _OPT_COUNT if 'mu' in optimizer.moments else _OPT_COUNT[1:]
+    for key in counts:
+        out[key] = np.asarray(optimizer.count, np.int32)
+    return out
+
+
+def opt_state_from_flat(optimizer, flat: Dict[str, np.ndarray], path=''):
+    """Load the solver's state from JAX snapshot keys, in place. Every slot
+    of every parameter and the step count must be in ``flat``."""
+    for slot, tensors in optimizer.moments.items():
+        prefix = '{}.{}/'.format(_OPT, slot)
+        loaded = params_from_flat({'params/' + k[len(prefix):]: v
+                                   for k, v in flat.items()
+                                   if k.startswith(prefix)})
+        missing = sorted(set(tensors) - set(loaded))
+        if missing:
+            raise KeyError('checkpoint {} is missing optimizer state {} for '
+                           '{}'.format(path, slot, missing))
+        with torch.no_grad():
+            for name, t in tensors.items():
+                if tuple(loaded[name].shape) != tuple(t.shape):
+                    raise ValueError('shape mismatch for {} {}: ckpt {} vs '
+                                     'model {}'.format(
+                                         slot, name, tuple(loaded[name].shape),
+                                         tuple(t.shape)))
+                t.copy_(loaded[name])
+    if _OPT_COUNT[1] not in flat:
+        raise KeyError('checkpoint {} has no optimizer step count'.format(path))
+    optimizer.count = int(flat[_OPT_COUNT[1]])
+
+
+# --- training snapshots ------------------------------------------------------------
+
+def snapshot_name(cfg, step: int) -> str:
+    infix = ('_' + cfg.TRAIN.SNAPSHOT_INFIX) if cfg.TRAIN.SNAPSHOT_INFIX else ''
+    return '{}_ctc{}_iter_{:d}.ckpt.npz'.format(
+        cfg.TRAIN.SNAPSHOT_PREFIX, infix, step)
+
+
+def _family_checkpoints(cfg, output_dir: str):
+    """(path, step) of the snapshots of the configured PREFIX/INFIX family."""
+    stem = re.escape(snapshot_name(cfg, 0)[:-len('0.ckpt.npz')])
+    pattern = re.compile('^' + stem + r'(\d+)\.ckpt\.npz$')
+    out = []
+    for f in os.listdir(output_dir):
+        m = pattern.search(f)
+        if m:
+            out.append((os.path.join(output_dir, f), int(m.group(1))))
+    return out
+
+
+def _write_npz(fname: str, flat: Dict[str, np.ndarray], compressed=False):
+    tmp = fname + '.tmp'
+    with open(tmp, 'wb') as f:
+        (np.savez_compressed if compressed else np.savez)(f, **flat)
+    os.replace(tmp, fname)
+
+
+def save(model, optimizer, output_dir: str, step: int, cfg,
+         max_to_keep: int = 100, keep_every: int = 0) -> str:
+    """Write the snapshot of ``step`` (parameters, moving BN statistics,
+    optimizer state) and prune the family's older ones beyond
+    ``max_to_keep``. ``keep_every`` (the solver passes SNAPSHOT_ITERS)
+    exempts on-cadence snapshots from pruning, so low-loss snapshots near
+    convergence cannot evict the periodic history. Another experiment's
+    files in the same directory are never touched."""
+    os.makedirs(output_dir, exist_ok=True)
+    fname = os.path.join(output_dir, snapshot_name(cfg, step))
+    flat = flat_from_params(model.state_dict())
+    flat.update(opt_state_to_flat(optimizer))
+    _write_npz(fname, flat)
+    ckpts = sorted(_family_checkpoints(cfg, output_dir), key=lambda x: x[1])
+    prunable = [c for c in ckpts
+                if not (keep_every and c[1] % keep_every == 0)]
+    n_spare = max_to_keep - (len(ckpts) - len(prunable))
+    for path, _ in prunable[:-n_spare] if max_to_keep and n_spare > 0 \
+            else (prunable if max_to_keep else []):
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+    return fname
+
+
+def restore(model, optimizer, path: str):
+    """Load a training snapshot into ``model`` and ``optimizer``. Moving BN
+    statistics may be missing (an older snapshot): the model keeps its
+    own and the EMA re-converges."""
+    load_into(model, path, need_bn_state=False)
+    opt_state_from_flat(optimizer, read_flat(path), path)
+
+
+def restore_latest(model, optimizer, output_dir: str) -> int:
+    """Restore the newest snapshot in ``output_dir``; returns its step, or
+    0 when there is none."""
+    found = latest_checkpoint(output_dir)
+    if found is None:
+        return 0
+    restore(model, optimizer, found[0])
+    return found[1]
+
+
+def save_release(model, output_dir: str, step: int, cfg,
+                 dtype: str = 'float16', with_bn_state: bool = True) -> str:
+    """Write a params-only release checkpoint to ``checkpoints/<EXP_DIR>/``.
+
+    Float leaves are stored in ``dtype`` (leaves that are not finite or
+    exceed f16's range stay f32); the moving BN statistics, when kept, stay
+    f32."""
+    rel_dir = release_dir(output_dir)
+    os.makedirs(rel_dir, exist_ok=True)
+    out = {}
+    for k, v in flat_from_params(model.state_dict()).items():
+        if k.startswith('bn_state/'):
+            if with_bn_state:
+                out[k] = v
+        elif dtype and v.dtype == np.float32 and np.all(np.isfinite(v)) \
+                and np.abs(v).max() < 6e4:
+            out[k] = v.astype(dtype)
+        else:
+            out[k] = v
+    fname = os.path.join(rel_dir, snapshot_name(cfg, step))
+    _write_npz(fname, out, compressed=True)
+    return fname

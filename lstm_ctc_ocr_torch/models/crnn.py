@@ -36,11 +36,13 @@ class LSTM_train(nn.Module):
                                 generator=g)
         self.logits = BiLSTM(512, num_hid, nclasses, generator=g)
 
-    def forward(self, data, time_step_len, dtype=None, moving_bn=False):
+    def forward(self, data, time_step_len, dtype=None, moving_bn=False,
+                bn_collect=None):
         """``data`` [N, W, H] (f32, or uint8 raw pixels divided by 255 here),
         ``time_step_len`` [N] int32 -> time-major f32 logits [T, N, C].
         ``dtype`` is the compute dtype (None: f32); ``moving_bn`` selects the
-        moving BN statistics instead of the batch's."""
+        moving BN statistics instead of the batch's; ``bn_collect`` (a list)
+        receives each BN layer's batch statistics (``layers.ConvSingle``)."""
         if data.dtype == torch.uint8:
             data = data.float() / 255.0
         x = data.unsqueeze(1)                       # [N, 1, W, H]
@@ -48,11 +50,26 @@ class LSTM_train(nn.Module):
         x = max_pool(self.conv2(x, dtype), 2, 2)
         x = self.conv3_2(self.conv3_1(x, dtype), dtype)
         x = max_pool(x, 1, 2)
-        x = self.conv4_1(x, dtype, moving_bn)
-        x = self.conv4_2(x, dtype, moving_bn)
+        x = self.conv4_1(x, dtype, moving_bn, bn_collect)
+        x = self.conv4_2(x, dtype, moving_bn, bn_collect)
         x = max_pool(x, 1, 2)
         x = self.conv5(x, dtype)
         return self.logits(reshape_squeeze(x, 512), time_step_len, dtype)
+
+    def regularization_loss(self, weight_decay):
+        """Sum of the L2 penalties ``weight_decay * sum(w^2) / 2`` over the
+        conv kernels and the BiLSTM layer's projection weights, in f32;
+        zero when ``weight_decay <= 0``. LSTM cell weights, biases and the
+        BN scale and shift carry none."""
+        tensors = [m.kernel for m in self.children()
+                   if isinstance(m, ConvSingle)] + [self.logits.weights]
+        total = tensors[0].new_zeros((), dtype=torch.float32)
+        if weight_decay <= 0:
+            return total
+        for w in tensors:
+            total = total + weight_decay * 0.5 * torch.sum(
+                torch.square(w.float()))
+        return total
 
 
 class LSTM_test(LSTM_train):

@@ -62,7 +62,10 @@ class ConvSingle(nn.Module):
             self.register_buffer('bn_mean', torch.zeros(c_o))
             self.register_buffer('bn_var', torch.ones(c_o))
 
-    def forward(self, x, dtype=None, moving_bn=False):
+    def forward(self, x, dtype=None, moving_bn=False, bn_collect=None):
+        """``bn_collect``: a list the caller owns; a ``bn`` layer running on
+        batch statistics appends ``(layer, mean [C], biased var [C])`` to
+        it, for the train step's moving-statistics update."""
         x = _cast(x, dtype)
         y = F.conv2d(x, _cast(self.kernel, dtype), padding=self.padding)
         y = y + _cast(self.biases, dtype).view(1, -1, 1, 1)
@@ -77,6 +80,9 @@ class ConvSingle(nn.Module):
             else:
                 mean = y32.mean(dim=(0, 2, 3), keepdim=True)
                 var = y32.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+                if bn_collect is not None:
+                    bn_collect.append((self, mean.detach().reshape(-1),
+                                       var.detach().reshape(-1)))
             y32 = (y32 - mean) * torch.rsqrt(var + BN_EPS)
             y = y32 * self.bn_gamma.view(1, -1, 1, 1) \
                 + self.bn_beta.view(1, -1, 1, 1)

@@ -13,9 +13,11 @@ package's ``kernel [D+H, 4H]`` split into its input and recurrent halves
 
 :func:`bilstm` is the model's BiLSTM: one input projection for both
 directions, then ``rnn_cuda.bilstm_fwd`` — the CUDA kernel for a CUDA
-tensor, its plain version for a CPU tensor. :func:`bilstm_scan_pair` (two
-scans and two reversal gathers) is the portable formulation the tests hold
-both against.
+tensor, its plain version for a CPU tensor — inside a
+``torch.autograd.Function`` whose backward is ``rnn_cuda.bilstm_bwd``
+(counterpart of the JAX package's ``_bi_core`` custom VJP).
+:func:`bilstm_scan_pair` (two scans and two reversal gathers) is the
+portable formulation the tests hold both against.
 """
 
 from __future__ import annotations
@@ -74,6 +76,30 @@ def bilstm_scan_pair(cells, x, lens, forget_bias=1.0):
     return torch.cat([out_fw, out_bw], dim=-1).transpose(0, 1)
 
 
+class _BiLSTMCore(torch.autograd.Function):
+    """``bilstm_fwd`` with ``bilstm_bwd`` as its gradient. The forward saves
+    the residuals only when some input needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, xpf, xpb, uf, ub, bf, bb, lens, forget_bias):
+        if not any(ctx.needs_input_grad):
+            return rnn_cuda.bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens,
+                                       forget_bias)
+        of, gf, hf, cf, ob, gb, hb, cb = rnn_cuda.bilstm_fwd(
+            xpf, xpb, uf, ub, bf, bb, lens, forget_bias, save_residuals=True)
+        ctx.save_for_backward(gf, hf, cf, gb, hb, cb, uf, ub, lens)
+        return of, ob
+
+    @staticmethod
+    def backward(ctx, dof, dob):
+        gf, hf, cf, gb, hb, cb, uf, ub, lens = ctx.saved_tensors
+        dxf, dxb, duf, dbf, dub, dbb = rnn_cuda.bilstm_bwd(
+            dof.to(gf.dtype).contiguous(), dob.to(gb.dtype).contiguous(),
+            gf, hf, cf, gb, hb, cb, uf, ub, lens)
+        return (dxf, dxb, duf.to(uf.dtype), dub.to(ub.dtype),
+                dbf.to(uf.dtype), dbb.to(ub.dtype), None, None)
+
+
 def bilstm(cells, x, lens, forget_bias=1.0):
     """Bidirectional masked LSTM, fused.
 
@@ -90,7 +116,7 @@ def bilstm(cells, x, lens, forget_bias=1.0):
     four_h = fw['u'].shape[1]
     w = torch.cat([fw['w'], bw['w']], dim=1)              # [D, 8H], one matmul
     xp = (x_tm.reshape(t_len * n, d) @ w).reshape(t_len, n, 2 * four_h)
-    of, ob = rnn_cuda.bilstm_fwd(xp[:, :, :four_h], xp[:, :, four_h:],
-                                 fw['u'], bw['u'], fw['bias'], bw['bias'],
-                                 lens, forget_bias)
+    of, ob = _BiLSTMCore.apply(xp[:, :, :four_h], xp[:, :, four_h:],
+                               fw['u'], bw['u'], fw['bias'], bw['bias'],
+                               lens, forget_bias)
     return torch.cat([of, ob], dim=-1).transpose(0, 1)

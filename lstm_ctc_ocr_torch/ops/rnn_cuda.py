@@ -1,14 +1,17 @@
-"""Fused masked BiLSTM forward: the hand-written CUDA kernel and its plain twin.
+"""Fused masked BiLSTM forward and backward: the hand-written CUDA kernels
+and their plain twins.
 
-Counterpart of the JAX package's ``ops/rnn_pallas.py`` (``_bi_fwd_call`` /
-``_bi_fwd_kernel``). The kernel is ``csrc/bilstm_fwd.cu``; its header says
-what bounds it on an H100 and how its design answers that. The input
-projection ``x @ [W_fw | W_bw]`` stays outside the kernel, as it stayed
-outside the TPU kernel (one large matmul).
+Counterpart of the JAX package's ``ops/rnn_pallas.py``: ``_bi_fwd_call`` /
+``_bi_fwd_kernel`` (``csrc/bilstm_fwd.cu``) and ``_bi_bwd_call`` /
+``_bi_bwd_kernel`` (``csrc/bilstm_bwd.cu``). Each source's header says what
+bounds it on an H100 and how its design answers that. The input projection
+``x @ [W_fw | W_bw]`` and its backward stay outside the kernels, as they
+stayed outside the TPU kernels (large matmuls).
 
-``bilstm_fwd`` launches the kernel for CUDA tensors and runs
-``bilstm_fwd_reference`` for CPU tensors; it never falls back from one to
-the other. ``bilstm_fwd.launches`` counts kernel launches.
+``bilstm_fwd`` / ``bilstm_bwd`` launch the kernel for CUDA tensors and run
+``bilstm_fwd_reference`` / ``bilstm_bwd_reference`` for CPU tensors; they
+never fall back from one to the other. ``bilstm_fwd.launches`` and
+``bilstm_bwd.launches`` count launches (one per call of the wrapper).
 """
 
 from __future__ import annotations
@@ -161,3 +164,141 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
 
 
 bilstm_fwd.launches = 0
+
+
+def bilstm_bwd_reference(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
+    """Plain PyTorch version of the backward kernel: the TPU kernel's
+    ``_bi_bwd_step`` repeated over the reverse of each direction's walk.
+
+    Args:
+      dof, dob: [T, N, H] cotangents of the outputs, in the compute dtype.
+      gf, hf, cf, gb, hb, cb: the residuals ``bilstm_fwd(save_residuals=
+        True)`` returns: gates [T, N, 4H], h and c carries [T, N, H].
+      uf, ub:   [H, 4H] recurrent weights; lens: [N] int32.
+    Returns:
+      ``(dxf, dxb, duf, dbf, dub, dbb)``: dx [T, N, 4H] in the compute
+      dtype (the gate pre-activation gradients, which are also the input
+      projections' gradients), dU [H, 4H] and db [4H] in f32.
+    """
+    t_len, n, four_h = gf.shape
+    h_dim = four_h // 4
+    rdt = gf.dtype
+    lens = lens.to(torch.int64)
+    results = []
+    for dout, gates, hs, cs, u, fw in ((dof, gf, hf, cf, uf, True),
+                                       (dob, gb, hb, cb, ub, False)):
+        u32 = u.float()
+        dh = torch.zeros(n, h_dim, dtype=torch.float32, device=gates.device)
+        dc = torch.zeros_like(dh)
+        dx = torch.zeros(t_len, n, four_h, dtype=rdt, device=gates.device)
+        du = torch.zeros(h_dim, four_h, dtype=torch.float32,
+                         device=gates.device)
+        db = torch.zeros(four_h, dtype=torch.float32, device=gates.device)
+        for t in (reversed(range(t_len)) if fw else range(t_len)):
+            tp = t - 1 if fw else t + 1          # the step's incoming carry
+            if 0 <= tp < t_len:
+                h_prev, c_prev = hs[tp].float(), cs[tp].float()
+            else:
+                h_prev, c_prev = torch.zeros_like(dh), torch.zeros_like(dh)
+            g = gates[t].float()
+            i, j = g[:, :h_dim], g[:, h_dim:2 * h_dim]
+            f, o = g[:, 2 * h_dim:3 * h_dim], g[:, 3 * h_dim:]
+            tanh_c = torch.tanh(f * c_prev + i * j)
+            live = (lens > t).to(torch.float32)[:, None]
+            g_hnew = live * (dh + dout[t].float())
+            g_cnew = live * dc
+            do_ = g_hnew * tanh_c
+            dc_tot = g_cnew + g_hnew * o * (1.0 - tanh_c * tanh_c)
+            dg = torch.cat([dc_tot * j * i * (1.0 - i),
+                            dc_tot * i * (1.0 - j * j),
+                            dc_tot * c_prev * f * (1.0 - f),
+                            do_ * o * (1.0 - o)], dim=1)
+            # dg enters both products rounded to U's dtype; f32 accumulation
+            dg_c = dg.to(u.dtype).float()
+            dh = dg_c @ u32.t() + (1.0 - live) * dh
+            dc = dc_tot * f + (1.0 - live) * dc
+            du += h_prev.to(u.dtype).float().t() @ dg_c
+            db += dg.sum(dim=0)
+            dx[t] = dg.to(rdt)
+        results.append((dx, du, db))
+    (dxf, duf, dbf), (dxb, dub, dbb) = results
+    return dxf, dxb, duf, dbf, dub, dbb
+
+
+def _bwd_entry(dtype):
+    lib = _build.library('bilstm_bwd')
+    fn = getattr(lib, 'bilstm_bwd_bf16' if dtype == torch.bfloat16
+                 else 'bilstm_bwd_f32')
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def bilstm_bwd(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
+    """Backward of :func:`bilstm_fwd` from its residuals.
+
+    Same contract as :func:`bilstm_bwd_reference`. CPU tensors run the
+    plain version; CUDA tensors launch ``csrc/bilstm_bwd.cu`` (the
+    recurrence, the dU product and the db sum, one entry point) or raise.
+    """
+    if gf.device.type == 'cpu':
+        return bilstm_bwd_reference(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub,
+                                    lens)
+    if gf.device.type != 'cuda':
+        raise ValueError('bilstm_bwd runs on CUDA or CPU tensors, got {}'
+                         .format(gf.device))
+    t_len, n, four_h = gf.shape
+    h_dim = four_h // 4
+    dtype = gf.dtype
+    if dtype not in _SUPPORTED:
+        raise TypeError('bilstm_bwd takes bf16 or f32, got {}'.format(dtype))
+    vec = 16 // gf.element_size()
+    if four_h % 4 or not 0 < h_dim <= MAX_HIDDEN or h_dim % vec:
+        raise ValueError('hidden size {} unsupported: needs H <= {} and a '
+                         'multiple of {}'.format(h_dim, MAX_HIDDEN, vec))
+    narrow, wide = (t_len, n, h_dim), (t_len, n, four_h)
+    for name, tns, shape in (
+            ('dof', dof, narrow), ('dob', dob, narrow), ('gb', gb, wide),
+            ('hf', hf, narrow), ('hb', hb, narrow), ('cf', cf, narrow),
+            ('cb', cb, narrow), ('uf', uf, (h_dim, four_h)),
+            ('ub', ub, (h_dim, four_h))):
+        if tns.dtype != dtype or tns.device != gf.device \
+                or tuple(tns.shape) != shape:
+            raise ValueError('{}: expected {} {} on {}, got {} {} on {}'.format(
+                name, shape, dtype, gf.device, tuple(tns.shape), tns.dtype,
+                tns.device))
+    if lens.dtype != torch.int32 or lens.device != gf.device \
+            or tuple(lens.shape) != (n,):
+        raise ValueError('lens: expected [{}] int32 on {}'.format(n, gf.device))
+    dof, dob, gf, gb, hf, hb, cf, cb, lens = (
+        x.contiguous() for x in (dof, dob, gf, gb, hf, hb, cf, cb, lens))
+    # U^T in the forward's packing: row k of U becomes 16-byte pieces that
+    # neighbouring threads read side by side
+    utf, utb = _pack_u(uf.t(), vec), _pack_u(ub.t(), vec)
+    dev = gf.device
+    dxf = torch.empty(wide, dtype=dtype, device=dev)
+    dxb = torch.empty(wide, dtype=dtype, device=dev)
+    duf, dub = (torch.empty(h_dim, four_h, dtype=torch.float32, device=dev)
+                for _ in range(2))
+    dbf, dbb = (torch.empty(four_h, dtype=torch.float32, device=dev)
+                for _ in range(2))
+    if t_len and n:
+        db_part = torch.empty(2, n, four_h, dtype=torch.float32, device=dev)
+        err = _bwd_entry(dtype)(
+            *(x.data_ptr() for x in (dof, dob, gf, gb, hf, hb, cf, cb, utf,
+                                     utb, lens, dxf, dxb, duf, dub, dbf, dbb,
+                                     db_part)),
+            t_len, n, h_dim, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError('bilstm_bwd kernel launch failed: cudaError {}'
+                               .format(err))
+        bilstm_bwd.launches += 1
+    else:
+        for x in (duf, dub, dbf, dbb):
+            x.zero_()
+    return dxf, dxb, duf, dbf, dub, dbb
+
+
+bilstm_bwd.launches = 0

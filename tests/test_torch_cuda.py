@@ -8,14 +8,16 @@ no JAX, so it runs on the GPU machine without the repo's conftest::
 Tolerances: f32 max |difference| <= 1e-4 (the kernel and the plain version
 sum the recurrent product in different orders); bf16 <= 4 bf16 ulps of each
 output's magnitude, 4 * max|ref| / 256, as tests/test_rnn_pallas.py
-defines it.
+defines it. The BiLSTM backward's f32 bar is 1e-4 relative to each
+output's largest entry (dU sums T*N products). CTC: 1e-5 on loss, alphas
+and gradient (f32 throughout, same operation order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lstm_ctc_ocr_torch.ops import rnn, rnn_cuda
+from lstm_ctc_ocr_torch.ops import ctc, ctc_cuda, rnn, rnn_cuda
 
 
 @pytest.fixture
@@ -90,3 +92,164 @@ def test_bilstm_kernel_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match='lens'):
         rnn_cuda.bilstm_fwd(x[..., :1024], x[..., :1024], u[:256, :1024],
                             u[:256, :1024], b[:1024], b[:1024], lens.long())
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('t,n', [(23, 64), (7, 37), (1, 3)])
+def test_bilstm_bwd_kernel_matches_reference(cuda_device, dtype, t, n):
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(1000 + t * n)
+    h = 256
+
+    def mk(*shape, scale=1.0):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(cuda_device, dt)
+    lens = rng.randint(0, t + 1, n).astype(np.int32)
+    lens[0], lens[1] = 0, t
+    lens = torch.from_numpy(lens).to(cuda_device)
+    uf, ub = mk(h, 4 * h, scale=h ** -0.5), mk(h, 4 * h, scale=h ** -0.5)
+    _, gf, hf, cf, _, gb, hb, cb = rnn_cuda.bilstm_fwd(
+        mk(t, n, 4 * h), mk(t, n, 4 * h), uf, ub, mk(4 * h, scale=0.1),
+        mk(4 * h, scale=0.1), lens, save_residuals=True)
+    args = (mk(t, n, h), mk(t, n, h), gf, hf, cf, gb, hb, cb, uf, ub, lens)
+    before = rnn_cuda.bilstm_bwd.launches
+    got = rnn_cuda.bilstm_bwd(*args)
+    assert rnn_cuda.bilstm_bwd.launches == before + 1
+    want = rnn_cuda.bilstm_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 6
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype == (dt if i < 2 else torch.float32)
+        assert g.shape == w.shape
+        w = w.float()
+        scale = max(float(w.abs().max()), 1e-6)
+        tol = 1e-4 * scale if dt == torch.float32 else 4 * scale / 256.0
+        assert float((g.float() - w).abs().max()) <= tol, i
+
+
+def test_bilstm_gradients_through_kernels(cuda_device):
+    """``ops/rnn.bilstm`` under autograd on CUDA tensors: one forward and one
+    backward launch, gradients equal to the CPU (plain) ones in f32."""
+    gen = torch.Generator().manual_seed(1)
+    d, h, n, t = 32, 16, 5, 9
+    cells = {k: {'w': torch.randn(d, 4 * h, generator=gen) * 0.3,
+                 'u': torch.randn(h, 4 * h, generator=gen) * 0.3,
+                 'bias': torch.randn(4 * h, generator=gen) * 0.1}
+             for k in ('fw', 'bw')}
+    x = torch.randn(n, t, d, generator=gen)
+    wgt = torch.randn(n, t, 2 * h, generator=gen)
+    lens = torch.tensor([9, 0, 4, 1, 7], dtype=torch.int32)
+
+    def grads(dev):
+        c = {k: {p: v.clone().to(dev).requires_grad_() for p, v in cell.items()}
+             for k, cell in cells.items()}
+        xd = x.clone().to(dev).requires_grad_()
+        (rnn.bilstm(c, xd, lens.to(dev)) * wgt.to(dev)).sum().backward()
+        return [xd.grad.cpu()] + [c[k][p].grad.cpu() for k in ('fw', 'bw')
+                                  for p in ('w', 'u', 'bias')]
+    want = grads('cpu')
+    fwd0, bwd0 = rnn_cuda.bilstm_fwd.launches, rnn_cuda.bilstm_bwd.launches
+    got = grads(cuda_device)
+    assert rnn_cuda.bilstm_fwd.launches == fwd0 + 1
+    assert rnn_cuda.bilstm_bwd.launches == bwd0 + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+def _ctc_case(rng, n, t, l, c=64):
+    """Logits, labels and lengths with a ragged batch, a repeated label, an
+    empty label and an infeasible example."""
+    logits = (rng.randn(n, t, c) * 2).astype(np.float32)
+    labels = rng.randint(1, c, (n, l)).astype(np.int32)
+    label_lens = rng.randint(1, l + 1, n).astype(np.int32)
+    logit_lens = rng.randint(max(1, t // 2), t + 1, n).astype(np.int32)
+    labels[0, 1] = labels[0, 0]
+    label_lens[0], logit_lens[0] = l, t
+    label_lens[1] = 0                              # empty label
+    label_lens[2], logit_lens[2] = l, min(l - 1, t)   # infeasible
+    logit_lens[3] = 1
+    label_lens[3] = 1
+    for i in range(n):
+        labels[i, label_lens[i]:] = 0
+    return logits, labels, label_lens, logit_lens
+
+
+@pytest.mark.parametrize('t,l', [(23, 6), (111, 24), (1, 2), (40, 63)])
+def test_ctc_kernels_match_reference(cuda_device, t, l):
+    rng = np.random.RandomState(t + l)
+    logits, labels, label_lens, logit_lens = _ctc_case(rng, 64, t, l)
+    dev = cuda_device
+    logp = torch.log_softmax(torch.from_numpy(logits).to(dev), -1)
+    ext = ctc.extended_labels(torch.from_numpy(labels).to(dev))
+    ll = torch.from_numpy(label_lens).to(dev)
+    tl = torch.from_numpy(logit_lens).to(dev)
+    skip, final, valid = (ctc._as_additive(m)
+                          for m in ctc._transition_masks(ext, ll))
+    g = ctc._gather_logp(logp, ext, tl).contiguous()
+    f0, b0 = ctc_cuda.ctc_forward.launches, ctc_cuda.ctc_backward.launches
+    logz, alphas = ctc_cuda.ctc_forward(g, skip, valid, final)
+    grad = ctc_cuda.ctc_backward(g, skip, valid, final, alphas, logz, tl)
+    torch.cuda.synchronize()
+    assert ctc_cuda.ctc_forward.launches == f0 + 1
+    assert ctc_cuda.ctc_backward.launches == b0 + 1
+    logz_r, alphas_r = ctc.ctc_forward_reference(g, skip, valid, final)
+    grad_r = ctc.ctc_backward_reference(g, skip, valid, final, alphas_r,
+                                        logz_r, tl)
+    assert float(logz[2]) <= ctc.NEG_INF / 2 and not grad[2].any()
+    torch.testing.assert_close(logz, logz_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(alphas, alphas_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grad, grad_r, rtol=1e-5, atol=1e-5)
+
+
+def test_ctc_loss_on_cuda_matches_cpu(cuda_device):
+    rng = np.random.RandomState(5)
+    logits, labels, label_lens, logit_lens = _ctc_case(rng, 16, 23, 6)
+    wgt = torch.from_numpy(rng.rand(16).astype(np.float32))
+
+    def run(dev, fn):
+        x = torch.from_numpy(logits).to(dev).requires_grad_()
+        loss = fn(x, *(torch.from_numpy(a).to(dev)
+                       for a in (labels, label_lens, logit_lens)))
+        (loss * wgt.to(dev)).sum().backward()
+        return loss.detach().cpu(), x.grad.cpu()
+    f0, b0 = ctc_cuda.ctc_forward.launches, ctc_cuda.ctc_backward.launches
+    loss, grad = run(cuda_device, ctc_cuda.ctc_loss)
+    assert ctc_cuda.ctc_forward.launches == f0 + 1
+    assert ctc_cuda.ctc_backward.launches == b0 + 1
+    loss_r, grad_r = run('cpu', ctc.ctc_loss)
+    assert float(loss[2]) >= 1e29 and not grad[2].any()
+    torch.testing.assert_close(loss, loss_r, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grad, grad_r, rtol=1e-5, atol=1e-5)
+    # labels past the kernel's capacity take the plain recursions
+    long = torch.ones(2, ctc_cuda.MAX_LABEL_LEN + 1, dtype=torch.int32,
+                      device=cuda_device)
+    f1 = ctc_cuda.ctc_forward.launches
+    ctc_cuda.ctc_loss(torch.zeros(2, 4, 8, device=cuda_device), long,
+                      torch.tensor([1, 2], device=cuda_device),
+                      torch.tensor([4, 4], device=cuda_device))
+    assert ctc_cuda.ctc_forward.launches == f1
+
+
+def test_training_kernels_reject_bad_inputs(cuda_device):
+    g = torch.zeros(2, 3, 5, device=cuda_device)
+    row = torch.zeros(2, 5, device=cuda_device)
+    with pytest.raises(ValueError, match='skip'):
+        ctc_cuda.ctc_forward(g, row[:, :4], row, row)
+    with pytest.raises(ValueError, match='S in 1'):
+        ctc_cuda.ctc_forward(torch.zeros(1, 2, 129, device=cuda_device),
+                             row, row, row)
+    with pytest.raises(ValueError, match='lens'):
+        ctc_cuda.ctc_backward(g, row, row, row, g, row[:, 0].contiguous(),
+                              torch.ones(2, dtype=torch.int64,
+                                         device=cuda_device))
+    wide = torch.zeros(3, 2, 1024, device=cuda_device)
+    narrow = torch.zeros(3, 2, 256, device=cuda_device)
+    u = torch.zeros(256, 1024, device=cuda_device)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match='dob'):
+        rnn_cuda.bilstm_bwd(narrow, narrow[:2], wide, narrow, narrow, wide,
+                            narrow, narrow, u, u, lens)
+    with pytest.raises(TypeError, match='bf16 or f32'):
+        rnn_cuda.bilstm_bwd(*(x.half() for x in (
+            narrow, narrow, wide, narrow, narrow, wide, narrow, narrow, u,
+            u)), lens)

@@ -21,6 +21,28 @@ def _modules():
     return sorted(out)
 
 
+# every module of the port; a new module must be listed here
+EXPECTED = [
+    'lstm_ctc_ocr_torch', 'lstm_ctc_ocr_torch.config',
+    'lstm_ctc_ocr_torch.data', 'lstm_ctc_ocr_torch.data.gen',
+    'lstm_ctc_ocr_torch.data.image', 'lstm_ctc_ocr_torch.data.records',
+    'lstm_ctc_ocr_torch.engine', 'lstm_ctc_ocr_torch.engine.checkpoint',
+    'lstm_ctc_ocr_torch.engine.summary', 'lstm_ctc_ocr_torch.engine.test',
+    'lstm_ctc_ocr_torch.engine.train', 'lstm_ctc_ocr_torch.models',
+    'lstm_ctc_ocr_torch.models.crnn', 'lstm_ctc_ocr_torch.models.factory',
+    'lstm_ctc_ocr_torch.models.layers', 'lstm_ctc_ocr_torch.ops',
+    'lstm_ctc_ocr_torch.ops._build', 'lstm_ctc_ocr_torch.ops.ctc',
+    'lstm_ctc_ocr_torch.ops.ctc_cuda', 'lstm_ctc_ocr_torch.ops.decoder',
+    'lstm_ctc_ocr_torch.ops.rnn', 'lstm_ctc_ocr_torch.ops.rnn_cuda',
+    'lstm_ctc_ocr_torch.utils', 'lstm_ctc_ocr_torch.utils.metrics',
+    'lstm_ctc_ocr_torch.utils.timer',
+]
+
+
+def test_every_module_is_covered():
+    assert _modules() == sorted(EXPECTED)
+
+
 def test_importing_every_module_loads_no_jax():
     code = ('import importlib, sys\n'
             'for m in {!r}:\n'
