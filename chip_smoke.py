@@ -17,9 +17,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``bilstm_bwd_reference``) on the same cases: f32 <= 1e-4 relative to the
    largest entry of each output, bf16 within 4 bf16 ulps of it. ``ctc_fwd``
    and ``ctc_bwd`` (vs ``ctc_forward_reference`` / ``ctc_backward_reference``)
-   at batch 64 with T=23, L=6 and T=111, L=24, each batch ragged with an
-   empty label, an infeasible example and a one-frame example: f32 <= 1e-5
-   on logZ, alphas and gradient. Then CUDA-event timings (median of 50
+   at batch 64 with T=23, L=6 and T=111, L=24, and (checked, not timed)
+   with L=64 and L=511, the longest label one block of threads holds, each
+   batch ragged with an empty label, an infeasible example and a one-frame
+   example: f32 <= 1e-5 on logZ, alphas and gradient. Then CUDA-event timings (median of 50
    after warm-up) of each kernel's wrapper call, and the kernel's own
    device time from ``torch.profiler``, beside its plain version, its bound
    and a library yardstick: cuDNN's bidirectional ``torch.nn.LSTM`` on a packed
@@ -385,8 +386,10 @@ def ctc_phase(ctc, ctc_cuda):
     """``ctc_fwd`` / ``ctc_bwd`` against their plain versions, then timings
     beside ``torch.nn.functional.ctc_loss``."""
     errs, timings = {}, {}
-    for label, t_len, l_max in (('N=64 T=23 L=6', 23, 6),
-                                ('N=64 T=111 L=24', 111, 24)):
+    for label, t_len, l_max, timed in (('N=64 T=23 L=6', 23, 6, True),
+                                       ('N=64 T=111 L=24', 111, 24, True),
+                                       ('N=64 T=160 L=64', 160, 64, False),
+                                       ('N=64 T=560 L=511', 560, 511, False)):
         case = ctc_case(ctc, t_len, l_max, seed=t_len)
         g, masks, lens = case['g'], case['masks'], case['logit_lens']
         logz, alphas = ctc_cuda.ctc_forward(g, *masks)
@@ -409,6 +412,8 @@ def ctc_phase(ctc, ctc_cuda):
         check(ok_z and ok_a and ok_g and special,
               'ctc {}: out of tolerance'.format(label))
         errs[label] = {'ctc_fwd': max(e_z, e_a), 'ctc_bwd': e_g}
+        if not timed:
+            continue
 
         lib, lib_losses = ctc_library_yardstick(case)
         feasible = logz > ctc.NEG_INF / 2

@@ -28,13 +28,15 @@
 //
 // Design: the TPU kernel put 8 examples on sublanes and S (padded to 128)
 // on lanes and kept alpha in VMEM scratch across a fori_loop. Here one block
-// of S rounded up to a warp multiple (32..128 threads) owns one example:
+// of S rounded up to a warp multiple (32..1024 threads) owns one example:
 // thread s keeps alpha[s] (beta[s]) in a register for the whole time loop,
 // and the s-1, s-2 (s+1, s+2) neighbours come from a double-buffered
 // shared-memory row with two NEG pad cells, one __syncthreads per step. The
 // next step's g is loaded before the current step's math so the load is off
 // the dependent chain. Threads past S carry NEG and write nothing. The
-// batch needs no padding.
+// batch needs no padding. A block holds at most 1024 threads, so S <= 1023:
+// labels of up to 511 characters, where the TPU kernel's one 128-lane row
+// stopped at 63.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
@@ -46,7 +48,8 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kMaxStates = 128;   // S <= 127 (labels up to 63 characters)
+constexpr int kMaxThreads = 1024;  // one thread per state, S <= 1023
+constexpr int kMaxStates = kMaxThreads - 1;   // labels up to 511 characters
 
 __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float m = fmaxf(fmaxf(a, b), c);
@@ -55,7 +58,7 @@ __device__ __forceinline__ float lse3(float a, float b, float c) {
   return m > 0.5f * kNeg ? out : kNeg;
 }
 
-__global__ void __launch_bounds__(kMaxStates)
+__global__ void __launch_bounds__(kMaxThreads)
 ctc_fwd_kernel(const float* __restrict__ g, const float* __restrict__ skip,
                const float* __restrict__ valid, const float* __restrict__ fin,
                float* __restrict__ logz, float* __restrict__ alphas,
@@ -91,21 +94,27 @@ ctc_fwd_kernel(const float* __restrict__ g, const float* __restrict__ skip,
     if (active) an[(long long)t * s_len + s] = alpha;
   }
 
-  // logz over the (at most two) final states; one thread sums the row
+  // logz over the final states: final is 0 on at most two states and NEG on
+  // the rest, whose terms exp(. - ms) are exactly 0, so the first warp's
+  // threads each sum a strided share of the row and thread 0 adds the 32
   __syncthreads();
   row[s] = alpha + fi;
   __syncthreads();
-  if (s == 0) {
+  if (s < 32) {
     float m = kNeg;
-    for (int i = 0; i < s_len; ++i) m = fmaxf(m, row[i]);
+    for (int i = s; i < s_len; i += 32) m = fmaxf(m, row[i]);
+    for (int d = 16; d > 0; d >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
     const float ms = fmaxf(m, kNeg);
     float sum = 0.0f;
-    for (int i = 0; i < s_len; ++i) sum += expf(row[i] - ms);
-    logz[n] = m > 0.5f * kNeg ? ms + logf(sum) : kNeg;
+    for (int i = s; i < s_len; i += 32) sum += expf(row[i] - ms);
+    for (int d = 16; d > 0; d >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, d);
+    if (s == 0) logz[n] = m > 0.5f * kNeg ? ms + logf(sum) : kNeg;
   }
 }
 
-__global__ void __launch_bounds__(kMaxStates)
+__global__ void __launch_bounds__(kMaxThreads)
 ctc_bwd_kernel(const float* __restrict__ g, const float* __restrict__ skip,
                const float* __restrict__ valid, const float* __restrict__ fin,
                const float* __restrict__ alphas,

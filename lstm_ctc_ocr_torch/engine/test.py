@@ -23,6 +23,7 @@ rather than fall back.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -68,6 +69,22 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@contextlib.contextmanager
+def full_f32():
+    """f32 convs and matmuls in full f32 (no TF32), as the JAX reference
+    computes them, for the time of an entry point's run; the process's
+    settings are put back afterwards. Also a decorator."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 def decode_ids(nums, decode_maps, ignore=0) -> str:
     """Ids -> string; ids outside the charset (a 64-class head over 62
     chars) decode to ''."""
@@ -105,15 +122,13 @@ def make_decode_step(model, cfg, device):
     return decode_step
 
 
+@full_f32()
 def test_net(cfg, test_dir: str, output_dir: str = None, device='cuda',
              echo: Callable[[str], None] = print) -> EvalResult:
     """Evaluate the newest checkpoint of ``cfg.EXP_DIR`` on ``test_dir``.
 
     ``echo`` receives the per-image and summary lines."""
     dev = resolve_device(device)
-    # f32 convs and matmuls in full f32, as the JAX reference computes them
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     if output_dir is None:
         output_dir = get_output_dir(cfg)
     found = checkpoint.latest_eval_checkpoint(output_dir)

@@ -53,7 +53,7 @@ from ..ops import ctc_cuda
 from ..utils.metrics import accuracy_calculation
 from . import checkpoint
 from .summary import SummaryWriter
-from .test import make_decode_step, resolve_device
+from .test import full_f32, make_decode_step, resolve_device
 
 _DTYPES = {'bfloat16': torch.bfloat16, 'float32': None}
 
@@ -248,12 +248,10 @@ class SolverWrapper:
                                 keep_every=int(self.cfg.TRAIN.SNAPSHOT_ITERS))
         print('Wrote snapshot to: {:s}'.format(fname))
 
+    @full_f32()
     def train_model(self, max_iters, restore=False):
         cfg, dev = self.cfg, self.device
         _check_ported(cfg, self.pre_train, dev)
-        # f32 convs and matmuls in full f32, as the JAX reference computes
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
         dtype = compute_dtype(cfg)
         n = int(cfg.TRAIN.BATCH_SIZE)
         model = self.net.to(dev).train()

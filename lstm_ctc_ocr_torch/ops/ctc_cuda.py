@@ -14,10 +14,11 @@ one to the other. ``ctc_forward.launches`` / ``ctc_backward.launches`` count
 kernel launches.
 
 :func:`ctc_loss` is the training loss: the gather and the scatter in
-tensor ops around the two recursions. Labels longer than
-:data:`MAX_LABEL_LEN` characters (more than 127 extended states) take the
-plain recursions on either device, with a one-time notice — the same
-length at which the JAX package leaves its kernel.
+tensor ops around the two recursions. The kernels run one thread per
+extended state in one block, so they take labels of up to
+:data:`MAX_LABEL_LEN` characters (1023 states); the JAX package's kernel
+stops at 63 and hands longer labels to its plain version. Past
+:data:`MAX_LABEL_LEN`, CUDA tensors raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ import torch
 
 from . import _build, ctc
 
-MAX_STATES = 127                  # S = 2L+1 the kernel takes (kMaxStates - 1)
-MAX_LABEL_LEN = (MAX_STATES - 1) // 2    # 63 characters
+MAX_STATES = 1023                 # S = 2L+1 the kernels take (kMaxStates)
+MAX_LABEL_LEN = (MAX_STATES - 1) // 2    # 511 characters
 
 
 def _entry(name, n_ptrs):
@@ -123,23 +124,15 @@ def ctc_backward(g, skip, valid, final, alphas, logz, lens):
 ctc_forward.launches = 0
 ctc_backward.launches = 0
 
-_noticed_long_labels = False
-
-
-def _notice_long_labels_once(max_len):
-    global _noticed_long_labels
-    if not _noticed_long_labels:
-        _noticed_long_labels = True
-        print('CTC: label length {} exceeds the kernel\'s capacity (2L+1 > '
-              '{}); using the plain PyTorch recursions for this shape'.format(
-                  max_len, MAX_STATES))
-
 
 def ctc_loss(logits, labels, label_lens, logit_lens):
     """Per-example CTC negative log-likelihood (``ops/ctc.py:ctc_loss``
     contract) through :func:`ctc_forward` / :func:`ctc_backward`."""
-    if labels.shape[1] > MAX_LABEL_LEN:
-        _notice_long_labels_once(labels.shape[1])
-        return ctc.ctc_loss(logits, labels, label_lens, logit_lens)
+    if logits.device.type != 'cpu' and labels.shape[1] > MAX_LABEL_LEN:
+        raise NotImplementedError(
+            'ctc_loss on {}: labels of {} characters need {} states, the '
+            'kernels take {} (labels up to {} characters)'.format(
+                logits.device, labels.shape[1], 2 * labels.shape[1] + 1,
+                MAX_STATES, MAX_LABEL_LEN))
     return ctc.ctc_loss_with(ctc_forward, ctc_backward, logits, labels,
                              label_lens, logit_lens)

@@ -153,18 +153,17 @@ def test_flat_label_wrapper_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_dispatch_on_cpu_is_the_plain_version(capsys):
+def test_dispatch_on_cpu_is_the_plain_version():
     """``ctc_cuda.ctc_loss`` on CPU tensors runs the plain recursions and
-    launches nothing; labels past the kernel's 63 characters take the plain
-    loss with a one-time notice, as the JAX package switches at 2L+1 > 128."""
-    assert ctc_cuda.MAX_LABEL_LEN == (ctc_pallas.LANES - 1) // 2 == 63
+    launches nothing, also for labels past the 63 characters at which the JAX
+    package leaves its kernel: the port's kernels take up to 511, and nothing
+    switches to the plain version by length."""
+    assert ctc_cuda.MAX_LABEL_LEN == 511 > (ctc_pallas.LANES - 1) // 2 == 63
     case = _case(50)
     want = _torch_loss_and_grad(ctc.ctc_loss, case)
     got = _torch_loss_and_grad(ctc_cuda.ctc_loss, case)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
-    assert ctc_cuda.ctc_forward.launches == 0
-    assert ctc_cuda.ctc_backward.launches == 0
 
     rng = np.random.RandomState(51)
     n, t, l, c = 2, 140, 64, 6
@@ -172,12 +171,22 @@ def test_dispatch_on_cpu_is_the_plain_version(capsys):
     labels = rng.randint(1, c, (n, l)).astype(np.int32)
     lens = (np.array([l, 10], np.int32), np.array([t, 30], np.int32))
     labels[1, 10:] = 0
-    ctc_cuda._noticed_long_labels = False
     got = ctc_cuda.ctc_loss(torch.from_numpy(logits), torch.from_numpy(labels),
                             *(torch.from_numpy(a) for a in lens)).numpy()
-    ctc_cuda.ctc_loss(torch.from_numpy(logits), torch.from_numpy(labels),
-                      *(torch.from_numpy(a) for a in lens))
-    assert capsys.readouterr().out.count('exceeds the kernel') == 1
     want = np.asarray(jctc.ctc_loss(jnp.asarray(logits), jnp.asarray(labels),
                                     *(jnp.asarray(a) for a in lens)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    assert ctc_cuda.ctc_forward.launches == 0
+    assert ctc_cuda.ctc_backward.launches == 0
+
+
+def test_cuda_loss_raises_past_the_kernels_capacity():
+    """Past 511 characters a tensor off the CPU raises by name before any
+    launch; it never takes the plain version."""
+    long = torch.ones(2, ctc_cuda.MAX_LABEL_LEN + 1, dtype=torch.int32,
+                      device='meta')
+    with pytest.raises(NotImplementedError, match='511'):
+        ctc_cuda.ctc_loss(torch.zeros(2, 4, 8, device='meta'), long,
+                          torch.ones(2, dtype=torch.int32, device='meta'),
+                          torch.full((2,), 4, dtype=torch.int32,
+                                     device='meta'))

@@ -174,7 +174,8 @@ def _ctc_case(rng, n, t, l, c=64):
     return logits, labels, label_lens, logit_lens
 
 
-@pytest.mark.parametrize('t,l', [(23, 6), (111, 24), (1, 2), (40, 63)])
+@pytest.mark.parametrize('t,l', [(23, 6), (111, 24), (1, 2), (40, 63),
+                                 (140, 64), (300, 200), (600, 511)])
 def test_ctc_kernels_match_reference(cuda_device, t, l):
     rng = np.random.RandomState(t + l)
     logits, labels, label_lens, logit_lens = _ctc_case(rng, 64, t, l)
@@ -220,14 +221,13 @@ def test_ctc_loss_on_cuda_matches_cpu(cuda_device):
     assert float(loss[2]) >= 1e29 and not grad[2].any()
     torch.testing.assert_close(loss, loss_r, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(grad, grad_r, rtol=1e-5, atol=1e-5)
-    # labels past the kernel's capacity take the plain recursions
+    # labels past the kernels' capacity raise; nothing takes the plain version
     long = torch.ones(2, ctc_cuda.MAX_LABEL_LEN + 1, dtype=torch.int32,
                       device=cuda_device)
-    f1 = ctc_cuda.ctc_forward.launches
-    ctc_cuda.ctc_loss(torch.zeros(2, 4, 8, device=cuda_device), long,
-                      torch.tensor([1, 2], device=cuda_device),
-                      torch.tensor([4, 4], device=cuda_device))
-    assert ctc_cuda.ctc_forward.launches == f1
+    with pytest.raises(NotImplementedError, match='511'):
+        ctc_cuda.ctc_loss(torch.zeros(2, 4, 8, device=cuda_device), long,
+                          torch.tensor([1, 2], device=cuda_device),
+                          torch.tensor([4, 4], device=cuda_device))
 
 
 def test_training_kernels_reject_bad_inputs(cuda_device):
@@ -236,7 +236,7 @@ def test_training_kernels_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match='skip'):
         ctc_cuda.ctc_forward(g, row[:, :4], row, row)
     with pytest.raises(ValueError, match='S in 1'):
-        ctc_cuda.ctc_forward(torch.zeros(1, 2, 129, device=cuda_device),
+        ctc_cuda.ctc_forward(torch.zeros(1, 2, 1025, device=cuda_device),
                              row, row, row)
     with pytest.raises(ValueError, match='lens'):
         ctc_cuda.ctc_backward(g, row, row, row, g, row[:, 0].contiguous(),

@@ -174,21 +174,41 @@ def test_five_train_steps_match_jax(jax_cfg, solver, lr):
     cfg = _port_cfg('TRAIN.SOLVER', repr(solver), 'TRAIN.LEARNING_RATE',
                     repr(lr))
     model = _port_model_from(cfg, params, bn_state)
-    # What the two packages can agree to. A ReLU or a max pool that sits
-    # within rounding of a tie flips on one side only, so from step 2 on
-    # gradients differ by a little more than rounding. Momentum is linear in
-    # the gradient: state within 1e-3 of each tensor's movement, BN 1e-5.
-    # Adam divides by sqrt(nu) + 1e-8, a sign step for an entry whose
-    # gradient is near zero, so single entries differ by up to ~lr a step:
-    # each tensor within 5% of its movement (L2) and 5 * lr entrywise, the
-    # moving BN mean (which carries the noise-driven conv4 biases) 5e-5.
-    rel, bn_tol, p_tol = (5e-2, 5e-5, 5 * lr) if solver == 'Adam' \
-        else (1e-3, 1e-5, 1e-6)
+    # What the two packages can agree to. The first step sees the same
+    # weights, so it is held entrywise: gradients to 1e-4 of the largest,
+    # parameters to 1e-5. From step 2 on a ReLU or a max pool that sits
+    # within rounding of a tie flips on one side only, and single gradient
+    # entries differ by more than rounding (measured here: up to 6e-3 in the
+    # conv3_2 biases at step 2, beside a largest gradient of 1.4).
+    # Momentum is linear in the gradient, so it holds the whole trajectory:
+    # every entry of the state within 1e-6, each tensor within 1e-3 of its
+    # movement, BN 1e-5. Adam divides by sqrt(nu) + 1e-8, a sign step of up
+    # to lr for an entry whose gradient is rounding noise below that epsilon
+    # (9 of 7.2 million entries after step 1, every one with |g| < 1e-8, and
+    # the conv4 biases, whose true gradient is zero), so after five steps it
+    # is held per tensor only: within 5% of its movement (L2), the moving BN
+    # mean (which carries the noise-driven conv4 biases) 5e-5.
+    adam = solver == 'Adam'
+    rel, bn_tol = (5e-2, 5e-5) if adam else (1e-3, 1e-5)
     tx = jtrain.make_optimizer()
     opt_state = tx.init(params)
     jstep = jtrain.make_train_step(net, tx, None)
     optimizer = train.make_optimizer(model, cfg)
     step = train.make_train_step(model.train(), optimizer, cfg, None)
+
+    def states():
+        want = jcheckpoint.flatten_state({
+            'params': params, 'bn_state': bn_state, 'opt_state': opt_state})
+        got = checkpoint.flat_from_params(model.state_dict())
+        got.update(checkpoint.opt_state_to_flat(optimizer))
+        assert set(got) == set(want)
+        return {k: np.array(v) for k, v in want.items()}, got
+
+    def noise_only(key):
+        # batch norm removes the bias of conv4_1 / conv4_2: its true gradient
+        # is zero and both sides hold rounding noise
+        return key.split('/')[-2:] in (['conv4_1', 'biases'],
+                                       ['conv4_2', 'biases'])
 
     for i, batch in enumerate(_batches(5)):
         params, opt_state, bn_state, jtotal, jctc = jstep(
@@ -197,35 +217,78 @@ def test_five_train_steps_match_jax(jax_cfg, solver, lr):
         total, ctc = step(*(torch.from_numpy(a) for a in batch))
         np.testing.assert_allclose(float(total), float(jtotal), rtol=1e-4)
         np.testing.assert_allclose(float(ctc), float(jctc), rtol=1e-4)
+        if i == 0:
+            _check_first_step(*states(), init, adam, noise_only)
 
-    want = jcheckpoint.flatten_state({'params': params, 'bn_state': bn_state,
-                                      'opt_state': opt_state})
-    got = checkpoint.flat_from_params(model.state_dict())
-    got.update(checkpoint.opt_state_to_flat(optimizer))
-    assert set(got) == set(want)
+    want, got = states()
     moved_any = False
     for key in sorted(want):
-        w, g = np.asarray(want[key]), got[key]
+        w, g = want[key], got[key]
         if key.endswith('.count'):
             assert int(g) == int(w) == 5
         elif key.startswith('bn_state/'):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=bn_tol,
                                        err_msg=key)
-        elif key.split('/')[-2:] in (['conv4_1', 'biases'],
-                                     ['conv4_2', 'biases']):
-            # true gradient zero (batch norm removes the bias): both sides
-            # hold rounding noise; under Adam it is scaled to ~lr a step
-            np.testing.assert_allclose(g, w, rtol=0, atol=10 * lr, err_msg=key)
+        elif noise_only(key):
+            # nothing to agree on but that it is noise: the moments show
+            # that every one of the five gradients stayed below 1e-6 on
+            # both sides (nu >= 0.001 * 0.999^4 * g^2); Momentum then leaves
+            # the parameter where it was, Adam walks it by up to lr a step
+            if '/.nu/' in key:
+                assert max(float(g.max()), float(w.max())) < 1e-15, key
+            elif key.startswith('opt_state/'):
+                assert max(float(np.abs(g).max()),
+                           float(np.abs(w).max())) < 5e-6, key
+            elif not adam:
+                np.testing.assert_allclose(g, w, rtol=0, atol=1e-6,
+                                           err_msg=key)
         elif key.startswith('params/'):
             move = float(np.linalg.norm(w - init[key]))
             moved_any = moved_any or move > 1e-3
             assert float(np.linalg.norm(g - w)) <= rel * move + 1e-7, key
-            np.testing.assert_allclose(g, w, rtol=0, atol=p_tol, err_msg=key)
+            if not adam:
+                np.testing.assert_allclose(g, w, rtol=0, atol=1e-6,
+                                           err_msg=key)
         else:                                  # the solver's moments
             assert float(np.linalg.norm(g - w)) <= \
                 rel * float(np.linalg.norm(w)) + 1e-7, key
     assert moved_any                           # the comparison is not vacuous
     assert float(np.abs(got['bn_state/conv4_1/mean']).max()) > 0
+
+
+def _check_first_step(want, got, init, adam, noise_only):
+    """After one step from the same weights: the gradients (read back from
+    the first moment, ``mu = 0.1 g`` under Adam, ``trace = g`` under
+    Momentum) agree to 1e-4 of the largest, every parameter entry to 1e-5
+    -- under Adam but for the entries whose gradient is below 1e-7 on both
+    sides, where the update is a sign step of rounding noise: those moved
+    by at most lr on either side, and are fewer than one in 100 000."""
+    slot, scale = ('.mu', 10.0) if adam else ('.trace', 1.0)
+    grads = {k.split(slot + '/')[1]: (scale * want[k], scale * got[k])
+             for k in want if '/' + slot + '/' in k}
+    assert grads
+    g_max = max(float(np.abs(w).max()) for w, _ in grads.values())
+    assert g_max > 0.1
+    exempt = total = 0
+    for path, (gw, gg) in sorted(grads.items()):
+        key = 'params/' + path
+        np.testing.assert_allclose(gg, gw, rtol=0, atol=1e-4 * g_max,
+                                   err_msg=key)
+        if noise_only(key):
+            assert max(float(np.abs(gw).max()), float(np.abs(gg).max())) \
+                < 1e-6, key
+            if adam:
+                continue
+        diff = np.abs(got[key] - want[key])
+        noise = (np.abs(gw) < 1e-7) & (np.abs(gg) < 1e-7) if adam \
+            else np.zeros(diff.shape, bool)
+        assert float(diff[~noise].max(initial=0.0)) <= 1e-5, key
+        for side in (got, want):
+            assert float(np.abs(side[key] - init[key])[noise]
+                         .max(initial=0.0)) <= 1.001e-4, key
+        exempt += int((noise & (diff > 1e-5)).sum())
+        total += diff.size
+    assert exempt * 100000 < total
 
 
 @pytest.mark.parametrize('solver', ['Adam', 'RMS', 'Momentum'])
@@ -418,3 +481,27 @@ def test_cli_trains_from_pretrained_weights(tiny_records, tmp_path, capsys):
     finally:
         shutil.rmtree(out, ignore_errors=True)
         shutil.rmtree(logs, ignore_errors=True)
+
+
+def test_full_f32_is_scoped_to_the_entry_point():
+    """The entry points turn TF32 off for their own run and put the
+    process's settings back, also when they raise."""
+    from lstm_ctc_ocr_torch.engine.test import full_f32
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+        @full_f32()
+        def entry():
+            assert not torch.backends.cudnn.allow_tf32
+            assert not torch.backends.cuda.matmul.allow_tf32
+            raise KeyError('stop')
+        with pytest.raises(KeyError):
+            entry()
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
