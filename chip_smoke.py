@@ -8,34 +8,45 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the build of every CUDA kernel from ``lstm_ctc_ocr_torch/csrc`` with
    nvcc, one process per source (its time and ptxas report).
-2. Kernel phase: each kernel against its plain PyTorch version on the card.
+2. Kernel phase: each of the seven kernels against its plain PyTorch version
+   on the card.
    ``bilstm_fwd`` (vs ``bilstm_fwd_reference``), residuals on and off, f32
    and bf16 at batch 64 with T=23 (the W=96 bucket) and T=111 (W=448), and
    a ragged batch of 37 with empty rows; tolerance f32 max |difference| <=
    1e-4, bf16 <= 4 bf16 ulps of the reference's magnitude (4 * max|ref| /
    256, as tests/test_rnn_pallas.py defines it). ``bilstm_bwd`` (vs
    ``bilstm_bwd_reference``) on the same cases: f32 <= 1e-4 relative to the
-   largest entry of each output, bf16 within 4 bf16 ulps of it. ``ctc_fwd``
-   and ``ctc_bwd`` (vs ``ctc_forward_reference`` / ``ctc_backward_reference``)
-   at batch 64 with T=23, L=6 and T=111, L=24, and (checked, not timed)
-   with L=64 and L=511, the longest label one block of threads holds, each
-   batch ragged with an empty label, an infeasible example and a one-frame
-   example: f32 <= 1e-5 on logZ, alphas and gradient. Then CUDA-event timings (median of 50
-   after warm-up) of each kernel's wrapper call, and the kernel's own
-   device time from ``torch.profiler`` (null, and no failure, where the
-   profiler's device tracing comes back empty), beside its plain version, its bound
-   and a library yardstick: cuDNN's bidirectional ``torch.nn.LSTM`` on a packed
-   sequence (forward, and backward alone) and
-   ``torch.nn.functional.ctc_loss`` forward+backward (plain versions:
-   median of 10). Yardsticks are timed here only; the port never calls
-   them.
+   largest entry of each output, bf16 within 4 bf16 ulps of it.
+   ``lstm_fwd`` and ``lstm_bwd`` (vs ``lstm_fwd_reference`` /
+   ``lstm_bwd_reference``) on the same cases and bars at the stacked head's
+   H=512, and the two-scan BiLSTM pair on them at H=256 against the fused
+   BiLSTM kernels (the A/B of the JAX package's tools/bench_rnn.py).
+   ``ctc_fwd`` and ``ctc_bwd`` (vs ``ctc_forward_reference`` /
+   ``ctc_backward_reference``) at batch 64 with T=23, L=6 and T=111, L=24,
+   and (checked, not timed) with L=64 and L=511, the longest label one block
+   of threads holds, each batch ragged with an empty label, an infeasible
+   example and a one-frame example: f32 <= 1e-5 on logZ, alphas and
+   gradient. ``conv_bn`` (``conv3x3_bn_relu`` vs its plain version and vs the
+   unfused ``ConvSingle`` layer, through ``tools/bench_conv_bn``'s functions)
+   at the conv4_1 and conv4_2 geometry, batch 64: f32 <= 2e-5 absolute and
+   relative, bf16 <= 2e-2, two runs bit-identical. Then CUDA-event timings
+   (median of 50 after warm-up) of each kernel's wrapper call, and the
+   kernel's own device time from ``torch.profiler`` (null, and no failure,
+   where the profiler's device tracing comes back empty), beside its plain
+   version, its bound and a library yardstick: cuDNN's ``torch.nn.LSTM`` on
+   a packed sequence (bidirectional or one direction; forward, and backward
+   alone), ``torch.nn.functional.ctc_loss`` forward+backward, and the
+   unfused cuDNN conv + BN + ReLU layer (plain versions: median of 10).
+   Yardsticks are timed here only; the port never calls them.
 3. Eval phase, the serving path: the evaluation entry point
-   (``engine/test.py``, bf16, greedy, batch 64) on the tracked releases —
-   ``lstm_ctc`` on ``data/val`` under ``BN_EVAL`` batch and moving,
-   ``digit4`` on ``data/val_digit4``. Each accuracy must be within 2 images
-   of the release's recorded accuracy (checkpoints/README.md), and
-   ``bilstm_fwd``'s launch count must grow by exactly the number of decode
-   calls.
+   (``engine/test.py``, bf16, batch 64) on the tracked releases —
+   ``lstm_ctc`` on ``data/val`` under ``BN_EVAL`` batch and moving and
+   ``digit4`` on ``data/val_digit4`` with greedy decode; ``lstm_records`` on
+   ``data/val``, ``longline`` on ``data/val_longline`` and ``scene`` on
+   ``data/val_scene`` with their default beam decode (width 16). Each
+   accuracy must be within 2 images of the release's recorded accuracy
+   (checkpoints/README.md), and ``bilstm_fwd``'s launch count must grow by
+   exactly the number of decode calls.
 4. Train phase, the training path, at the full width of
    ``lstm/lstm.yml`` (batch 64, bf16, Adam) on a records file written on
    the spot from ``data/val``: (a) 60 steps from a fresh init through
@@ -50,12 +61,22 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    their place: each tensor within 1e-4 of its largest entry (or of 1e-3 of
    the largest gradient overall, for the tensors whose true gradient is
    zero); then steps/s and images/s over warm steps, CUDA-synchronised.
-5. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
+5. Stacked-LSTM phase: the model a user gets by overriding
+   ``LSTM_train.make_head`` with two stacked unidirectional LSTMs of 512
+   units, at full width (conv stack 64-512, 64 classes, batch 64, bf16,
+   Adam, the same records file): 60 steps from a seed through ``train_net``
+   (loss falls; ``lstm_fwd`` and ``lstm_bwd`` launched once per layer per
+   step, ``lstm_fwd`` also per layer per validation decode; the BiLSTM
+   kernels not at all), a snapshot, ``test_net(model=...)`` on it (it runs
+   and counts; no accuracy bar, the model is 60 steps old), the f32
+   gradient comparison of 4(c) (zero-gradient tensors held to 1e-2 of the
+   largest gradient overall), the rate and a profile.
+6. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
    warm train steps: device time by kernel and the device's busy share of
    the wall.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
-four kernels; the last line is ``{"ok": true, "device": {...}}``. Per-image
+seven kernels; the last line is ``{"ok": true, "device": {...}}``. Per-image
 eval lines and the training runs' output go to ``chiprun_out/``.
 """
 
@@ -77,12 +98,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# (label, config, val dir, BN_EVAL, least correct of 500): the releases'
-# recorded 485 (batch) / 486 (moving) for lstm_ctc and 487 for digit4, less 2
+# (label, config, val dir, BN_EVAL, decoder, images, least correct): the
+# releases' recorded numbers (checkpoints/README.md), less 2 images
 EVALS = [
-    ('lstm_ctc/batch', 'lstm/lstm.yml', 'data/val', 'batch', 483),
-    ('lstm_ctc/moving', 'lstm/lstm.yml', 'data/val', 'moving', 484),
-    ('digit4/batch', 'lstm/digit4.yml', 'data/val_digit4', 'batch', 485),
+    ('lstm_ctc/batch', 'lstm/lstm.yml', 'data/val', 'batch', 'greedy', 500,
+     483),
+    ('lstm_ctc/moving', 'lstm/lstm.yml', 'data/val', 'moving', 'greedy', 500,
+     484),
+    ('digit4/batch', 'lstm/digit4.yml', 'data/val_digit4', 'batch', 'greedy',
+     500, 485),
+    ('lstm_records/beam', 'lstm/records.yml', 'data/val', 'batch', 'beam',
+     500, 490),
+    ('longline/beam', 'lstm/longline.yml', 'data/val_longline', 'batch',
+     'beam', 200, 191),
+    ('scene/beam', 'lstm/scene.yml', 'data/val_scene', 'batch', 'beam', 200,
+     193),
 ]
 
 
@@ -222,9 +252,9 @@ def bilstm_bwd_bound_ms(c, dtype):
 
 
 def cudnn_backward_yardstick(c):
-    """cuDNN's bidirectional LSTM backward alone (its input projection's
-    backward included): gradients of a random cotangent with respect to the
-    input and the weights, from one retained forward."""
+    """cuDNN's LSTM backward alone (its input projection's backward
+    included): gradients of a random cotangent with respect to the input and
+    the weights, from one retained forward."""
     lstm, _ = cudnn_yardstick(c)
     x = c['x'].clone().requires_grad_()
     packed = torch.nn.utils.rnn.pack_padded_sequence(
@@ -301,20 +331,20 @@ def ctc_library_yardstick(case):
     return run, losses
 
 
-def cudnn_yardstick(c, forget_bias=1.0):
-    """cuDNN's bidirectional LSTM with the case's weights (gate order i, f,
-    g, o; forget_bias folded into the bias), on a packed sequence."""
-    d = c['x'].shape[2]
-    h = c['uf'].shape[0]
-    lstm = torch.nn.LSTM(d, h, bidirectional=True).cuda().to(c['x'].dtype)
+def cudnn_lstm(x, lens, directions, forget_bias=1.0):
+    """cuDNN's ``nn.LSTM`` carrying ``directions``, one ``(W, U, b)`` or two
+    for a bidirectional layer (gate order i, f, g, o; forget_bias folded
+    into the bias), and ``x`` as a packed sequence."""
+    d = x.shape[2]
+    h = directions[0][1].shape[0]
+    lstm = torch.nn.LSTM(d, h, bidirectional=len(directions) == 2) \
+        .cuda().to(x.dtype)
 
     def reorder(m):            # ..., [i, j, f, o] blocks -> [i, f, j, o]
         i, j, f, o = m.split(h, dim=-1)
         return torch.cat([i, f, j, o], dim=-1)
     with torch.no_grad():
-        for sfx, w, u, b in (('', c['w'][:, :4 * h], c['uf'], c['bf']),
-                             ('_reverse', c['w'][:, 4 * h:], c['ub'],
-                              c['bb'])):
+        for sfx, (w, u, b) in zip(('', '_reverse'), directions):
             getattr(lstm, 'weight_ih_l0' + sfx).copy_(reorder(w).t())
             getattr(lstm, 'weight_hh_l0' + sfx).copy_(reorder(u).t())
             fb = torch.zeros(4 * h, device=b.device, dtype=b.dtype)
@@ -323,8 +353,19 @@ def cudnn_yardstick(c, forget_bias=1.0):
             getattr(lstm, 'bias_hh_l0' + sfx).zero_()
     lstm.flatten_parameters()          # cuDNN's packed weight buffer
     packed = torch.nn.utils.rnn.pack_padded_sequence(
-        c['x'], c['lens'].cpu(), enforce_sorted=False)
+        x, lens.cpu(), enforce_sorted=False)
     return lstm, packed
+
+
+def cudnn_yardstick(c):
+    """cuDNN's LSTM with a case's weights: bidirectional for a BiLSTM case,
+    one direction for an ``lstm_case``."""
+    if 'u' in c:
+        return cudnn_lstm(c['x'], c['lens'], [(c['w'], c['u'], c['b'])])
+    h4 = c['uf'].shape[1]
+    return cudnn_lstm(c['x'], c['lens'],
+                      [(c['w'][:, :h4], c['uf'], c['bf']),
+                       (c['w'][:, h4:], c['ub'], c['bb'])])
 
 
 def bound_ms(c, dtype, with_residuals=False):
@@ -344,6 +385,250 @@ def bound_ms(c, dtype, with_residuals=False):
     t_ops = flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                        else 'operations')
+
+
+def lstm_case(t_len, n, dtype, ragged, seed, h=512, d=512):
+    """Inputs of one stacked-head layer: x [T, N, D], W [D, 4H], U [H, 4H],
+    b [4H] and the projection xp, all on the card."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).cuda().to(dtype)
+    x = rnd(t_len, n, d, scale=0.5)
+    w, u, b = rnd(d, 4 * h, scale=d ** -0.5), rnd(h, 4 * h, scale=h ** -0.5), \
+        rnd(4 * h, scale=0.1)
+    if ragged:
+        lens = torch.randint(0, t_len + 1, (n,), generator=g)
+        lens[:3] = 0
+        lens[3], lens[4] = t_len, 1
+    else:
+        lens = torch.randint(max(1, t_len - 8), t_len + 1, (n,), generator=g)
+    lens = lens.to(torch.int32).cuda()
+    xp = (x.reshape(t_len * n, d) @ w).reshape(t_len, n, 4 * h)
+    return dict(x=x, w=w, u=u, b=b, lens=lens, xp=xp)
+
+
+def lstm_bound_ms(c, dtype, backward):
+    """Least time for one direction's work on an H100. Forward: x_proj, U, b
+    and lens read once, out written once, and the live steps' recurrent
+    product (2*H*4H per row and step). Backward: dout, gates, h, c and U
+    read once, dx, dU and db written once, and the live steps' two products.
+    The larger of bytes over HBM bandwidth and operations over the dtype's
+    peak."""
+    t_len, n, four_h = c['xp'].shape
+    h = four_h // 4
+    es = torch.tensor([], dtype=dtype).element_size()
+    tn = t_len * n
+    live = int(c['lens'].sum())
+    if backward:
+        nbytes = (tn * h + tn * four_h + 2 * tn * h + h * four_h) * es \
+            + 4 * n + tn * four_h * es + 4 * (h * four_h + four_h)
+        flops = 2 * live * 2 * h * four_h
+    else:
+        nbytes = (tn * four_h + h * four_h + four_h) * es + 4 * n \
+            + tn * h * es
+        flops = live * 2 * h * four_h
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def lstm_phase(rnn, rnn_cuda):
+    """``lstm_fwd`` / ``lstm_bwd`` against their plain versions at H=512 on
+    every case, timings at the stacked head's shapes, and the scan pair on
+    these kernels against the fused BiLSTM kernels at H=256."""
+    errs = {}
+    for i, (label, t_len, n, dtype, ragged) in enumerate(BILSTM_CASES):
+        c = lstm_case(t_len, n, dtype, ragged, seed=40 + i)
+        args = (c['xp'], c['u'], c['b'], c['lens'])
+        out = rnn_cuda.lstm_fwd(*args)
+        got = rnn_cuda.lstm_fwd(*args, save_residuals=True)
+        want = rnn_cuda.lstm_fwd_reference(*args, save_residuals=True)
+        torch.cuda.synchronize()
+        e_fwd, ok = max_err(got, want, dtype)
+        ok = ok and torch.equal(out, got[0])
+        g = torch.Generator().manual_seed(1040 + i)
+        dout = (torch.randn(out.shape, generator=g) * 0.1).cuda().to(dtype)
+        bwd_args = (dout,) + tuple(got[1:]) + (c['u'], c['lens'])
+        e_bwd, rel, ok_b = rel_err(rnn_cuda.lstm_bwd(*bwd_args),
+                                   rnn_cuda.lstm_bwd_reference(*bwd_args),
+                                   dtype)
+        torch.cuda.synchronize()
+        print('lstm check H=512 {:24s} fwd max|diff| {:.3e}, bwd {:.3e} '
+              '({:.2e} of the largest entry) within tolerance: {}'.format(
+                  label, e_fwd, e_bwd, rel, ok and ok_b), flush=True)
+        check(ok, 'lstm_fwd {}: max|diff| {}'.format(label, e_fwd))
+        check(ok_b, 'lstm_bwd {}: {} of the largest entry'.format(label, rel))
+        errs[label] = {'lstm_fwd': e_fwd, 'lstm_bwd': e_bwd}
+
+    timings = {}
+    for label, t_len, dtype in (('bf16 N=64 T=23', 23, torch.bfloat16),
+                                ('bf16 N=64 T=111', 111, torch.bfloat16),
+                                ('f32 N=64 T=23', 23, torch.float32),
+                                ('f32 N=64 T=111', 111, torch.float32)):
+        c = lstm_case(t_len, 64, dtype, False, seed=7)
+        args = (c['xp'], c['u'], c['b'], c['lens'])
+        res = rnn_cuda.lstm_fwd(*args, save_residuals=True)
+        g = torch.Generator().manual_seed(1007)
+        dout = (torch.randn(res[0].shape, generator=g) * 0.1).cuda().to(dtype)
+        bwd_args = (dout,) + tuple(res[1:]) + (c['u'], c['lens'])
+        row = {'fwd_ms': median_ms(lambda: rnn_cuda.lstm_fwd(*args)),
+               'fwd_residuals_ms': median_ms(
+                   lambda: rnn_cuda.lstm_fwd(*args, save_residuals=True)),
+               'bwd_ms': median_ms(lambda: rnn_cuda.lstm_bwd(*bwd_args))}
+        row['fwd_bound_ms'], row['fwd_bound_by'] = lstm_bound_ms(c, dtype,
+                                                                 False)
+        row['bwd_bound_ms'], row['bwd_bound_by'] = lstm_bound_ms(c, dtype,
+                                                                 True)
+        if dtype == torch.bfloat16:     # the stacked head's compute type
+            lstm, packed = cudnn_yardstick(c)
+            with torch.no_grad():
+                lib_out = torch.nn.utils.rnn.pad_packed_sequence(
+                    lstm(packed)[0], total_length=t_len)[0]
+                row['cudnn_vs_kernel_max_abs_diff'] = float(
+                    (lib_out.float() - res[0].float()).abs().max())
+                row['fwd_library_ms'] = median_ms(lambda: lstm(packed))
+            row.update({
+                'fwd_device_ms': device_ms(lambda: rnn_cuda.lstm_fwd(*args),
+                                           ['lstm_fwd_kernel']),
+                'bwd_device_ms': device_ms(
+                    lambda: rnn_cuda.lstm_bwd(*bwd_args), ['lstm_bwd_']),
+                'fwd_plain_ms': median_ms(
+                    lambda: rnn_cuda.lstm_fwd_reference(*args), reps=10,
+                    warmup=2),
+                'bwd_plain_ms': median_ms(
+                    lambda: rnn_cuda.lstm_bwd_reference(*bwd_args), reps=10,
+                    warmup=2),
+                'bwd_library_ms': median_ms(cudnn_backward_yardstick(c))})
+        timings[label] = row
+        print('lstm timing H=512 {:16s} {}'.format(label, json.dumps(row)),
+              flush=True)
+
+    # the two-scan pair on kernels 5/6 against the fused kernels 1/2, H=256
+    for t_len in (23, 111):
+        c = bilstm_case(t_len, 64, torch.bfloat16, False, seed=9)
+        h4 = c['uf'].shape[1]
+        cells = {'fw': {'w': c['w'][:, :h4], 'u': c['uf'], 'bias': c['bf']},
+                 'bw': {'w': c['w'][:, h4:], 'u': c['ub'], 'bias': c['bb']}}
+        x = c['x'].transpose(0, 1).contiguous()          # [N, T, D]
+        lens = c['lens']
+
+        def pair(cl, xx, ll):
+            return rnn.bilstm_scan_pair(cl, xx, ll, scan=rnn.lstm)
+        with torch.no_grad():
+            diff = float((pair(cells, x, lens).float()
+                          - rnn.bilstm(cells, x, lens).float()).abs().max())
+            row = {'fused_fwd_ms': median_ms(
+                       lambda: rnn.bilstm(cells, x, lens)),
+                   'pair_fwd_ms': median_ms(lambda: pair(cells, x, lens))}
+        # two [D, 4H] projections against one [D, 8H]: cuBLAS may sum them
+        # in another order, so a bf16 projection entry can round the other
+        # way; outputs are below 1 in magnitude, the bar is 8 bf16 ulps of 1
+        check(diff <= 8 / 256, 'scan pair vs fused BiLSTM T={}: max|diff| {}'
+              .format(t_len, diff))
+        # forward + backward: gradients of x and of every weight
+        cells_g = {k: {p: v.clone().requires_grad_() for p, v in cell.items()}
+                   for k, cell in cells.items()}
+        leaves = [x.clone().requires_grad_()] + [
+            v for cell in cells_g.values() for v in cell.values()]
+
+        def train_pass(fn):
+            return lambda: torch.autograd.grad(
+                fn(cells_g, leaves[0], lens).float().sum(), leaves)
+        row['fused_fwd_bwd_ms'] = median_ms(train_pass(rnn.bilstm))
+        row['pair_fwd_bwd_ms'] = median_ms(train_pass(pair))
+        row['pair_vs_fused_max_abs_diff'] = diff
+        timings['pair H=256 bf16 N=64 T={}'.format(t_len)] = row
+        print('lstm scan pair (kernels 5/6) vs fused BiLSTM (kernels 1/2), '
+              'projection included, H=256 bf16 N=64 T={}: {}'.format(
+                  t_len, json.dumps(row)), flush=True)
+    return errs, timings
+
+
+def conv_bn_bound_ms(n, w, h, ci, co, dtype):
+    """Least time for the fused conv+BN+ReLU on an H100: x, the kernel and
+    the three channel vectors read once and the output written once over HBM
+    bandwidth, or the nine taps' products (2*Ci*Co*9 per output position)
+    over the dtype's dense peak; the larger of the two."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (n * w * h * (ci + co) + 9 * ci * co) * es + 3 * 4 * co
+    flops = 2 * n * w * h * co * ci * 9
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def conv_bn_phase(bench, conv_bn_cuda):
+    """``conv3x3_bn_relu`` against its plain version and the unfused layer at
+    the conv4_1 / conv4_2 geometry, batch 64, then timings; the A/B itself
+    (``tools/bench_conv_bn.run``) with the launch count read around it."""
+    errs, timings = {}, {}
+    for tag, w, h, ci, co in bench.SHAPES:
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            label = '{} {}'.format(tag, 'f32' if dtype == torch.float32
+                                   else 'bf16')
+            case = bench.make_case(64, w, h, ci, co, dtype, 'cuda')
+            args = bench.fused_args(case)
+            layer = bench.unfused_layer(case)
+            ldt = None if dtype == torch.float32 else dtype
+            with torch.no_grad():
+                got = conv_bn_cuda.conv3x3_bn_relu(*args)
+                again = conv_bn_cuda.conv3x3_bn_relu(*args)
+                want = conv_bn_cuda.conv3x3_bn_relu_reference(*args)
+                unfused = layer(case['x'], ldt)
+            torch.cuda.synchronize()
+
+            def close(ref):
+                """max |difference| and its largest share of the bar
+                ``tol + tol * |ref|``."""
+                d = (got.float() - ref.float()).abs()
+                return float(d.max()), float(
+                    (d / (tol + tol * ref.float().abs())).max())
+            err, share = close(want)
+            # the unfused layer rounds the bias separately, takes the
+            # two-pass variance and sums in cuDNN's order: the same bar
+            vs_layer, share_layer = close(unfused)
+            ok, ok_layer = share <= 1.0, share_layer <= 1.0
+            same = torch.equal(got, again)
+            print('conv_bn check {:14s} N=64 max|diff| vs plain {:.3e} ({:.0%} '
+                  'of the bar {:g} absolute + relative), vs the unfused layer '
+                  '{:.3e} ({:.0%}), two runs bit-identical: {}'.format(
+                      label, err, share, tol, vs_layer, share_layer, same),
+                  flush=True)
+            check(ok and same and tuple(got.shape) == (64, co, w, h),
+                  'conv_bn {}: max|diff| {}, identical {}'.format(label, err,
+                                                                  same))
+            check(ok_layer, 'conv_bn {} vs ConvSingle: {}'.format(label,
+                                                                  vs_layer))
+            errs[label] = err
+            with torch.no_grad():
+                row = {
+                    'kernel_ms': median_ms(
+                        lambda: conv_bn_cuda.conv3x3_bn_relu(*args)),
+                    'device_ms': device_ms(
+                        lambda: conv_bn_cuda.conv3x3_bn_relu(*args),
+                        ['conv_bn_']),
+                    'plain_ms': median_ms(
+                        lambda: conv_bn_cuda.conv3x3_bn_relu_reference(*args),
+                        reps=10, warmup=2),
+                    'library_ms': median_ms(
+                        lambda: layer(case['x'], ldt)),
+                    'vs_unfused_max_abs_diff': vs_layer}
+            row['bound_ms'], row['bound_by'] = conv_bn_bound_ms(
+                64, w, h, ci, co, dtype)
+            timings[label] = row
+            print('conv_bn timing {:14s} {}'.format(label, json.dumps(row)),
+                  flush=True)
+    # the A/B as its user runs it; its launches are the path's count
+    conv_bn_cuda.conv3x3_bn_relu.launches = 0
+    for tag, w, h, ci, co in bench.SHAPES:
+        for row in bench.run(tag, 64, w, h, ci, co, torch.bfloat16, 'cuda'):
+            print('conv_bn a/b {}'.format(json.dumps(row)), flush=True)
+    launches = conv_bn_cuda.conv3x3_bn_relu.launches
+    check(launches > 0, 'the conv+BN A/B launched no kernel')
+    return errs, timings, launches
 
 
 BILSTM_CASES = [('f32 N=64 T=23', 23, 64, torch.float32, False),
@@ -517,10 +802,15 @@ def eval_phase(rnn_cuda, test_mod, load_cfg, log):
     """Evaluation of the tracked releases; returns the launch count."""
     rnn_cuda.bilstm_fwd.launches = 0
     calls = 0
-    for label, yml, val_dir, bn_eval, least in EVALS:
+    for label, yml, val_dir, bn_eval, decoder, total, least in EVALS:
+        # the beam releases run their config's own decoder (beam, width 16)
+        greedy = ['DECODER', "'greedy'"] if decoder == 'greedy' else []
         cfg = load_cfg(os.path.join(REPO, yml),
                        ['TEST.BATCH_SIZE', '64', 'BN_EVAL', repr(bn_eval),
-                        'DECODER', "'greedy'", 'TRAIN.DTYPE', "'bfloat16'"])
+                        'TRAIN.DTYPE', "'bfloat16'"] + greedy)
+        check(str(cfg.DECODER) == decoder and int(cfg.BEAM_WIDTH) == 16,
+              '{}: DECODER {} width {}'.format(label, cfg.DECODER,
+                                               cfg.BEAM_WIDTH))
         before = rnn_cuda.bilstm_fwd.launches
         log.write('== {}\n'.format(label))
         r = test_mod.test_net(
@@ -529,18 +819,18 @@ def eval_phase(rnn_cuda, test_mod, load_cfg, log):
             echo=lambda s: log.write(s + '\n'))
         launched = rnn_cuda.bilstm_fwd.launches - before
         calls += r.decode_calls
-        print('eval {:16s} {}/{} correct, {:.1f} images/s steady-state, '
+        print('eval {:18s} {}/{} correct, {:.1f} images/s steady-state, '
               '{:.1f} images/s overall, p50 {:.4f} ms/image, {} decode calls,'
               ' {} kernel launches'.format(
                   label, r.correct, r.total, r.steady_images_per_sec,
                   r.images_per_sec, 1e3 * r.p50, r.decode_calls, launched),
               flush=True)
-        check(r.total == 500, '{}: {} images, expected 500'.format(
-            label, r.total))
+        check(r.total == total, '{}: {} images, expected {}'.format(
+            label, r.total, total))
         check(launched == r.decode_calls, '{}: {} launches for {} decode '
               'calls'.format(label, launched, r.decode_calls))
-        check(r.correct >= least, '{}: {}/500 correct, expected >= {}'.format(
-            label, r.correct, least))
+        check(r.correct >= least, '{}: {}/{} correct, expected >= {}'.format(
+            label, r.correct, total, least))
     launches = rnn_cuda.bilstm_fwd.launches
     check(launches == calls and launches > 0,
           'bilstm_fwd launched {} times in {} decode calls'.format(
@@ -586,31 +876,113 @@ def train_overrides(records_path, exp):
             'EXP_DIR', exp, 'LOG_DIR', exp]
 
 
+def wrappers(rnn_cuda, ctc_cuda):
+    """name -> (module, attribute, plain version's module and attribute) of
+    every kernel wrapper a train step or a decode call can reach."""
+    return {'bilstm_fwd': (rnn_cuda, 'bilstm_fwd', 'bilstm_fwd_reference'),
+            'bilstm_bwd': (rnn_cuda, 'bilstm_bwd', 'bilstm_bwd_reference'),
+            'lstm_fwd': (rnn_cuda, 'lstm_fwd', 'lstm_fwd_reference'),
+            'lstm_bwd': (rnn_cuda, 'lstm_bwd', 'lstm_bwd_reference'),
+            'ctc_fwd': (ctc_cuda, 'ctc_forward', 'ctc_forward_reference'),
+            'ctc_bwd': (ctc_cuda, 'ctc_backward', 'ctc_backward_reference')}
+
+
 @contextlib.contextmanager
 def plain_versions(rnn_cuda, ctc_cuda, ctc):
     """Put each kernel's plain version in its wrapper's place."""
-    saved = (rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, ctc_cuda.ctc_forward,
-             ctc_cuda.ctc_backward)
-    rnn_cuda.bilstm_fwd = rnn_cuda.bilstm_fwd_reference
-    rnn_cuda.bilstm_bwd = rnn_cuda.bilstm_bwd_reference
-    ctc_cuda.ctc_forward = ctc.ctc_forward_reference
-    ctc_cuda.ctc_backward = ctc.ctc_backward_reference
+    table = wrappers(rnn_cuda, ctc_cuda)
+    saved = {k: getattr(mod, attr) for k, (mod, attr, _) in table.items()}
+    for mod, attr, plain in table.values():
+        setattr(mod, attr, getattr(ctc if mod is ctc_cuda else mod, plain))
     try:
         yield
     finally:
-        (rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, ctc_cuda.ctc_forward,
-         ctc_cuda.ctc_backward) = saved
+        for k, (mod, attr, _) in table.items():
+            setattr(mod, attr, saved[k])
 
 
 def launch_counts(rnn_cuda, ctc_cuda, reset=False):
-    wrappers = {'bilstm_fwd': rnn_cuda.bilstm_fwd,
-                'bilstm_bwd': rnn_cuda.bilstm_bwd,
-                'ctc_fwd': ctc_cuda.ctc_forward,
-                'ctc_bwd': ctc_cuda.ctc_backward}
+    fns = {k: getattr(mod, attr)
+           for k, (mod, attr, _) in wrappers(rnn_cuda, ctc_cuda).items()}
     if reset:
-        for w in wrappers.values():
+        for w in fns.values():
             w.launches = 0
-    return {k: w.launches for k, w in wrappers.items()}
+    return {k: w.launches for k, w in fns.items()}
+
+
+def compare_gradients(mods, net32, cfg32, rec_path, per_step, floor=1e-3):
+    """One f32 step's parameter gradients with the kernels against the same
+    step with the plain versions in their place; ``per_step`` is each
+    wrapper's expected launches in that step. Each tensor must agree within
+    1e-4 of its largest entry, or of ``floor`` times the largest gradient
+    overall for a tensor whose own gradient is smaller than that (the biases
+    that batch norm removes have a true gradient of zero and hold rounding
+    noise on both sides). Returns the worst relative difference."""
+    rnn_cuda, ctc_cuda, ctc = mods['rnn_cuda'], mods['ctc_cuda'], mods['ctc']
+    ds = mods['records'].RecordsDataset(rec_path, cfg32)
+    b = ds.batch(range(64))
+    ds.close()
+    batch = tuple(torch.from_numpy(a).cuda()
+                  for a in (b.image, b.label, b.label_len, b.time_step))
+    loss_fn = mods['train'].make_loss_fn(net32, cfg32, None)
+
+    def gradients():
+        net32.zero_grad(set_to_none=True)
+        loss_fn(*batch)[0].backward()
+        return {k: p.grad.clone() for k, p in net32.named_parameters()}
+    before = launch_counts(rnn_cuda, ctc_cuda)
+    with_kernels = gradients()
+    after = launch_counts(rnn_cuda, ctc_cuda)
+    check(all(after[k] == before[k] + per_step[k] for k in after),
+          'one f32 step launched {} -> {}, expected +{}'.format(
+              before, after, per_step))
+    with plain_versions(rnn_cuda, ctc_cuda, ctc):
+        with_plain = gradients()
+    check(launch_counts(rnn_cuda, ctc_cuda) == after,
+          'the plain versions launched a kernel')
+    overall = max(float(g.abs().max()) for g in with_plain.values())
+    worst = 0.0
+    for name, ref in with_plain.items():
+        scale = max(float(ref.abs().max()), floor * overall)
+        rel = float((with_kernels[name] - ref).abs().max()) / scale
+        worst = max(worst, rel)
+        check(rel <= 1e-4, 'gradient of {}: {} of its largest entry'.format(
+            name, rel))
+    return worst, len(with_plain)
+
+
+def measure_rate(mods, model, optimizer, cfg, card, what, log):
+    """steps/s over 40 warm steps with the records feed, CUDA-synchronised,
+    then a profile of five more."""
+    train = mods['train']
+    step = train.make_train_step(model, optimizer, cfg,
+                                 train.compute_dtype(cfg))
+    with contextlib.redirect_stdout(log):
+        stream = train.make_train_stream(cfg, 64)
+
+    def one_step():
+        nb = next(stream)
+        return step(*(torch.from_numpy(a).cuda(non_blocking=True) for a in
+                      (nb.image, nb.label, nb.label_len, nb.time_step)))
+    for _ in range(8):
+        one_step()
+    torch.cuda.synchronize()
+    n_timed = 40
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        one_step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rate = {'steps_per_s': n_timed / dt, 'images_per_s': 64 * n_timed / dt,
+            'ms_per_step': 1e3 * dt / n_timed}
+    print('{} rate (batch 64, bf16, Adam, records feed, {} warm steps, '
+          'CUDA-synchronised) on {}: {:.2f} steps/s, {:.1f} images/s, {:.3f} '
+          'ms/step'.format(what, n_timed, card, rate['steps_per_s'],
+                           rate['images_per_s'], rate['ms_per_step']),
+          flush=True)
+    profile_report('{} step (batch 64, bf16)'.format(what), one_step, reps=5)
+    stream.close()
+    return rate
 
 
 def train_phase(mods, card, log):
@@ -663,8 +1035,8 @@ def train_phase(mods, card, log):
     check(len(losses) == steps and bool(np.isfinite(losses).all()),
           'expected {} finite losses, got {}'.format(steps, losses))
     check(last < first, 'the loss did not fall: {} -> {}'.format(first, last))
-    want = dict.fromkeys(counts, steps)
-    want['bilstm_fwd'] += val_calls
+    want = {'bilstm_fwd': steps + val_calls, 'bilstm_bwd': steps,
+            'lstm_fwd': 0, 'lstm_bwd': 0, 'ctc_fwd': steps, 'ctc_bwd': steps}
     check(counts == want, 'launches {} over {} steps, expected {}'.format(
         counts, steps, want))
 
@@ -704,66 +1076,120 @@ def train_phase(mods, card, log):
                      + ['TRAIN.DTYPE', "'float32'"])
     net32 = get_network('LSTM_train', cfg32, generator=torch.Generator()
                         .manual_seed(int(cfg32.RNG_SEED))).cuda().train()
-    ds = records.RecordsDataset(rec_path, cfg32)
-    b = ds.batch(range(64))
-    ds.close()
-    batch = tuple(torch.from_numpy(a).cuda()
-                  for a in (b.image, b.label, b.label_len, b.time_step))
-    loss_fn = train.make_loss_fn(net32, cfg32, None)
-
-    def gradients():
-        net32.zero_grad(set_to_none=True)
-        loss_fn(*batch)[0].backward()
-        return {k: p.grad.clone() for k, p in net32.named_parameters()}
-    before = launch_counts(rnn_cuda, ctc_cuda)
-    with_kernels = gradients()
-    after = launch_counts(rnn_cuda, ctc_cuda)
-    check(all(after[k] == before[k] + 1 for k in after),
-          'one f32 step launched {} -> {}'.format(before, after))
-    with plain_versions(rnn_cuda, ctc_cuda, ctc):
-        with_plain = gradients()
-    check(launch_counts(rnn_cuda, ctc_cuda) == after,
-          'the plain versions launched a kernel')
-    overall = max(float(g.abs().max()) for g in with_plain.values())
-    worst = 0.0
-    for name, ref in with_plain.items():
-        scale = max(float(ref.abs().max()), 1e-3 * overall)
-        rel = float((with_kernels[name] - ref).abs().max()) / scale
-        worst = max(worst, rel)
-        check(rel <= 1e-4, 'gradient of {}: {} of its largest entry'.format(
-            name, rel))
+    worst, n_tensors = compare_gradients(
+        mods, net32, cfg32, rec_path,
+        {'bilstm_fwd': 1, 'bilstm_bwd': 1, 'lstm_fwd': 0, 'lstm_bwd': 0,
+         'ctc_fwd': 1, 'ctc_bwd': 1})
     print('train gradients, one f32 step: kernels vs plain versions agree to '
           '{:.2e} of each tensor\'s largest entry ({} tensors)'.format(
-              worst, len(with_plain)), flush=True)
+              worst, n_tensors), flush=True)
 
     # rate over warm steps, the records feed included
-    step = train.make_train_step(model, optimizer, cfg,
-                                 train.compute_dtype(cfg))
-    with contextlib.redirect_stdout(log):
-        stream = train.make_train_stream(cfg, 64)
+    rate = measure_rate(mods, model, optimizer, cfg, card, 'train', log)
+    return counts, rate, rec_path
 
-    def one_step():
-        nb = next(stream)
-        return step(*(torch.from_numpy(a).cuda(non_blocking=True) for a in
-                      (nb.image, nb.label, nb.label_len, nb.time_step)))
-    for _ in range(8):
-        one_step()
-    torch.cuda.synchronize()
-    n_timed = 40
+
+def stacked_phase(mods, card, rec_path, log):
+    """The stacked unidirectional-LSTM model at full width through the same
+    entry points; returns the kernels' launch counts over its 60 training
+    steps and its evaluation, and its training rate."""
+    load_cfg, train, test_mod = mods['load_cfg'], mods['train'], mods['test']
+    rnn_cuda, ctc_cuda = mods['rnn_cuda'], mods['ctc_cuda']
+    crnn, layers = mods['crnn'], mods['layers']
+    n_layers = 2
+
+    class StackedLSTM(crnn.LSTM_train):
+        """What a user writes: the CRNN with another head."""
+
+        def make_head(self, num_hid, nclasses, generator):
+            return layers.LSTM(512, num_hid, n_layers, nclasses, generator)
+
+    yml = os.path.join(REPO, 'lstm', 'lstm.yml')
+    exp = 'chip_smoke_stacked'
+    out_dir = os.path.join(REPO, 'output', exp)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps, val_step = 60, 50
+    # one snapshot, after the last step but one; no low-loss snapshots
+    cfg = load_cfg(yml, train_overrides(rec_path, exp) + [
+        'VAL.VAL_STEP', str(val_step), 'TRAIN.DISPLAY', '10',
+        'TRAIN.SNAPSHOT_ITERS', str(steps), 'TRAIN.LOSS_MIN_SNAPSHOT', '0.0'])
+    check(int(cfg.TRAIN.NUM_HID) == 512 and int(cfg.TRAIN.BATCH_SIZE) == 64,
+          'lstm.yml is not the full-width default model')
+
+    def make(cfg_):
+        return StackedLSTM(
+            nchannels=int(cfg_.NCHANNELS), num_hid=int(cfg_.TRAIN.NUM_HID),
+            nclasses=int(cfg_.NCLASSES),
+            generator=torch.Generator().manual_seed(int(cfg_.RNG_SEED)))
+    net = make(cfg)
+    check(tuple(net.logits.cells[1].u.shape) == (512, 2048),
+          'the stacked head is not 2 x LSTM 512')
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
     t0 = time.perf_counter()
-    for _ in range(n_timed):
-        one_step()
+    with contextlib.redirect_stdout(log):
+        model, optimizer, losses = train.train_net(
+            net, {'name': 'chip_smoke'}, None, out_dir,
+            os.path.join(REPO, 'logs', exp), cfg, max_iters=steps + 1,
+            device='cuda')
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    rate = {'steps_per_s': n_timed / dt, 'images_per_s': 64 * n_timed / dt,
-            'ms_per_step': 1e3 * dt / n_timed}
-    print('train rate (batch 64, bf16, Adam, records feed, {} warm steps, '
-          'CUDA-synchronised) on {}: {:.2f} steps/s, {:.1f} images/s, {:.3f} '
-          'ms/step'.format(n_timed, card, rate['steps_per_s'],
-                           rate['images_per_s'], rate['ms_per_step']),
+    wall = time.perf_counter() - t0
+    counts = launch_counts(rnn_cuda, ctc_cuda)
+    val_calls = sum(1 for it in range(1, steps + 1)
+                    if (it + 1) % val_step == 0)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print('stacked LSTM fresh init: {} steps in {:.1f} s (start-up included), '
+          'total loss first 10 {:.4f} -> last 10 {:.4f}, launches {}, {} '
+          'validation decode(s)'.format(len(losses), wall, first, last,
+                                        json.dumps(counts), val_calls),
           flush=True)
-    profile_report('train step (batch 64, bf16)', one_step, reps=5)
-    stream.close()
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          'expected {} finite losses, got {}'.format(steps, losses))
+    check(last < first, 'the loss did not fall: {} -> {}'.format(first, last))
+    want = {'bilstm_fwd': 0, 'bilstm_bwd': 0,
+            'lstm_fwd': n_layers * (steps + val_calls),
+            'lstm_bwd': n_layers * steps, 'ctc_fwd': steps, 'ctc_bwd': steps}
+    check(counts == want, 'launches {} over {} steps, expected {}'.format(
+        counts, steps, want))
+
+    # the snapshot, evaluated through test_net with the subclass
+    snap = os.path.join(out_dir, 'lstm_ctc_iter_{}.ckpt.npz'.format(steps))
+    check(os.path.isfile(snap), 'no snapshot at {}'.format(snap))
+    eval_cfg = load_cfg(yml, ['TEST.BATCH_SIZE', '64', 'DECODER', "'greedy'",
+                              'TRAIN.DTYPE', "'bfloat16'", 'EXP_DIR', exp])
+    echoed = []
+    before = launch_counts(rnn_cuda, ctc_cuda)
+    r = test_mod.test_net(eval_cfg, os.path.join(REPO, 'data', 'val'),
+                          device='cuda', echo=echoed.append,
+                          model=make(eval_cfg))
+    log.write('\n'.join(echoed) + '\n')
+    eval_launches = launch_counts(rnn_cuda, ctc_cuda)['lstm_fwd'] \
+        - before['lstm_fwd']
+    check(any(snap in line for line in echoed if line.startswith('Restored')),
+          'the evaluation did not restore {}'.format(snap))
+    print('stacked LSTM eval of the {}-step snapshot: {}/{} on data/val (no '
+          'bar: it shows that the model decodes), {} decode calls, {} '
+          'lstm_fwd launches'.format(steps - 1, r.correct, r.total,
+                                     r.decode_calls, eval_launches),
+          flush=True)
+    check(r.total == 500 and len(r.predictions) == 500
+          and eval_launches == n_layers * r.decode_calls,
+          'stacked eval: {} images, {} launches for {} decode calls'.format(
+              r.total, eval_launches, r.decode_calls))
+    counts['lstm_fwd'] += eval_launches
+
+    cfg32 = load_cfg(yml, train_overrides(rec_path, exp)
+                     + ['TRAIN.DTYPE', "'float32'"])
+    worst, n_tensors = compare_gradients(
+        mods, make(cfg32).cuda().train(), cfg32, rec_path,
+        {'bilstm_fwd': 0, 'bilstm_bwd': 0, 'lstm_fwd': n_layers,
+         'lstm_bwd': n_layers, 'ctc_fwd': 1, 'ctc_bwd': 1},
+        # this model's largest gradient is smaller beside the rounding noise
+        # of the conv4 biases (true gradient zero) than the BiLSTM model's
+        floor=1e-2)
+    print('stacked LSTM gradients, one f32 step: kernels vs plain versions '
+          'agree to {:.2e} of each tensor\'s largest entry ({} tensors)'
+          .format(worst, n_tensors), flush=True)
+    rate = measure_rate(mods, model, optimizer, cfg, card, 'stacked LSTM', log)
     return counts, rate
 
 
@@ -798,7 +1224,7 @@ def profile_report(what, fn, reps):
               what, wall_ms, busy_ms, busy_ms / wall_ms, len(rows),
               launches), flush=True)
     rows.sort(reverse=True)
-    own = [r for r in rows[15:] if 'bilstm_' in r[2] or 'ctc_' in r[2]]
+    own = [r for r in rows[15:] if 'lstm_' in r[2] or 'ctc_' in r[2]]
     for ms, n, name in rows[:15] + own:         # top 15, and the port's own
         print('profile {:8.4f} ms {:5.1%} x{:<5.0f} {}'.format(
             ms, ms / busy_ms if busy_ms else 0.0, n, name[:84]),
@@ -815,8 +1241,11 @@ def main():
     from lstm_ctc_ocr_torch.data import records
     from lstm_ctc_ocr_torch.engine import test as test_mod
     from lstm_ctc_ocr_torch.engine import train
+    from lstm_ctc_ocr_torch.models import crnn, layers
     from lstm_ctc_ocr_torch.models.factory import get_network
-    from lstm_ctc_ocr_torch.ops import _build, ctc, ctc_cuda, rnn_cuda
+    from lstm_ctc_ocr_torch.ops import (_build, conv_bn_cuda, ctc, ctc_cuda,
+                                        rnn, rnn_cuda)
+    from lstm_ctc_ocr_torch.tools import bench_conv_bn
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -830,9 +1259,9 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     _build.build_all()
-    print('kernel build {:.1f} s'.format(time.perf_counter() - t0),
+    print('kernel build {:.1f} s'.format(time.perf_counter() - t_start),
           flush=True)
     for name in _build.kernel_sources():
         for line in _build.build_log(name).splitlines():
@@ -841,7 +1270,10 @@ def main():
 
     errs, timings = bilstm_fwd_phase(rnn_cuda)
     bwd_errs, bwd_timings = bilstm_bwd_phase(rnn_cuda)
+    lstm_errs, lstm_timings = lstm_phase(rnn, rnn_cuda)
     ctc_errs, ctc_timings = ctc_phase(ctc, ctc_cuda)
+    conv_errs, conv_timings, conv_launches = conv_bn_phase(bench_conv_bn,
+                                                           conv_bn_cuda)
 
     out_dir = os.path.join(REPO, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
@@ -850,15 +1282,29 @@ def main():
     profile_phase(test_mod, load_cfg)
     mods = {'load_cfg': load_cfg, 'train': train, 'test': test_mod,
             'rnn_cuda': rnn_cuda, 'ctc_cuda': ctc_cuda, 'ctc': ctc,
-            'records': records, 'get_network': get_network}
+            'records': records, 'get_network': get_network, 'crnn': crnn,
+            'layers': layers}
     with open(os.path.join(out_dir, 'chip_smoke_train.log'), 'w') as log:
-        train_launches, rate = train_phase(mods, card, log)
-    for name, count in train_launches.items():
-        check(count > 0, '{} was not launched on the train path'.format(name))
+        train_launches, rate, rec_path = train_phase(mods, card, log)
+        stacked_launches, stacked_rate = stacked_phase(mods, card, rec_path,
+                                                       log)
+    for name in ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd', 'ctc_bwd'):
+        check(train_launches[name] > 0,
+              '{} was not launched on the train path'.format(name))
+    for name in ('lstm_fwd', 'lstm_bwd', 'ctc_fwd', 'ctc_bwd'):
+        check(stacked_launches[name] > 0,
+              '{} was not launched on the stacked-LSTM path'.format(name))
 
     fwd, bwd = timings['bf16 N=64 T=23'], bwd_timings['bf16 N=64 T=23']
+    uni = lstm_timings['bf16 N=64 T=23']
     ctc_row = ctc_timings['N=64 T=23 L=6']
+    conv_row = conv_timings['conv4_1 bf16']
     common = {'route': 'cuda', 'card': card, 'train_steps': 60}
+
+    def ctc_launches(name):
+        return {'launches': train_launches[name] + stacked_launches[name],
+                'launches_by_path': {'train': train_launches[name],
+                                     'stacked_lstm': stacked_launches[name]}}
     print(json.dumps({'kernels': [dict(common, **{
         'name': 'bilstm_fwd',
         'source': 'lstm_ctc_ocr_torch/csrc/bilstm_fwd.cu',
@@ -894,13 +1340,11 @@ def main():
         'library_ms': bwd['library_ms'],
         'library': 'cuDNN nn.LSTM backward, input projection included',
         'shape': 'bf16 T=23 N=64 H=256',
-    }), dict(common, **{
+    }), dict(common, **ctc_launches('ctc_fwd'), **{
         'name': 'ctc_fwd',
         'source': 'lstm_ctc_ocr_torch/csrc/ctc.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/ctc_pallas.py:54',
         'tpu_kernel': 'ops/ctc_pallas.py:_fwd_kernel',
-        'launches': train_launches['ctc_fwd'],
-        'launches_by_path': {'train': train_launches['ctc_fwd']},
         'max_abs_err': ctc_errs['N=64 T=23 L=6']['ctc_fwd'],
         'ms': ctc_row['fwd_ms'],
         'device_ms': ctc_row['fwd_device_ms'],
@@ -911,13 +1355,11 @@ def main():
         'library': 'torch.nn.functional.ctc_loss forward+backward, which '
                    'covers ctc_fwd and ctc_bwd together',
         'shape': 'f32 T=23 N=64 S=13',
-    }), dict(common, **{
+    }), dict(common, **ctc_launches('ctc_bwd'), **{
         'name': 'ctc_bwd',
         'source': 'lstm_ctc_ocr_torch/csrc/ctc.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/ctc_pallas.py:89',
         'tpu_kernel': 'ops/ctc_pallas.py:_bwd_kernel',
-        'launches': train_launches['ctc_bwd'],
-        'launches_by_path': {'train': train_launches['ctc_bwd']},
         'max_abs_err': ctc_errs['N=64 T=23 L=6']['ctc_bwd'],
         'ms': ctc_row['bwd_ms'],
         'device_ms': ctc_row['bwd_device_ms'],
@@ -928,7 +1370,61 @@ def main():
         'library': 'torch.nn.functional.ctc_loss forward+backward, which '
                    'covers ctc_fwd and ctc_bwd together',
         'shape': 'f32 T=23 N=64 S=13',
-    })], 'train': rate}), flush=True)
+    }), dict(common, **{
+        'name': 'lstm_fwd',
+        'source': 'lstm_ctc_ocr_torch/csrc/lstm_fwd.cu',
+        'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:90',
+        'tpu_kernel': 'ops/rnn_pallas.py:_fwd_kernel',
+        'launches': stacked_launches['lstm_fwd'],
+        'launches_by_path': {'stacked_lstm': stacked_launches['lstm_fwd']},
+        'max_abs_err': lstm_errs['bf16 N=64 T=23']['lstm_fwd'],
+        'ms': uni['fwd_ms'],
+        'device_ms': uni['fwd_device_ms'],
+        'kernel_with_residuals_ms': uni['fwd_residuals_ms'],
+        'plain_ms': uni['fwd_plain_ms'],
+        'bound_ms': uni['fwd_bound_ms'],
+        'bound_by': uni['fwd_bound_by'],
+        'library_ms': uni['fwd_library_ms'],
+        'library': 'cuDNN nn.LSTM forward, one direction, packed, input '
+                   'projection included',
+        'shape': 'bf16 T=23 N=64 H=512',
+    }), dict(common, **{
+        'name': 'lstm_bwd',
+        'source': 'lstm_ctc_ocr_torch/csrc/lstm_bwd.cu',
+        'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:177',
+        'tpu_kernel': 'ops/rnn_pallas.py:_bwd_kernel',
+        'launches': stacked_launches['lstm_bwd'],
+        'launches_by_path': {'stacked_lstm': stacked_launches['lstm_bwd']},
+        'max_abs_err': lstm_errs['bf16 N=64 T=23']['lstm_bwd'],
+        'ms': uni['bwd_ms'],
+        'device_ms': uni['bwd_device_ms'],
+        'plain_ms': uni['bwd_plain_ms'],
+        'bound_ms': uni['bwd_bound_ms'],
+        'bound_by': uni['bwd_bound_by'],
+        'library_ms': uni['bwd_library_ms'],
+        'library': 'cuDNN nn.LSTM backward, one direction, input projection '
+                   'included',
+        'shape': 'bf16 T=23 N=64 H=512',
+    }), dict(common, **{
+        'name': 'conv_bn',
+        'source': 'lstm_ctc_ocr_torch/csrc/conv_bn.cu',
+        'replaces': 'lstm_ctc_ocr_tpu/ops/conv_bn_pallas.py:55',
+        'tpu_kernel': 'ops/conv_bn_pallas.py:_kernel',
+        'launches': conv_launches,
+        'launches_by_path': {'bench_conv_bn': conv_launches},
+        'max_abs_err': conv_errs['conv4_1 bf16'],
+        'ms': conv_row['kernel_ms'],
+        'device_ms': conv_row['device_ms'],
+        'plain_ms': conv_row['plain_ms'],
+        'bound_ms': conv_row['bound_ms'],
+        'bound_by': conv_row['bound_by'],
+        'library_ms': conv_row['library_ms'],
+        'library': 'the unfused layer: cuDNN conv, then bias, batch norm and '
+                   'ReLU as torch ops',
+        'shape': 'bf16 N=64 conv4_1 [24, 4, 256] -> 512',
+        'by_shape': conv_timings,
+    })], 'train': rate, 'stacked_lstm_train': stacked_rate,
+        'seconds': time.perf_counter() - t_start}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)

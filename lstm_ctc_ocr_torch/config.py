@@ -100,7 +100,7 @@ def default_cfg() -> AttrDict:
     c.CTC_IMPL = 'jax'
     c.CONV_IMPL = 'xla'
     c.LSTM_IMPL = 'pallas'
-    c.DECODER = 'greedy'           # 'greedy' | 'beam' (beam not ported yet)
+    c.DECODER = 'greedy'           # 'greedy' | 'beam' (ops/beam.py)
     c.BEAM_WIDTH = 16
     c.BEAM_MERGE_REPEATED = False
     # 'batch': BN uses batch statistics at eval too (reference quirk);

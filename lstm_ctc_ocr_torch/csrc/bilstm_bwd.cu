@@ -40,8 +40,9 @@
 //     product. Each block sums its row's dg over time in registers and
 //     writes it to db_part[dir][n][4H].
 //  2. bilstm_bwd_du_kernel, dU = sum over rows r = (t, n) of
-//     h_prev[r]^T dx[r]: a shared-memory tiled product, 64x64 output tile
-//     per block, 4x4 per thread, 16 rows per tile step, f32 accumulators.
+//     h_prev[r]^T dx[r]: a shared-memory tiled product (du_tile in
+//     lstm_common.cuh, shared with lstm_bwd.cu), 64x64 output tile per
+//     block, 4x4 per thread, 16 rows per tile step, f32 accumulators.
 //     h_prev is the saved h shifted by one time step, so it is the same
 //     buffer at an offset of N rows and the first (last) time step drops out.
 //  3. bilstm_bwd_db_kernel, db = sum over n of db_part.
@@ -51,29 +52,15 @@
 // (lstm_ctc_ocr_torch/ops/rnn_cuda.py). The entry points launch on the given
 // stream, do not synchronise, and return cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lstm_common.cuh"
 
 namespace {
 
+using lstm_common::from_f32;
+using lstm_common::kTile;
+using lstm_common::to_f32;
+
 constexpr int kMaxHidden = 256;   // H: threads per recurrence block
-constexpr int kTile = 64;         // dU output tile edge
-constexpr int kTileRows = 16;     // dU rows of (t, n) per tile step
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxHidden)
@@ -162,7 +149,7 @@ bilstm_bwd_rec_kernel(const T* __restrict__ dof, const T* __restrict__ dob,
   for (int q = 0; q < 4; ++q) part[q * hid + k] = db_acc[q];
 }
 
-// du[k][m] = sum_{r < n_k} a[r][k] * b[r][m]; a: [n_k, hid], b: [n_k, 4H].
+// dU of one direction per blockIdx.z: du = h_prev^T dx over the rows (t, n).
 template <typename T>
 __global__ void __launch_bounds__(256)
 bilstm_bwd_du_kernel(const T* __restrict__ hf, const T* __restrict__ hb,
@@ -171,61 +158,12 @@ bilstm_bwd_du_kernel(const T* __restrict__ hf, const T* __restrict__ hb,
                      int t_len, int n_rows, int hid) {
   const int dir = blockIdx.z;
   const int four_h = 4 * hid;
-  const long long n_k = (long long)(t_len - 1) * n_rows;
   // fw: h_prev[t] = h[t-1], rows t >= 1; bw: h_prev[t] = h[t+1], rows t < T-1
-  const T* __restrict__ a =
-      dir ? hb + (long long)n_rows * hid : hf;
-  const T* __restrict__ b =
-      dir ? dxb : dxf + (long long)n_rows * four_h;
-  float* __restrict__ du = dir ? dub : duf;
-
-  __shared__ float a_s[kTileRows][kTile];
-  __shared__ float b_s[kTileRows][kTile];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;        // 16 x 16 threads, 4 x 4 each
-  const int k0 = blockIdx.y * kTile, m0 = blockIdx.x * kTile;
-  const int lr = tid / 16, lc = (tid % 16) * 4;  // this thread's load cell
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (long long r0 = 0; r0 < n_k; r0 += kTileRows) {
-    const long long r = r0 + lr;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kk = k0 + lc + e, mm = m0 + lc + e;
-      a_s[lr][lc + e] = (r < n_k && kk < hid) ? to_f32(a[r * hid + kk]) : 0.0f;
-      b_s[lr][lc + e] =
-          (r < n_k && mm < four_h) ? to_f32(b[r * four_h + mm]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < kTileRows; ++rr) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a_s[rr][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = b_s[rr][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kk = k0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int mm = m0 + tx * 4 + j;
-      if (kk < hid && mm < four_h) du[(long long)kk * four_h + mm] = acc[i][j];
-    }
-  }
+  lstm_common::du_tile<T>(
+      dir ? hb + (long long)n_rows * hid : hf,
+      dir ? dxb : dxf + (long long)n_rows * four_h, dir ? dub : duf,
+      (long long)(t_len - 1) * n_rows, hid, four_h, blockIdx.y * kTile,
+      blockIdx.x * kTile);
 }
 
 __global__ void __launch_bounds__(256)
@@ -233,12 +171,8 @@ bilstm_bwd_db_kernel(const float* __restrict__ db_part,
                      float* __restrict__ dbf, float* __restrict__ dbb,
                      int n_rows, int four_h) {
   const int dir = blockIdx.y;
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= four_h) return;
-  const float* part = db_part + (long long)dir * n_rows * four_h;
-  float sum = 0.0f;
-  for (int n = 0; n < n_rows; ++n) sum += part[(long long)n * four_h + m];
-  (dir ? dbb : dbf)[m] = sum;
+  lstm_common::db_sum(db_part + (long long)dir * n_rows * four_h,
+                      dir ? dbb : dbf, n_rows, four_h);
 }
 
 template <typename T>

@@ -1,0 +1,205 @@
+// Backward of the masked unidirectional LSTM for Hopper (sm_90a).
+//
+// Replaces the TPU kernel lstm_ctc_ocr_tpu/ops/rnn_pallas.py:_bwd_kernel
+// (called through _bwd_call). It reads what lstm_fwd writes with residuals
+// on: post-activation gates (i, j, f, o) and the masked h and c carries,
+// plus the output cotangent.
+//
+// Walking time descending, with h_prev/c_prev the carry step t started from
+// (row t-1, zero at t = 0) and live = len > t:
+//   tanh_c = tanh(f c_prev + i j)             (recomputed from saved gates)
+//   g_h = live (dh + dout[t]),  g_c = live dc
+//   dc_tot = g_c + g_h o (1 - tanh_c^2)
+//   dg = [dc_tot j i(1-i), dc_tot i (1-j^2), dc_tot c_prev f(1-f),
+//         g_h tanh_c o(1-o)]                   -> dx[t], rounded to the type
+//   dh <- round(dg) U^T + (1-live) dh,  dc <- dc_tot f + (1-live) dc
+//   dU += h_prev^T round(dg),  db += sum_rows dg          (f32 accumulators)
+// A dead step has dg = 0 and passes dh, dc through unchanged.
+//
+// What bounds it on an H100: like the forward, a serial chain of T steps,
+// each a [rows, 4H] x [4H, H] product against a U^T (2 MB in bf16 at
+// H = 512) that does not fit a block's shared memory and is re-read from L2
+// every step, with FP32 FMAs on CUDA cores; then one [H, T*N] x [T*N, 4H]
+// product for dU (15 GFLOP at H = 512, T = 111, N = 64), also on CUDA cores.
+//
+// Design: the TPU kernel accumulated dU and db in VMEM scratch across a
+// sequential grid. GPU blocks run in parallel and in no order, so the work
+// is three kernels launched by the one entry point, all deterministic (no
+// atomics), the split bilstm_bwd.cu uses:
+//  1. lstm_bwd_rec_kernel, the recurrence. One block per batch row, H
+//     threads (up to 512); thread k owns hidden unit k: the gate derivatives,
+//     dc and dh of that unit are thread-local. The rounded dg row (4H
+//     values) goes through shared memory, and dh_prev[k] is its dot product
+//     with row k of U. The wrapper hands U^T packed as [4H/VEC][H][VEC]
+//     (VEC = 16 bytes of the element type), so a thread's 16-byte load
+//     brings VEC consecutive entries of its row and a warp's loads cover 512
+//     contiguous bytes; four accumulators break the FMA chain. A dead step
+//     (uniform over the block) writes zeros and skips the product. Each
+//     block sums its row's dg over time in registers and writes it to
+//     db_part[n][4H].
+//  2. lstm_bwd_du_kernel, dU = sum over rows r = (t, n) of h_prev[r]^T
+//     dx[r]: the shared-memory tiled product of lstm_common.cuh (64x64
+//     output tile per block, f32 accumulators). h_prev is the saved h
+//     shifted by one time step, so it is the same buffer against dx at an
+//     offset of N rows, and the first time step (zero state) drops out.
+//  3. lstm_bwd_db_kernel, db = sum over n of db_part.
+//
+// Built with nvcc into a shared library with a plain C interface
+// (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
+// (lstm_ctc_ocr_torch/ops/rnn_cuda.py). The entry points launch on the given
+// stream, do not synchronise, and return cudaGetLastError().
+
+#include "lstm_common.cuh"
+
+namespace {
+
+using lstm_common::from_f32;
+using lstm_common::kTile;
+using lstm_common::to_f32;
+
+constexpr int kMaxHidden = 512;   // H: threads per recurrence block
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxHidden)
+lstm_bwd_rec_kernel(const T* __restrict__ dout, const T* __restrict__ gates,
+                    const T* __restrict__ c_res, const T* __restrict__ ut,
+                    const int* __restrict__ lens, T* __restrict__ dx,
+                    float* __restrict__ db_part, int t_len, int n_rows,
+                    int hid) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int k = threadIdx.x;                     // hidden unit
+  const int n = blockIdx.x;                      // batch row
+  const int four_h = 4 * hid;
+  const int len = lens[n];
+
+  extern __shared__ float dg_row[];              // [4H], rounded dg
+
+  float dh = 0.0f, dc = 0.0f;
+  float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+
+  for (int t = t_len - 1; t >= 0; --t) {
+    const long long row = (long long)t * n_rows + n;
+    T* dx_row = dx + row * four_h;
+    if (len <= t) {                              // dead step, block-uniform
+      const T zero = from_f32<T>(0.0f);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dx_row[q * hid + k] = zero;
+      continue;
+    }
+    const T* g_row = gates + row * four_h;
+    const float gi = to_f32(g_row[k]);
+    const float gj = to_f32(g_row[hid + k]);
+    const float gfo = to_f32(g_row[2 * hid + k]);
+    const float go = to_f32(g_row[3 * hid + k]);
+    const float c_prev =
+        t > 0 ? to_f32(c_res[((long long)(t - 1) * n_rows + n) * hid + k])
+              : 0.0f;
+
+    const float tanh_c = tanhf(gfo * c_prev + gi * gj);
+    const float g_hnew = dh + to_f32(dout[row * hid + k]);
+    const float do_ = g_hnew * tanh_c;
+    const float dc_tot = dc + g_hnew * go * (1.0f - tanh_c * tanh_c);
+    float dg[4];
+    dg[0] = dc_tot * gj * gi * (1.0f - gi);
+    dg[1] = dc_tot * gi * (1.0f - gj * gj);
+    dg[2] = dc_tot * c_prev * gfo * (1.0f - gfo);
+    dg[3] = do_ * go * (1.0f - go);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      db_acc[q] += dg[q];
+      const T r = from_f32<T>(dg[q]);
+      dx_row[q * hid + k] = r;
+      dg_row[q * hid + k] = to_f32(r);
+    }
+    dc = dc_tot * gfo;
+    __syncthreads();
+
+    // dh[k] = sum_m dg_row[m] * U[k][m], U^T packed [4H/VEC][H][VEC]
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int mb = 0; mb < four_h / VEC; ++mb) {
+      alignas(16) T uv[VEC];
+      *reinterpret_cast<uint4*>(uv) = __ldg(reinterpret_cast<const uint4*>(
+          ut + ((long long)mb * hid + k) * VEC));
+#pragma unroll
+      for (int v = 0; v < VEC; ++v)
+        acc[v & 3] = fmaf(dg_row[mb * VEC + v], to_f32(uv[v]), acc[v & 3]);
+    }
+    dh = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    __syncthreads();                             // dg_row is free again
+  }
+
+  float* part = db_part + (long long)n * four_h;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) part[q * hid + k] = db_acc[q];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+lstm_bwd_du_kernel(const T* __restrict__ hs, const T* __restrict__ dx,
+                   float* __restrict__ du, int t_len, int n_rows, int hid) {
+  const int four_h = 4 * hid;
+  // h_prev[t] = h[t-1]: rows t >= 1 of dx against rows t-1 of h
+  lstm_common::du_tile<T>(hs, dx + (long long)n_rows * four_h, du,
+                          (long long)(t_len - 1) * n_rows, hid, four_h,
+                          blockIdx.y * kTile, blockIdx.x * kTile);
+}
+
+__global__ void __launch_bounds__(256)
+lstm_bwd_db_kernel(const float* __restrict__ db_part, float* __restrict__ db,
+                   int n_rows, int four_h) {
+  lstm_common::db_sum(db_part, db, n_rows, four_h);
+}
+
+template <typename T>
+int launch(const void* dout, const void* gates, const void* hs,
+           const void* cs, const void* ut, const void* lens, void* dx,
+           void* du, void* db, void* db_part, int t_len, int n_rows, int hid,
+           void* stream_ptr) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (t_len <= 0 || n_rows <= 0 || hid <= 0 || hid > kMaxHidden ||
+      hid % VEC != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int four_h = 4 * hid;
+  lstm_bwd_rec_kernel<T><<<n_rows, hid, sizeof(float) * four_h, stream>>>(
+      static_cast<const T*>(dout), static_cast<const T*>(gates),
+      static_cast<const T*>(cs), static_cast<const T*>(ut),
+      static_cast<const int*>(lens), static_cast<T*>(dx),
+      static_cast<float*>(db_part), t_len, n_rows, hid);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lstm_bwd_du_kernel<T>
+      <<<dim3((four_h + kTile - 1) / kTile, (hid + kTile - 1) / kTile), 256, 0,
+         stream>>>(static_cast<const T*>(hs), static_cast<const T*>(dx),
+                   static_cast<float*>(du), t_len, n_rows, hid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lstm_bwd_db_kernel<<<(four_h + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(db_part), static_cast<float*>(db), n_rows,
+      four_h);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dout, hs, cs: [T, N, H]; gates, dx (output): [T, N, 4H]; ut: U^T packed as
+// [4H/VEC][H][VEC]; lens: [N] int32; du (output): [H, 4H] f32; db (output):
+// [4H] f32; db_part: scratch [N, 4H] f32. Returns a cudaError_t.
+extern "C" int lstm_bwd_bf16(const void* dout, const void* gates,
+                             const void* hs, const void* cs, const void* ut,
+                             const void* lens, void* dx, void* du, void* db,
+                             void* db_part, int t_len, int n_rows, int hid,
+                             void* stream) {
+  return launch<__nv_bfloat16>(dout, gates, hs, cs, ut, lens, dx, du, db,
+                               db_part, t_len, n_rows, hid, stream);
+}
+
+extern "C" int lstm_bwd_f32(const void* dout, const void* gates,
+                            const void* hs, const void* cs, const void* ut,
+                            const void* lens, void* dx, void* du, void* db,
+                            void* db_part, int t_len, int n_rows, int hid,
+                            void* stream) {
+  return launch<float>(dout, gates, hs, cs, ut, lens, dx, du, db, db_part,
+                       t_len, n_rows, hid, stream);
+}

@@ -14,7 +14,10 @@ The bridge, :func:`params_from_flat` and its exact inverse
 * an HWIO conv kernel ``[kW, kH, C_in, C_out]`` <-> ``[C_out, C_in, kW, kH]``
   (``permute(3, 2, 0, 1)``; the first spatial axis stays the width axis);
 * an LSTM ``kernel [D+H, 4H]`` <-> ``w = kernel[:D]`` and ``u = kernel[D:]``,
-  gate order unchanged;
+  gate order unchanged; the cells of a BiLSTM are keyed by direction
+  (``params/logits/cells/fw/kernel`` <-> ``logits.cells.fw.w``), those of
+  the stacked ``lstm`` head by their index in the list
+  (``params/logits/cells/0/kernel`` <-> ``logits.cells.0.w``);
 * ``bn_state/<layer>/{mean,var}`` <-> the ``<layer>.bn_{mean,var}`` buffers;
 * float leaves (f16 in releases) become f32.
 
@@ -97,8 +100,8 @@ def params_from_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if parts[0] == 'bn_state' and len(parts) == 3:
             out['{}.bn_{}'.format(parts[1], parts[2])] = _f32(arr)
         elif parts[0] == 'params' and parts[2:3] == ['cells']:
-            layer, direction, leaf = parts[1], parts[3], parts[4]
-            prefix = '{}.cells.{}.'.format(layer, direction)
+            layer, cell, leaf = parts[1], parts[3], parts[4]   # fw|bw|index
+            prefix = '{}.cells.{}.'.format(layer, cell)
             if leaf == 'kernel':
                 h_dim = arr.shape[1] // 4
                 d = arr.shape[0] - h_dim
@@ -125,8 +128,8 @@ def flat_from_params(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         arr = t.detach().cpu().numpy()
         parts = name.split('.')
         if parts[1:2] == ['cells']:
-            layer, direction, leaf = parts[0], parts[2], parts[3]
-            base = 'params/{}/cells/{}/'.format(layer, direction)
+            layer, cell, leaf = parts[0], parts[2], parts[3]
+            base = 'params/{}/cells/{}/'.format(layer, cell)
             if leaf in ('w', 'u'):
                 cells.setdefault(base, {})[leaf] = arr
             else:

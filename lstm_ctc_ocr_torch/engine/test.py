@@ -3,8 +3,8 @@
 Counterpart of the JAX package's ``engine/test.py``. It restores the newest
 checkpoint from ``output/<EXP_DIR>/`` (falling back to the tracked release in
 ``checkpoints/<EXP_DIR>/``), reads every ``{idx}_{label}.png``, pads its width
-to a bucket, decodes it (CRNN forward + greedy CTC decode) and scores exact
-matches against the label in the filename.
+to a bucket, decodes it (CRNN forward + greedy or beam CTC decode, by
+``DECODER``) and scores exact matches against the label in the filename.
 
 ``TEST.BATCH_SIZE`` 1 decodes one image at a time; larger sizes group images
 by width bucket and decode fixed-size batches, padding a short chunk with
@@ -38,6 +38,7 @@ from ..data.gen import pick_bucket
 from ..data.image import load_image, png_size, preprocess_image
 from ..data.records import parse_label_from_filename
 from ..models.factory import get_network
+from ..ops.beam import beam_decode
 from ..ops.decoder import greedy_decode
 from ..utils.timer import Timer
 from . import checkpoint
@@ -109,25 +110,31 @@ def make_decode_step(model, cfg, device):
     int32 numpy; the copy back to the host waits for the device."""
     dtype = _DTYPES[str(cfg.TRAIN.DTYPE)]
     moving = str(cfg.BN_EVAL) == 'moving'
-    if str(cfg.DECODER) != 'greedy':
-        raise NotImplementedError('DECODER={!r}: only greedy decode is ported'
-                                  .format(cfg.DECODER))
+    beam = str(cfg.DECODER) == 'beam'
+    width, merge = int(cfg.BEAM_WIDTH), bool(cfg.BEAM_MERGE_REPEATED)
 
     @torch.inference_mode()
     def decode_step(images, steps):
         x = torch.from_numpy(images).to(device)
         lens = torch.from_numpy(steps).to(device)
-        logits = model(x, lens, dtype=dtype, moving_bn=moving)
-        return greedy_decode(logits.transpose(0, 1), lens).cpu().numpy()
+        logits = model(x, lens, dtype=dtype, moving_bn=moving).transpose(0, 1)
+        if beam:
+            ids = beam_decode(logits, lens, beam_width=width,
+                              merge_repeated=merge)
+        else:
+            ids = greedy_decode(logits, lens)
+        return ids.cpu().numpy()
     return decode_step
 
 
 @full_f32()
 def test_net(cfg, test_dir: str, output_dir: str = None, device='cuda',
-             echo: Callable[[str], None] = print) -> EvalResult:
+             echo: Callable[[str], None] = print, model=None) -> EvalResult:
     """Evaluate the newest checkpoint of ``cfg.EXP_DIR`` on ``test_dir``.
 
-    ``echo`` receives the per-image and summary lines."""
+    ``echo`` receives the per-image and summary lines. ``model`` is the
+    network to restore into (a ``models/crnn.py`` subclass, say); the
+    default is the factory's ``LSTM_test``."""
     dev = resolve_device(device)
     if output_dir is None:
         output_dir = get_output_dir(cfg)
@@ -137,7 +144,8 @@ def test_net(cfg, test_dir: str, output_dir: str = None, device='cuda',
                            'in {})'.format(output_dir,
                                            checkpoint.release_dir(output_dir)))
     path, step = found
-    model = get_network('LSTM_test', cfg)
+    if model is None:
+        model = get_network('LSTM_test', cfg)
     checkpoint.load_into(model, path, str(cfg.BN_EVAL) == 'moving')
     model = model.to(dev).eval()
     echo('Restored {} (step {})'.format(path, step))

@@ -20,8 +20,10 @@ Counterpart of the JAX package's ``engine/train.py`` for one device:
   one step late so that the host does not wait for the device every step.
 
 The step runs four hand-written CUDA kernels on a CUDA device — the BiLSTM
-forward and backward (``ops/rnn_cuda.py``) and the CTC forward and backward
-(``ops/ctc_cuda.py``) — and their plain versions on the CPU.
+forward and backward, or with the stacked ``lstm`` head the unidirectional
+LSTM forward and backward once per layer (``ops/rnn_cuda.py``), and the CTC
+forward and backward (``ops/ctc_cuda.py``) — and their plain versions on the
+CPU. The validation decode is greedy or beam, by ``DECODER``.
 
 Run::
 
@@ -32,7 +34,7 @@ The device is CUDA unless ``--device cpu`` is given; without CUDA it raises
 rather than fall back. Not ported yet, and raising ``NotImplementedError``
 by name: ``DATA_BACKEND`` synth and pool, ``TRAIN.STEPS_PER_DISPATCH`` > 1,
 ``DATA_DEVICE: on``, ``PARALLEL`` over several devices, ``.npy`` pre-train
-dicts, ``PROFILE_DIR``, and ``DECODER: beam`` in the validation decode.
+dicts and ``PROFILE_DIR``.
 """
 
 from __future__ import annotations

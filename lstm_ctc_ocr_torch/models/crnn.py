@@ -10,6 +10,17 @@ names, so checkpoint keys map 1:1 (``engine/checkpoint.py``)::
     conv5 2x2x512 VALID, no relu           [N, 512, W/4-1, 1]
     reshape_squeeze                        [N, T=W/4-1, 512]
     logits: BiLSTM 2x(NUM_HID/2) + proj    [T, N, NCLASSES]
+
+A subclass chooses another head by overriding ``make_head``, as a user of
+the JAX package writes a ``Network`` subclass ending in ``.lstm(...)``
+instead of ``.bi_lstm(...)``; the stacked unidirectional model is::
+
+    class StackedLSTM(LSTM_train):
+        def make_head(self, num_hid, nclasses, generator):
+            return LSTM(512, num_hid, 2, nclasses, generator)
+
+and goes to ``engine.train.train_net(network, ...)`` and
+``engine.test.test_net(..., model=network)`` as it is.
 """
 
 from __future__ import annotations
@@ -34,7 +45,14 @@ class LSTM_train(nn.Module):
         self.conv4_2 = ConvSingle(512, 512, 3, bn=True, generator=g)
         self.conv5 = ConvSingle(512, 512, 2, relu=False, padding='VALID',
                                 generator=g)
-        self.logits = BiLSTM(512, num_hid, nclasses, generator=g)
+        self.logits = self.make_head(num_hid, nclasses, g)
+
+    def make_head(self, num_hid, nclasses, generator):
+        """The recurrent head over the [N, T, 512] features: a module with
+        ``forward(x, lens, dtype) -> [T, N, nclasses]`` f32 logits and a
+        projection ``weights`` (the one tensor of the head that carries L2
+        weight decay). A subclass may return ``layers.LSTM`` instead."""
+        return BiLSTM(512, num_hid, nclasses, generator=generator)
 
     def forward(self, data, time_step_len, dtype=None, moving_bn=False,
                 bn_collect=None):
@@ -58,7 +76,7 @@ class LSTM_train(nn.Module):
 
     def regularization_loss(self, weight_decay):
         """Sum of the L2 penalties ``weight_decay * sum(w^2) / 2`` over the
-        conv kernels and the BiLSTM layer's projection weights, in f32;
+        conv kernels and the recurrent head's projection weights, in f32;
         zero when ``weight_decay <= 0``. LSTM cell weights, biases and the
         BN scale and shift carry none."""
         tensors = [m.kernel for m in self.children()

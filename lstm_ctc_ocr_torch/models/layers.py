@@ -1,8 +1,9 @@
 """The CRNN's layers as ``nn.Module``s with the JAX package's parameter names.
 
 Counterpart of the JAX package's ``models/layers.py`` for the main path:
-``conv_single`` (bias, batch norm, relu), ``max_pool``, ``reshape_squeeze``
-and ``bi_lstm`` with its f32 projection.
+``conv_single`` (bias, batch norm, relu), ``max_pool``, ``reshape_squeeze``,
+``bi_lstm`` with its f32 projection, and the stacked unidirectional
+``lstm`` variant.
 
 Layout: the JAX package runs images as ``[N, W, H, C]`` with HWIO kernels
 whose *first* spatial axis runs over image width. The port runs
@@ -14,7 +15,8 @@ kernels ``[C_out, C_in, kW, kH]`` (``hwio.permute(3, 2, 0, 1)``), so a SAME
 Cast points follow ``layers.py:66-107,154-160``: the conv and ``+bias`` run
 in the compute dtype, batch norm runs in f32 on the compute-dtype output
 and casts back before relu, pools run in the compute dtype, and the
-BiLSTM's projection runs in f32 on its (compute-dtype) outputs.
+BiLSTM's and the stacked LSTM's projection runs in f32 on its
+(compute-dtype) outputs.
 """
 
 from __future__ import annotations
@@ -114,6 +116,11 @@ class LSTMCell(nn.Module):
         self.bias = nn.Parameter(torch.zeros(4 * h))
 
 
+def _cell_weights(cell, dtype):
+    return {k: _cast(p, dtype) for k, p in
+            (('w', cell.w), ('u', cell.u), ('bias', cell.bias))}
+
+
 class BiLSTM(nn.Module):
     """BiLSTM of ``num_hids // 2`` units per direction + f32 projection to
     ``nclasses``; returns time-major logits [T, N, C]."""
@@ -133,10 +140,35 @@ class BiLSTM(nn.Module):
 
     def forward(self, x, lens, dtype=None):
         x = _cast(x, dtype)
-        cells = {name: {k: _cast(p, dtype) for k, p in
-                        (('w', cell.w), ('u', cell.u), ('bias', cell.bias))}
+        cells = {name: _cell_weights(cell, dtype)
                  for name, cell in self.cells.items()}
         out = rnn.bilstm(cells, x, lens)                    # [N, T, num_hids]
         # projection in f32: a small matmul, and CTC wants f32 logits
         logits = out.float() @ self.weights + self.biases
         return logits.transpose(0, 1)                       # [T, N, C]
+
+
+class LSTM(nn.Module):
+    """``num_layers`` stacked unidirectional LSTMs of ``num_hids`` units
+    (the first reads width ``d``) + f32 projection to ``nclasses``; returns
+    time-major logits [T, N, C]. Counterpart of the JAX ``lstm_init`` /
+    ``lstm_apply``: cells in the list ``cells``, projection ``weights``
+    drawn truncated-normal with stddev 0.1, zero ``biases``."""
+
+    def __init__(self, d, num_hids, num_layers, nclasses, generator=None):
+        super().__init__()
+        self.cells = nn.ModuleList(
+            LSTMCell(d if i == 0 else num_hids, num_hids, generator)
+            for i in range(num_layers))
+        self.weights = nn.Parameter(torch.empty(num_hids, nclasses))
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weights, std=0.1, a=-0.2, b=0.2,
+                                  generator=generator)
+        self.biases = nn.Parameter(torch.zeros(nclasses))
+
+    def forward(self, x, lens, dtype=None):
+        x_tm = _cast(x, dtype).transpose(0, 1)
+        for cell in self.cells:
+            x_tm = rnn.lstm(_cell_weights(cell, dtype), x_tm, lens)
+        # projection in f32, as in the BiLSTM layer; already time-major
+        return x_tm.float() @ self.weights + self.biases

@@ -6,10 +6,11 @@ plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-and is loaded with ``ctypes``. ``<hash>`` covers the source and the flags, so
-an edited source builds anew and an unchanged one is loaded from
-``build/`` (listed in ``.gitignore``). The ptxas report (registers, shared
-memory, spills) is kept beside the library as ``lib<name>-<hash>.log``.
+and is loaded with ``ctypes``. ``<hash>`` covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source builds anew and
+an unchanged one is loaded from ``build/`` (listed in ``.gitignore``). The
+ptxas report (registers, shared memory, spills) is kept beside the library
+as ``lib<name>-<hash>.log``.
 :func:`build_all` starts one nvcc per source at once and waits for all.
 
 Nothing here runs when the module is imported, and nothing falls back: a
@@ -48,8 +49,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(SRC_DIR, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(SRC_DIR) if f.endswith('.cuh'))
+    for fname in [name + '.cu'] + headers:
+        with open(os.path.join(SRC_DIR, fname), 'rb') as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, 'lib{}-{}.so'.format(
         name, digest.hexdigest()[:16]))
 

@@ -1,0 +1,139 @@
+"""Fused conv3x3 + bias + training-mode batch norm + ReLU, forward only: the
+hand-written CUDA kernel and its plain twin.
+
+Counterpart of the JAX package's ``ops/conv_bn_pallas.py``
+(``conv3x3_bn_relu`` / ``_kernel``): the A/B partner of the unfused conv4_1
+/ conv4_2 layers (``models/layers.py:ConvSingle`` with ``bn=True``), timed
+by ``tools/bench_conv_bn.py``. ``csrc/conv_bn.cu``'s header says what bounds
+it on an H100 and how its design answers that.
+
+The contract is stated in the port's layout: activations ``[N, C, W, H]``
+and conv kernels ``[C_out, C_in, 3, 3]`` (``models/layers.py``). The CUDA
+kernel works channels-last, so the wrapper makes ``x`` channels-last (no
+copy when it already is, in memory) and returns a ``[N, C_out, W, H]``
+tensor whose memory is channels-last; the one reordering of the 3x3 kernel
+into nine ``[C_in, C_out]`` taps is also inside the wrapper and inside its
+time.
+
+Numerics, as in the TPU kernel: the nine taps accumulate in f32 and round
+once, with the bias, to the compute dtype; the batch statistics come from
+the *rounded* activations, in f32, in the one-pass ``E[x^2] - E[x]^2`` form
+clamped at 0 (the unfused layer takes the two-pass variance); scale, shift
+and ReLU run in f32 and round once more.
+
+``conv3x3_bn_relu`` launches the kernel for CUDA tensors and runs
+``conv3x3_bn_relu_reference`` for CPU tensors; it never falls back from one
+to the other. ``conv3x3_bn_relu.launches`` counts launches (one per call).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+_SUPPORTED = (torch.bfloat16, torch.float32)
+CHANNEL_STEP = 16      # C_in must be a multiple of the kernel's kStep
+
+
+def conv3x3_bn_relu_reference(x, kernel, bias, gamma, beta, eps=1e-3):
+    """Plain PyTorch version of the kernel.
+
+    Args:
+      x:      [N, C_in, W, H] in the compute dtype (bf16 or f32).
+      kernel: [C_out, C_in, 3, 3]; cast to ``x.dtype``.
+      bias, gamma, beta: [C_out]; used in f32.
+    Returns:
+      relu(batchnorm(conv_same(x, kernel) + bias)) as [N, C_out, W, H] in
+      ``x.dtype``, batch statistics over (N, W, H).
+    """
+    n, ci, w, h = x.shape
+    co = kernel.shape[0]
+    dt = x.dtype
+    kernel = kernel.to(dt)
+    xp = F.pad(x.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1))  # [N, W+2, H+2, Ci]
+    acc = torch.zeros(n * w * h, co, dtype=torch.float32, device=x.device)
+    for dw in range(3):
+        for dh in range(3):
+            rows = xp[:, dw:dw + w, dh:dh + h, :].reshape(n * w * h, ci)
+            # products of the compute dtype's values, f32 accumulation
+            acc += rows.float() @ kernel[:, :, dw, dh].float().t()
+    y32 = (acc + bias.float()).to(dt).float()               # single rounding
+    count = float(n * w * h)
+    mean = y32.sum(dim=0) * (1.0 / count)
+    var = torch.clamp((y32 * y32).sum(dim=0) * (1.0 / count) - mean * mean,
+                      min=0.0)
+    scale = gamma.float() * torch.rsqrt(var + eps)
+    shift = beta.float() - mean * scale
+    out = torch.relu(y32 * scale + shift).to(dt)
+    return out.reshape(n, w, h, co).permute(0, 3, 1, 2)
+
+
+def _entry(dtype):
+    lib = _build.library('conv_bn')
+    fn = getattr(lib, 'conv_bn_bf16' if dtype == torch.bfloat16
+                 else 'conv_bn_f32')
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def conv3x3_bn_relu(x, kernel, bias, gamma, beta, eps=1e-3):
+    """Fused conv3x3 (SAME) + bias + batch norm on batch statistics + ReLU.
+
+    Same contract as :func:`conv3x3_bn_relu_reference`. CPU tensors run the
+    plain version; CUDA tensors launch ``csrc/conv_bn.cu`` (the conv with
+    its partial statistics, their reduction, the normalisation: one entry
+    point) or raise."""
+    if x.device.type == 'cpu':
+        return conv3x3_bn_relu_reference(x, kernel, bias, gamma, beta, eps)
+    if x.device.type != 'cuda':
+        raise ValueError('conv3x3_bn_relu runs on CUDA or CPU tensors, got {}'
+                         .format(x.device))
+    dtype, dev = x.dtype, x.device
+    if dtype not in _SUPPORTED:
+        raise TypeError('conv3x3_bn_relu takes bf16 or f32, got {}'
+                        .format(dtype))
+    if x.dim() != 4 or kernel.dim() != 4 \
+            or tuple(kernel.shape[1:]) != (x.shape[1], 3, 3):
+        raise ValueError('expected x [N, C_in, W, H] and kernel [C_out, C_in, '
+                         '3, 3], got {} and {}'.format(tuple(x.shape),
+                                                       tuple(kernel.shape)))
+    n, ci, w, h = x.shape
+    co = kernel.shape[0]
+    if ci % CHANNEL_STEP:
+        raise ValueError('C_in {} unsupported: needs a multiple of {}'.format(
+            ci, CHANNEL_STEP))
+    for name, tns in (('kernel', kernel), ('bias', bias), ('gamma', gamma),
+                      ('beta', beta)):
+        if tns.device != dev or (name != 'kernel'
+                                 and tuple(tns.shape) != (co,)):
+            raise ValueError('{}: expected a [{}] tensor on {}, got {} on {}'
+                             .format(name, co, dev, tuple(tns.shape),
+                                     tns.device))
+    x_cl = x.permute(0, 2, 3, 1).contiguous()                 # [N, W, H, Ci]
+    taps = kernel.to(dtype).permute(2, 3, 1, 0).contiguous()  # [3, 3, Ci, Co]
+    bias, gamma, beta = (t.float().contiguous() for t in (bias, gamma, beta))
+    y = torch.empty(n, w, h, co, dtype=dtype, device=dev)
+    if y.numel():
+        n_tiles = -(-(n * w * h) // 64)
+        part = torch.empty(n_tiles, 2, co, dtype=torch.float32, device=dev)
+        scale_shift = torch.empty(2, co, dtype=torch.float32, device=dev)
+        err = _entry(dtype)(
+            *(t.data_ptr() for t in (x_cl, taps, bias, gamma, beta, y, part,
+                                     scale_shift)),
+            n, w, h, ci, co, float(eps),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError('conv_bn kernel launch failed: cudaError {}'
+                               .format(err))
+        conv3x3_bn_relu.launches += 1
+    return y.permute(0, 3, 1, 2)
+
+
+conv3x3_bn_relu.launches = 0

@@ -16,8 +16,12 @@ directions, then ``rnn_cuda.bilstm_fwd`` — the CUDA kernel for a CUDA
 tensor, its plain version for a CPU tensor — inside a
 ``torch.autograd.Function`` whose backward is ``rnn_cuda.bilstm_bwd``
 (counterpart of the JAX package's ``_bi_core`` custom VJP).
-:func:`bilstm_scan_pair` (two scans and two reversal gathers) is the
-portable formulation the tests hold both against.
+:func:`lstm` is the unidirectional scan of the stacked ``lstm`` head, the
+counterpart of ``rnn_pallas.lstm_scan``: the projection, then
+``rnn_cuda.lstm_fwd`` with ``rnn_cuda.lstm_bwd`` as its gradient.
+:func:`lstm_scan` is its plain twin (the JAX ``lax.scan`` version), and
+:func:`bilstm_scan_pair` (two scans and two reversal gathers, over either
+scan) is the portable formulation the tests hold the fused BiLSTM against.
 """
 
 from __future__ import annotations
@@ -65,13 +69,14 @@ def reverse_sequence(x_tm, lens):
     return torch.gather(x_tm, 0, src)
 
 
-def bilstm_scan_pair(cells, x, lens, forget_bias=1.0):
+def bilstm_scan_pair(cells, x, lens, forget_bias=1.0, scan=lstm_scan):
     """BiLSTM [N, T, D] -> [N, T, 2H] as two masked scans and two
-    ``reverse_sequence`` gathers."""
+    ``reverse_sequence`` gathers. ``scan`` is :func:`lstm_scan` or
+    :func:`lstm` (the JAX package picks it with ``select_scan()``)."""
     x_tm = x.transpose(0, 1)
-    out_fw = lstm_scan(cells['fw'], x_tm, lens, forget_bias)
+    out_fw = scan(cells['fw'], x_tm, lens, forget_bias)
     x_rev = reverse_sequence(x_tm, lens)
-    out_bw = reverse_sequence(lstm_scan(cells['bw'], x_rev, lens, forget_bias),
+    out_bw = reverse_sequence(scan(cells['bw'], x_rev, lens, forget_bias),
                               lens)
     return torch.cat([out_fw, out_bw], dim=-1).transpose(0, 1)
 
@@ -120,3 +125,35 @@ def bilstm(cells, x, lens, forget_bias=1.0):
                                fw['u'], bw['u'], fw['bias'], bw['bias'],
                                lens, forget_bias)
     return torch.cat([of, ob], dim=-1).transpose(0, 1)
+
+
+class _LSTMCore(torch.autograd.Function):
+    """``lstm_fwd`` with ``lstm_bwd`` as its gradient. The forward saves the
+    residuals only when some input needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x_proj, u, bias, lens, forget_bias):
+        if not any(ctx.needs_input_grad):
+            return rnn_cuda.lstm_fwd(x_proj, u, bias, lens, forget_bias)
+        out, gates, hs, cs = rnn_cuda.lstm_fwd(x_proj, u, bias, lens,
+                                               forget_bias,
+                                               save_residuals=True)
+        ctx.save_for_backward(gates, hs, cs, u, lens)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        gates, hs, cs, u, lens = ctx.saved_tensors
+        dx, du, db = rnn_cuda.lstm_bwd(dout.to(gates.dtype).contiguous(),
+                                       gates, hs, cs, u, lens)
+        return dx, du.to(u.dtype), db.to(u.dtype), None, None
+
+
+def lstm(cell, x_tm, lens, forget_bias=1.0):
+    """Unidirectional masked LSTM over time-major [T, N, D] -> [T, N, H]:
+    one input projection, then the recurrence as ``rnn_cuda.lstm_fwd`` (the
+    CUDA kernel for a CUDA tensor, its plain version for a CPU tensor). Same
+    contract as :func:`lstm_scan`; ``lens`` is [N] int32."""
+    t_len, n, d = x_tm.shape
+    x_proj = (x_tm.reshape(t_len * n, d) @ cell['w']).reshape(t_len, n, -1)
+    return _LSTMCore.apply(x_proj, cell['u'], cell['bias'], lens, forget_bias)

@@ -1,17 +1,23 @@
-"""Fused masked BiLSTM forward and backward: the hand-written CUDA kernels
-and their plain twins.
+"""Masked LSTM recurrences, forward and backward: the hand-written CUDA
+kernels and their plain twins.
 
-Counterpart of the JAX package's ``ops/rnn_pallas.py``: ``_bi_fwd_call`` /
-``_bi_fwd_kernel`` (``csrc/bilstm_fwd.cu``) and ``_bi_bwd_call`` /
-``_bi_bwd_kernel`` (``csrc/bilstm_bwd.cu``). Each source's header says what
-bounds it on an H100 and how its design answers that. The input projection
-``x @ [W_fw | W_bw]`` and its backward stay outside the kernels, as they
-stayed outside the TPU kernels (large matmuls).
+Counterpart of the JAX package's ``ops/rnn_pallas.py``:
 
-``bilstm_fwd`` / ``bilstm_bwd`` launch the kernel for CUDA tensors and run
-``bilstm_fwd_reference`` / ``bilstm_bwd_reference`` for CPU tensors; they
-never fall back from one to the other. ``bilstm_fwd.launches`` and
-``bilstm_bwd.launches`` count launches (one per call of the wrapper).
+* the fused BiLSTM, ``_bi_fwd_call`` / ``_bi_fwd_kernel``
+  (``csrc/bilstm_fwd.cu``) and ``_bi_bwd_call`` / ``_bi_bwd_kernel``
+  (``csrc/bilstm_bwd.cu``), hidden size up to 256 per direction;
+* the unidirectional scan of the stacked ``lstm`` head, ``_fwd_call`` /
+  ``_fwd_kernel`` (``csrc/lstm_fwd.cu``) and ``_bwd_call`` / ``_bwd_kernel``
+  (``csrc/lstm_bwd.cu``), hidden size up to 512.
+
+Each source's header says what bounds it on an H100 and how its design
+answers that. The input projection ``x @ W`` and its backward stay outside
+the kernels, as they stayed outside the TPU kernels (large matmuls).
+
+``bilstm_fwd`` / ``bilstm_bwd`` / ``lstm_fwd`` / ``lstm_bwd`` launch the
+kernel for CUDA tensors and run ``*_reference`` for CPU tensors; they never
+fall back from one to the other. Each wrapper's ``launches`` counts its
+launches (one per call).
 """
 
 from __future__ import annotations
@@ -23,7 +29,45 @@ import torch
 from . import _build
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
-MAX_HIDDEN = 256      # one thread per hidden unit: kMaxHidden in the kernel
+# one thread per hidden unit: kMaxHidden in the kernels
+MAX_HIDDEN = 256           # bilstm_fwd / bilstm_bwd, per direction
+MAX_HIDDEN_LSTM = 512      # lstm_fwd / lstm_bwd
+
+
+def _fwd_walk(xp, u, b, lens, steps, forget_bias, save_residuals):
+    """One direction's masked walk over the time steps ``steps``: ``[out]``,
+    or ``[out, gates, hs, cs]`` with ``save_residuals``."""
+    t_len, n, four_h = xp.shape
+    h_dim = four_h // 4
+    rdt = xp.dtype
+    lens = lens.to(torch.int64)
+    u32 = u.float()
+    b32 = b.float()
+    h = torch.zeros(n, h_dim, dtype=torch.float32, device=xp.device)
+    c = torch.zeros_like(h)
+    out = torch.zeros(t_len, n, h_dim, dtype=rdt, device=xp.device)
+    if save_residuals:
+        gates = torch.zeros(t_len, n, four_h, dtype=rdt, device=xp.device)
+        hs = torch.zeros_like(out)
+        cs = torch.zeros_like(out)
+    for t in steps:
+        # h enters the product in the compute dtype; f32 accumulation
+        g = xp[t].float() + h.to(u.dtype).float() @ u32 + b32
+        i = torch.sigmoid(g[:, :h_dim])
+        j = torch.tanh(g[:, h_dim:2 * h_dim])
+        f = torch.sigmoid(g[:, 2 * h_dim:3 * h_dim] + forget_bias)
+        o = torch.sigmoid(g[:, 3 * h_dim:])
+        c_new = f * c + i * j
+        h_new = o * torch.tanh(c_new)
+        live = (lens > t).to(torch.float32)[:, None]
+        h = live * h_new + (1.0 - live) * h
+        c = live * c_new + (1.0 - live) * c
+        out[t] = (live * h_new).to(rdt)
+        if save_residuals:
+            gates[t] = torch.cat([i, j, f, o], dim=1).to(rdt)
+            hs[t] = h.to(rdt)
+            cs[t] = c.to(rdt)
+    return [out, gates, hs, cs] if save_residuals else [out]
 
 
 def bilstm_fwd_reference(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
@@ -41,41 +85,31 @@ def bilstm_fwd_reference(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
       ``(of, gf, hf, cf, ob, gb, hb, cb)``: post-activation gates
       [T, N, 4H] (i, j, f, o) and the masked h and c carries [T, N, H].
     """
-    t_len, n, four_h = xpf.shape
-    h_dim = four_h // 4
-    rdt = xpf.dtype
-    lens = lens.to(torch.int64)
-    results = []
-    for xp, u, b, steps in ((xpf, uf, bf, range(t_len)),
-                            (xpb, ub, bb, reversed(range(t_len)))):
-        u32 = u.float()
-        b32 = b.float()
-        h = torch.zeros(n, h_dim, dtype=torch.float32, device=xp.device)
-        c = torch.zeros_like(h)
-        out = torch.zeros(t_len, n, h_dim, dtype=rdt, device=xp.device)
-        if save_residuals:
-            gates = torch.zeros(t_len, n, four_h, dtype=rdt, device=xp.device)
-            hs = torch.zeros_like(out)
-            cs = torch.zeros_like(out)
-        for t in steps:
-            # h enters the product in the compute dtype; f32 accumulation
-            g = xp[t].float() + h.to(u.dtype).float() @ u32 + b32
-            i = torch.sigmoid(g[:, :h_dim])
-            j = torch.tanh(g[:, h_dim:2 * h_dim])
-            f = torch.sigmoid(g[:, 2 * h_dim:3 * h_dim] + forget_bias)
-            o = torch.sigmoid(g[:, 3 * h_dim:])
-            c_new = f * c + i * j
-            h_new = o * torch.tanh(c_new)
-            live = (lens > t).to(torch.float32)[:, None]
-            h = live * h_new + (1.0 - live) * h
-            c = live * c_new + (1.0 - live) * c
-            out[t] = (live * h_new).to(rdt)
-            if save_residuals:
-                gates[t] = torch.cat([i, j, f, o], dim=1).to(rdt)
-                hs[t] = h.to(rdt)
-                cs[t] = c.to(rdt)
-        results += [out, gates, hs, cs] if save_residuals else [out]
-    return tuple(results)
+    t_len = xpf.shape[0]
+    return tuple(
+        _fwd_walk(xpf, uf, bf, lens, range(t_len), forget_bias,
+                  save_residuals)
+        + _fwd_walk(xpb, ub, bb, lens, reversed(range(t_len)), forget_bias,
+                    save_residuals))
+
+
+def lstm_fwd_reference(x_proj, u, bias, lens, forget_bias=1.0,
+                       save_residuals=False):
+    """Plain PyTorch version of ``csrc/lstm_fwd.cu``: the ascending masked
+    walk, with the rounding points of :func:`bilstm_fwd_reference`.
+
+    Args:
+      x_proj: [T, N, 4H] input projection (bf16 or f32).
+      u:      [H, 4H] recurrent weights; bias: [4H]; lens: [N] int32.
+    Returns:
+      ``out`` [T, N, H] in the input dtype, zero past ``lens``; with
+      ``save_residuals`` the TPU kernel's four outputs ``(out, gates, hs,
+      cs)``: post-activation gates [T, N, 4H] (i, j, f, o) and the masked h
+      and c carries [T, N, H].
+    """
+    res = _fwd_walk(x_proj, u, bias, lens, range(x_proj.shape[0]),
+                    forget_bias, save_residuals)
+    return tuple(res) if save_residuals else res[0]
 
 
 def _pack_u(u, vec):
@@ -166,6 +200,49 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
 bilstm_fwd.launches = 0
 
 
+def _bwd_walk(dout, gates, hs, cs, u, lens, fw):
+    """One direction's backward walk (the TPU kernel's ``_bi_bwd_step`` /
+    ``_bwd_kernel`` step), over the reverse of its forward's order:
+    ``(dx, du, db)``."""
+    t_len, n, four_h = gates.shape
+    h_dim = four_h // 4
+    rdt = gates.dtype
+    lens = lens.to(torch.int64)
+    u32 = u.float()
+    dh = torch.zeros(n, h_dim, dtype=torch.float32, device=gates.device)
+    dc = torch.zeros_like(dh)
+    dx = torch.zeros(t_len, n, four_h, dtype=rdt, device=gates.device)
+    du = torch.zeros(h_dim, four_h, dtype=torch.float32, device=gates.device)
+    db = torch.zeros(four_h, dtype=torch.float32, device=gates.device)
+    for t in (reversed(range(t_len)) if fw else range(t_len)):
+        tp = t - 1 if fw else t + 1          # the step's incoming carry
+        if 0 <= tp < t_len:
+            h_prev, c_prev = hs[tp].float(), cs[tp].float()
+        else:
+            h_prev, c_prev = torch.zeros_like(dh), torch.zeros_like(dh)
+        g = gates[t].float()
+        i, j = g[:, :h_dim], g[:, h_dim:2 * h_dim]
+        f, o = g[:, 2 * h_dim:3 * h_dim], g[:, 3 * h_dim:]
+        tanh_c = torch.tanh(f * c_prev + i * j)
+        live = (lens > t).to(torch.float32)[:, None]
+        g_hnew = live * (dh + dout[t].float())
+        g_cnew = live * dc
+        do_ = g_hnew * tanh_c
+        dc_tot = g_cnew + g_hnew * o * (1.0 - tanh_c * tanh_c)
+        dg = torch.cat([dc_tot * j * i * (1.0 - i),
+                        dc_tot * i * (1.0 - j * j),
+                        dc_tot * c_prev * f * (1.0 - f),
+                        do_ * o * (1.0 - o)], dim=1)
+        # dg enters both products rounded to U's dtype; f32 accumulation
+        dg_c = dg.to(u.dtype).float()
+        dh = dg_c @ u32.t() + (1.0 - live) * dh
+        dc = dc_tot * f + (1.0 - live) * dc
+        du += h_prev.to(u.dtype).float().t() @ dg_c
+        db += dg.sum(dim=0)
+        dx[t] = dg.to(rdt)
+    return dx, du, db
+
+
 def bilstm_bwd_reference(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
     """Plain PyTorch version of the backward kernel: the TPU kernel's
     ``_bi_bwd_step`` repeated over the reverse of each direction's walk.
@@ -180,49 +257,24 @@ def bilstm_bwd_reference(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
       dtype (the gate pre-activation gradients, which are also the input
       projections' gradients), dU [H, 4H] and db [4H] in f32.
     """
-    t_len, n, four_h = gf.shape
-    h_dim = four_h // 4
-    rdt = gf.dtype
-    lens = lens.to(torch.int64)
-    results = []
-    for dout, gates, hs, cs, u, fw in ((dof, gf, hf, cf, uf, True),
-                                       (dob, gb, hb, cb, ub, False)):
-        u32 = u.float()
-        dh = torch.zeros(n, h_dim, dtype=torch.float32, device=gates.device)
-        dc = torch.zeros_like(dh)
-        dx = torch.zeros(t_len, n, four_h, dtype=rdt, device=gates.device)
-        du = torch.zeros(h_dim, four_h, dtype=torch.float32,
-                         device=gates.device)
-        db = torch.zeros(four_h, dtype=torch.float32, device=gates.device)
-        for t in (reversed(range(t_len)) if fw else range(t_len)):
-            tp = t - 1 if fw else t + 1          # the step's incoming carry
-            if 0 <= tp < t_len:
-                h_prev, c_prev = hs[tp].float(), cs[tp].float()
-            else:
-                h_prev, c_prev = torch.zeros_like(dh), torch.zeros_like(dh)
-            g = gates[t].float()
-            i, j = g[:, :h_dim], g[:, h_dim:2 * h_dim]
-            f, o = g[:, 2 * h_dim:3 * h_dim], g[:, 3 * h_dim:]
-            tanh_c = torch.tanh(f * c_prev + i * j)
-            live = (lens > t).to(torch.float32)[:, None]
-            g_hnew = live * (dh + dout[t].float())
-            g_cnew = live * dc
-            do_ = g_hnew * tanh_c
-            dc_tot = g_cnew + g_hnew * o * (1.0 - tanh_c * tanh_c)
-            dg = torch.cat([dc_tot * j * i * (1.0 - i),
-                            dc_tot * i * (1.0 - j * j),
-                            dc_tot * c_prev * f * (1.0 - f),
-                            do_ * o * (1.0 - o)], dim=1)
-            # dg enters both products rounded to U's dtype; f32 accumulation
-            dg_c = dg.to(u.dtype).float()
-            dh = dg_c @ u32.t() + (1.0 - live) * dh
-            dc = dc_tot * f + (1.0 - live) * dc
-            du += h_prev.to(u.dtype).float().t() @ dg_c
-            db += dg.sum(dim=0)
-            dx[t] = dg.to(rdt)
-        results.append((dx, du, db))
-    (dxf, duf, dbf), (dxb, dub, dbb) = results
+    dxf, duf, dbf = _bwd_walk(dof, gf, hf, cf, uf, lens, fw=True)
+    dxb, dub, dbb = _bwd_walk(dob, gb, hb, cb, ub, lens, fw=False)
     return dxf, dxb, duf, dbf, dub, dbb
+
+
+def lstm_bwd_reference(dout, gates, hs, cs, u, lens):
+    """Plain PyTorch version of ``csrc/lstm_bwd.cu``: the one-direction form
+    of :func:`bilstm_bwd_reference`, same rounding points.
+
+    Args:
+      dout:  [T, N, H] cotangent of the output, in the compute dtype.
+      gates, hs, cs: the residuals ``lstm_fwd(save_residuals=True)`` returns.
+      u:     [H, 4H] recurrent weights; lens: [N] int32.
+    Returns:
+      ``(dx, du, db)``: dx [T, N, 4H] in the compute dtype, dU [H, 4H] and
+      db [4H] in f32.
+    """
+    return _bwd_walk(dout, gates, hs, cs, u, lens, fw=True)
 
 
 def _bwd_entry(dtype):
@@ -302,3 +354,121 @@ def bilstm_bwd(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
 
 
 bilstm_bwd.launches = 0
+
+
+# --- the unidirectional scan (csrc/lstm_fwd.cu, csrc/lstm_bwd.cu) ----------------
+
+def _check_lstm(name, x, lens, others):
+    """Device, dtype, shape and hidden-size checks shared by ``lstm_fwd`` and
+    ``lstm_bwd``; ``x`` is a [T, N, 4H] CUDA tensor, ``others`` a list of
+    ``(name, tensor, shape)`` that must match its dtype and device."""
+    if x.device.type != 'cuda':
+        raise ValueError('{} runs on CUDA or CPU tensors, got {}'.format(
+            name, x.device))
+    if x.dtype not in _SUPPORTED:
+        raise TypeError('{} takes bf16 or f32, got {}'.format(name, x.dtype))
+    t_len, n, four_h = x.shape
+    h_dim = four_h // 4
+    vec = 16 // x.element_size()
+    if four_h % 4 or not 0 < h_dim <= MAX_HIDDEN_LSTM or h_dim % vec:
+        raise ValueError('hidden size {} unsupported: needs H <= {} and a '
+                         'multiple of {}'.format(h_dim, MAX_HIDDEN_LSTM, vec))
+    for oname, tns, shape in others:
+        if tns.dtype != x.dtype or tns.device != x.device \
+                or tuple(tns.shape) != tuple(shape):
+            raise ValueError('{}: expected {} {} on {}, got {} {} on {}'.format(
+                oname, tuple(shape), x.dtype, x.device, tuple(tns.shape),
+                tns.dtype, tns.device))
+    if lens.dtype != torch.int32 or lens.device != x.device \
+            or tuple(lens.shape) != (n,):
+        raise ValueError('lens: expected [{}] int32 on {}'.format(n, x.device))
+    return t_len, n, h_dim, vec
+
+
+def _lstm_entry(name, dtype, n_ptr, tail):
+    lib = _build.library(name)
+    fn = getattr(lib, name + ('_bf16' if dtype == torch.bfloat16 else '_f32'))
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + tail + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def lstm_fwd(x_proj, u, bias, lens, forget_bias=1.0, save_residuals=False):
+    """Masked unidirectional LSTM recurrence from the input projection.
+
+    Same contract as :func:`lstm_fwd_reference`. CPU tensors run the plain
+    version; CUDA tensors launch ``csrc/lstm_fwd.cu`` or raise."""
+    if x_proj.device.type == 'cpu':
+        return lstm_fwd_reference(x_proj, u, bias, lens, forget_bias,
+                                  save_residuals)
+    four_h = x_proj.shape[2]
+    t_len, n, h_dim, vec = _check_lstm(
+        'lstm_fwd', x_proj, lens,
+        [('u', u, (four_h // 4, four_h)), ('bias', bias, (four_h,))])
+    dtype, dev = x_proj.dtype, x_proj.device
+    x_proj, bias, lens = x_proj.contiguous(), bias.contiguous(), \
+        lens.contiguous()
+    up = _pack_u(u, vec)
+
+    def new(width):
+        return torch.empty(t_len, n, width, dtype=dtype, device=dev)
+
+    out = new(h_dim)
+    gates, hs, cs = ([new(four_h), new(h_dim), new(h_dim)] if save_residuals
+                     else [None] * 3)
+    if t_len and n:
+        ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
+        err = _lstm_entry('lstm_fwd', dtype, 8,
+                          [ctypes.c_int] * 3 + [ctypes.c_float])(
+            ptr(x_proj), ptr(up), ptr(bias), ptr(lens), ptr(out), ptr(gates),
+            ptr(hs), ptr(cs), t_len, n, h_dim, float(forget_bias),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError('lstm_fwd kernel launch failed: cudaError {}'
+                               .format(err))
+        lstm_fwd.launches += 1
+    return (out, gates, hs, cs) if save_residuals else out
+
+
+lstm_fwd.launches = 0
+
+
+def lstm_bwd(dout, gates, hs, cs, u, lens):
+    """Backward of :func:`lstm_fwd` from its residuals.
+
+    Same contract as :func:`lstm_bwd_reference`. CPU tensors run the plain
+    version; CUDA tensors launch ``csrc/lstm_bwd.cu`` (the recurrence, the
+    dU product and the db sum, one entry point) or raise."""
+    if gates.device.type == 'cpu':
+        return lstm_bwd_reference(dout, gates, hs, cs, u, lens)
+    four_h = gates.shape[2]
+    narrow = tuple(gates.shape[:2]) + (four_h // 4,)
+    t_len, n, h_dim, vec = _check_lstm(
+        'lstm_bwd', gates, lens,
+        [('dout', dout, narrow), ('hs', hs, narrow), ('cs', cs, narrow),
+         ('u', u, (four_h // 4, four_h))])
+    dtype, dev = gates.dtype, gates.device
+    dout, gates, hs, cs, lens = (x.contiguous()
+                                 for x in (dout, gates, hs, cs, lens))
+    ut = _pack_u(u.t(), vec)           # U^T in the forward's packing
+    dx = torch.empty(t_len, n, four_h, dtype=dtype, device=dev)
+    du = torch.empty(h_dim, four_h, dtype=torch.float32, device=dev)
+    db = torch.empty(four_h, dtype=torch.float32, device=dev)
+    if t_len and n:
+        db_part = torch.empty(n, four_h, dtype=torch.float32, device=dev)
+        err = _lstm_entry('lstm_bwd', dtype, 10, [ctypes.c_int] * 3)(
+            *(x.data_ptr() for x in (dout, gates, hs, cs, ut, lens, dx, du,
+                                     db, db_part)),
+            t_len, n, h_dim, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError('lstm_bwd kernel launch failed: cudaError {}'
+                               .format(err))
+        lstm_bwd.launches += 1
+    else:
+        du.zero_()
+        db.zero_()
+    return dx, du, db
+
+
+lstm_bwd.launches = 0

@@ -10,14 +10,17 @@ sum the recurrent product in different orders); bf16 <= 4 bf16 ulps of each
 output's magnitude, 4 * max|ref| / 256, as tests/test_rnn_pallas.py
 defines it. The BiLSTM backward's f32 bar is 1e-4 relative to each
 output's largest entry (dU sums T*N products). CTC: 1e-5 on loss, alphas
-and gradient (f32 throughout, same operation order).
+and gradient (f32 throughout, same operation order). The unidirectional
+LSTM kernels carry the BiLSTM kernels' bars at H = 512. The fused
+conv3x3+BN+ReLU kernel: 2e-5 absolute and relative in f32, 2e-2 in bf16
+(the bars of tests/test_conv_bn_pallas.py), and two runs bit-identical.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lstm_ctc_ocr_torch.ops import ctc, ctc_cuda, rnn, rnn_cuda
+from lstm_ctc_ocr_torch.ops import conv_bn_cuda, ctc, ctc_cuda, rnn, rnn_cuda
 
 
 @pytest.fixture
@@ -253,3 +256,137 @@ def test_training_kernels_reject_bad_inputs(cuda_device):
         rnn_cuda.bilstm_bwd(*(x.half() for x in (
             narrow, narrow, wide, narrow, narrow, wide, narrow, narrow, u,
             u)), lens)
+
+
+def _lstm_case(rng, dev, dt, t, n, h):
+    def mk(*shape, scale=1.0):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(dev, dt)
+    lens = rng.randint(0, t + 1, n).astype(np.int32)
+    lens[0], lens[1] = 0, t
+    return mk, (mk(t, n, 4 * h), mk(h, 4 * h, scale=h ** -0.5),
+                mk(4 * h, scale=0.1), torch.from_numpy(lens).to(dev))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('t,n,h', [(23, 64, 512), (7, 37, 512), (9, 5, 256),
+                                   (1, 3, 8)])
+def test_lstm_kernels_match_reference(cuda_device, dtype, t, n, h):
+    """``lstm_fwd`` (residuals off and on) and ``lstm_bwd`` on the forward's
+    residuals, at the stacked head's H = 512 and below."""
+    dt = getattr(torch, dtype)
+    mk, args = _lstm_case(np.random.RandomState(t * n + h), cuda_device, dt,
+                          t, n, h)
+    before = rnn_cuda.lstm_fwd.launches
+    out = rnn_cuda.lstm_fwd(*args)
+    got = rnn_cuda.lstm_fwd(*args, save_residuals=True)
+    assert rnn_cuda.lstm_fwd.launches == before + 2
+    want = rnn_cuda.lstm_fwd_reference(*args, save_residuals=True)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 4
+    assert torch.equal(out, got[0])
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        w = w.float()
+        assert float((g.float() - w).abs().max()) <= _atol(w, dt)
+
+    bwd_args = (mk(t, n, h),) + got[1:] + (args[1], args[3])
+    before = rnn_cuda.lstm_bwd.launches
+    got = rnn_cuda.lstm_bwd(*bwd_args)
+    assert rnn_cuda.lstm_bwd.launches == before + 1
+    want = rnn_cuda.lstm_bwd_reference(*bwd_args)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype == (dt if i == 0 else torch.float32)
+        assert g.shape == w.shape
+        w = w.float()
+        scale = max(float(w.abs().max()), 1e-6)
+        tol = 1e-4 * scale if dt == torch.float32 else 4 * scale / 256.0
+        assert float((g.float() - w).abs().max()) <= tol, i
+
+
+def test_lstm_gradients_through_kernels(cuda_device):
+    """``ops/rnn.lstm`` under autograd on CUDA tensors: one forward and one
+    backward launch, output and gradients equal to the CPU (plain) ones."""
+    gen = torch.Generator().manual_seed(2)
+    d, h, n, t = 32, 16, 5, 9
+    cell = {'w': torch.randn(d, 4 * h, generator=gen) * 0.3,
+            'u': torch.randn(h, 4 * h, generator=gen) * 0.3,
+            'bias': torch.randn(4 * h, generator=gen) * 0.1}
+    x = torch.randn(t, n, d, generator=gen)
+    wgt = torch.randn(t, n, h, generator=gen)
+    lens = torch.tensor([9, 0, 4, 1, 7], dtype=torch.int32)
+
+    def run(dev):
+        c = {p: v.clone().to(dev).requires_grad_() for p, v in cell.items()}
+        xd = x.clone().to(dev).requires_grad_()
+        out = rnn.lstm(c, xd, lens.to(dev))
+        (out * wgt.to(dev)).sum().backward()
+        return [out.detach().cpu(), xd.grad.cpu()] + [
+            c[p].grad.cpu() for p in ('w', 'u', 'bias')]
+    want = run('cpu')
+    fwd0, bwd0 = rnn_cuda.lstm_fwd.launches, rnn_cuda.lstm_bwd.launches
+    got = run(cuda_device)
+    assert rnn_cuda.lstm_fwd.launches == fwd0 + 1
+    assert rnn_cuda.lstm_bwd.launches == bwd0 + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+def test_lstm_kernels_reject_bad_inputs(cuda_device):
+    lens = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    x = torch.zeros(3, 2, 4 * 520, device=cuda_device)
+    u = torch.zeros(520, 4 * 520, device=cuda_device)
+    with pytest.raises(ValueError, match='hidden size'):
+        rnn_cuda.lstm_fwd(x, u, x[0, 0], lens)
+    with pytest.raises(ValueError, match='hidden size'):
+        rnn_cuda.lstm_bwd(x[..., :520], x, x[..., :520], x[..., :520], u,
+                          lens)
+    x, u = x[..., :64].contiguous(), u[:16, :64].contiguous()
+    with pytest.raises(ValueError, match='lens'):
+        rnn_cuda.lstm_fwd(x, u, x[0, 0], lens.long())
+    with pytest.raises(TypeError, match='bf16 or f32'):
+        rnn_cuda.lstm_fwd(x.half(), u.half(), x[0, 0].half(), lens)
+    with pytest.raises(ValueError, match='dout'):
+        rnn_cuda.lstm_bwd(x[:2, :, :16], x, x[..., :16], x[..., :16], u, lens)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('n,w,h,ci,co', [(64, 24, 4, 256, 512),
+                                         (16, 24, 4, 32, 48),
+                                         (8, 12, 2, 64, 64),
+                                         (6, 10, 4, 16, 32)])
+def test_conv_bn_kernel_matches_reference(cuda_device, dtype, n, w, h, ci, co):
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(n * co)
+
+    def mk(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.randn(*shape) * scale + shift)
+                                .astype(np.float32)).to(cuda_device)
+    args = (mk(n, ci, w, h).to(dt), mk(co, ci, 3, 3, scale=0.1),
+            mk(co, scale=0.1), mk(co, scale=0.1, shift=1.0),
+            mk(co, scale=0.1))
+    before = conv_bn_cuda.conv3x3_bn_relu.launches
+    got = conv_bn_cuda.conv3x3_bn_relu(*args)
+    again = conv_bn_cuda.conv3x3_bn_relu(*args)
+    assert conv_bn_cuda.conv3x3_bn_relu.launches == before + 2
+    want = conv_bn_cuda.conv3x3_bn_relu_reference(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == want.shape == (n, co, w, h)
+    assert torch.equal(got, again)          # fixed-order sums: bit for bit
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_conv_bn_kernel_rejects_bad_inputs(cuda_device):
+    x = torch.zeros(2, 16, 4, 4, device=cuda_device)
+    k = torch.zeros(8, 16, 3, 3, device=cuda_device)
+    v = torch.zeros(8, device=cuda_device)
+    with pytest.raises(ValueError, match='multiple of 16'):
+        conv_bn_cuda.conv3x3_bn_relu(x[:, :8], k[:, :8], v, v, v)
+    with pytest.raises(ValueError, match='kernel'):
+        conv_bn_cuda.conv3x3_bn_relu(x, k[:, :, :2], v, v, v)
+    with pytest.raises(ValueError, match='gamma'):
+        conv_bn_cuda.conv3x3_bn_relu(x, k, v, v[:4], v)
+    with pytest.raises(TypeError, match='bf16 or f32'):
+        conv_bn_cuda.conv3x3_bn_relu(x.half(), k, v, v, v)

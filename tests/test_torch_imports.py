@@ -31,9 +31,11 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.engine.train', 'lstm_ctc_ocr_torch.models',
     'lstm_ctc_ocr_torch.models.crnn', 'lstm_ctc_ocr_torch.models.factory',
     'lstm_ctc_ocr_torch.models.layers', 'lstm_ctc_ocr_torch.ops',
-    'lstm_ctc_ocr_torch.ops._build', 'lstm_ctc_ocr_torch.ops.ctc',
+    'lstm_ctc_ocr_torch.ops._build', 'lstm_ctc_ocr_torch.ops.beam',
+    'lstm_ctc_ocr_torch.ops.conv_bn_cuda', 'lstm_ctc_ocr_torch.ops.ctc',
     'lstm_ctc_ocr_torch.ops.ctc_cuda', 'lstm_ctc_ocr_torch.ops.decoder',
     'lstm_ctc_ocr_torch.ops.rnn', 'lstm_ctc_ocr_torch.ops.rnn_cuda',
+    'lstm_ctc_ocr_torch.tools', 'lstm_ctc_ocr_torch.tools.bench_conv_bn',
     'lstm_ctc_ocr_torch.utils', 'lstm_ctc_ocr_torch.utils.metrics',
     'lstm_ctc_ocr_torch.utils.timer',
 ]

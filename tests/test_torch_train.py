@@ -430,7 +430,6 @@ def test_solver_cadence_and_resume(tiny_records, tmp_path, capsys):
     (['TRAIN.STEPS_PER_DISPATCH', '4'], None, 'STEPS_PER_DISPATCH'),
     (['DATA_DEVICE', 'on'], None, 'DATA_DEVICE'),
     (['PROFILE_DIR', 'prof'], None, 'PROFILE_DIR'),
-    (['DECODER', 'beam'], None, 'DECODER'),
     ([], 'weights.npy', 'npy'),
 ])
 def test_unported_options_raise_by_name(tiny_records, tmp_path, overrides,
@@ -441,6 +440,38 @@ def test_unported_options_raise_by_name(tiny_records, tmp_path, overrides,
         train.train_net(net, {}, pre_train, str(tmp_path / 'out'),
                         str(tmp_path / 'log'), cfg, max_iters=3,
                         device='cpu')
+
+
+def test_solver_validation_decodes_with_beam(tiny_records, tmp_path, capsys):
+    """``DECODER: beam`` in the solver's validation decode: it runs
+    ``ops/beam.beam_decode`` with BEAM_WIDTH and BEAM_MERGE_REPEATED and
+    scores its ids; the steps themselves do not depend on the decoder."""
+    from lstm_ctc_ocr_torch.engine import test as port_test
+    calls = []
+    real = port_test.beam_decode
+
+    def spy(logits, lens, beam_width, merge_repeated):
+        calls.append((tuple(logits.shape), beam_width, merge_repeated))
+        return real(logits, lens, beam_width=beam_width,
+                    merge_repeated=merge_repeated)
+    losses = {}
+    for decoder, extra in (('greedy', []),
+                           ('beam', ['BEAM_WIDTH', '4',
+                                     'BEAM_MERGE_REPEATED', 'True'])):
+        cfg = _solver_cfg(tiny_records, 'DECODER', repr(decoder), *extra)
+        net = get_network('LSTM_train', cfg,
+                          generator=torch.Generator().manual_seed(3))
+        port_test.beam_decode = spy
+        try:
+            losses[decoder] = train.train_net(
+                net, {}, None, str(tmp_path / decoder), str(tmp_path / 'log'),
+                cfg, max_iters=4, device='cpu')[2]
+        finally:
+            port_test.beam_decode = real
+        assert capsys.readouterr().out.count('accuracy: ') == 1
+    assert len(calls) == 1 and calls[0][1:] == (4, True)
+    assert calls[0][0][0] == 4 and calls[0][0][2] == 64      # [N, T, C]
+    assert losses['beam'] == losses['greedy'] and len(losses['beam']) == 3
 
 
 def test_train_entry_point_raises_without_cuda(tiny_records, tmp_path):
