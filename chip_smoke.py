@@ -37,7 +37,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    a packed sequence (bidirectional or one direction; forward, and backward
    alone), ``torch.nn.functional.ctc_loss`` forward+backward, and the
    unfused cuDNN conv + BN + ReLU layer (plain versions: median of 10).
-   Yardsticks are timed here only; the port never calls them.
+   Yardsticks are timed here only; the port never calls them. For the two
+   kernels redesigned for the tensor cores (``conv_bn`` bf16 and
+   ``lstm_bwd`` bf16) the phase also prints each device kernel's registers,
+   shared memory and spills from the build's ptxas report, and the TFLOP/s
+   it reached on the device beside its bound.
 3. Eval phase, the serving path: the evaluation entry point
    (``engine/test.py``, bf16, batch 64) on the tracked releases —
    ``lstm_ctc`` on ``data/val`` under ``BN_EVAL`` batch and moving and
@@ -70,7 +74,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    kernels not at all), a snapshot, ``test_net(model=...)`` on it (it runs
    and counts; no accuracy bar, the model is 60 steps old), the f32
    gradient comparison of 4(c) (zero-gradient tensors held to 1e-2 of the
-   largest gradient overall), the rate and a profile.
+   largest gradient overall), the rate and a profile with the device busy
+   ms per step.
 6. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
    warm train steps: device time by kernel and the device's busy share of
    the wall.
@@ -83,6 +88,7 @@ eval lines and the training runs' output go to ``chiprun_out/``.
 import contextlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -434,10 +440,62 @@ def lstm_bound_ms(c, dtype, backward):
                                        else 'operations')
 
 
-def lstm_phase(rnn, rnn_cuda):
+def ptxas_report(build, name, kernels):
+    """Registers, static shared memory and spills of the kernels of
+    ``csrc/<name>.cu`` whose mangled names contain one of ``kernels``, from
+    the ptxas report (``-Xptxas -v``) of this run's build, one line each."""
+    rows, current = {}, None
+    for line in build.build_log(name).splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = next((k for k in kernels if k in entry.group(1)), None)
+            if current:
+                rows[current] = {}
+            continue
+        if current is None:
+            continue
+        spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                          line)
+        if spill:
+            rows[current]['spill_stores'] = int(spill.group(1))
+            rows[current]['spill_loads'] = int(spill.group(2))
+        regs = re.search(r'Used (\d+) registers', line)
+        if regs:
+            smem = re.search(r'(\d+) bytes smem', line)
+            rows[current]['registers'] = int(regs.group(1))
+            rows[current]['static_smem'] = int(smem.group(1)) if smem else 0
+    for kernel, row in rows.items():
+        print('ptxas {} {}: {}'.format(name, kernel, json.dumps(row)),
+              flush=True)
+    return rows
+
+
+def achieved(label, flops, ms, bound):
+    """The rate ``flops`` reach in ``ms`` beside the bound's: one line."""
+    if not ms:
+        print('{}: device time not measured, rate not measured'.format(label),
+              flush=True)
+        return None
+    tflops = flops / ms / 1e9
+    print('{}: {:.1f} TFLOP/s achieved on the device, the bound {:.4f} ms is '
+          '{:.2%} of the device time ({} bound)'.format(
+              label, tflops, bound[0], bound[0] / ms, bound[1]), flush=True)
+    return tflops
+
+
+def lstm_phase(rnn, rnn_cuda, build):
     """``lstm_fwd`` / ``lstm_bwd`` against their plain versions at H=512 on
     every case, timings at the stacked head's shapes, and the scan pair on
     these kernels against the fused BiLSTM kernels at H=256."""
+    ub = rnn_cuda.units_per_block(512)
+    ptxas = ptxas_report(build, 'lstm_bwd', ['lstm_bwd_cluster_kernel',
+                                             'lstm_bwd_du_mma_kernel'])
+    ptxas['cluster'] = {
+        'units_per_block': ub, 'blocks': -(-512 // ub),
+        'dynamic_smem': build.library('lstm_bwd').lstm_bwd_cluster_smem(512,
+                                                                       ub)}
+    print('lstm_bwd bf16 cluster at H=512: {}'.format(
+        json.dumps(ptxas['cluster'])), flush=True)
     errs = {}
     for i, (label, t_len, n, dtype, ragged) in enumerate(BILSTM_CASES):
         c = lstm_case(t_len, n, dtype, ragged, seed=40 + i)
@@ -501,6 +559,11 @@ def lstm_phase(rnn, rnn_cuda):
                     lambda: rnn_cuda.lstm_bwd_reference(*bwd_args), reps=10,
                     warmup=2),
                 'bwd_library_ms': median_ms(cudnn_backward_yardstick(c))})
+            live = int(c['lens'].sum())
+            row['bwd_device_tflops'] = achieved(
+                'lstm_bwd H=512 ' + label, 2 * live * 2 * 512 * 2048,
+                row['bwd_device_ms'], (row['bwd_bound_ms'],
+                                       row['bwd_bound_by']))
         timings[label] = row
         print('lstm timing H=512 {:16s} {}'.format(label, json.dumps(row)),
               flush=True)
@@ -543,6 +606,7 @@ def lstm_phase(rnn, rnn_cuda):
         print('lstm scan pair (kernels 5/6) vs fused BiLSTM (kernels 1/2), '
               'projection included, H=256 bf16 N=64 T={}: {}'.format(
                   t_len, json.dumps(row)), flush=True)
+    timings['ptxas'] = ptxas
     return errs, timings
 
 
@@ -560,11 +624,14 @@ def conv_bn_bound_ms(n, w, h, ci, co, dtype):
                                        else 'operations')
 
 
-def conv_bn_phase(bench, conv_bn_cuda):
+def conv_bn_phase(bench, conv_bn_cuda, build):
     """``conv3x3_bn_relu`` against its plain version and the unfused layer at
     the conv4_1 / conv4_2 geometry, batch 64, then timings; the A/B itself
     (``tools/bench_conv_bn.run``) with the launch count read around it."""
     errs, timings = {}, {}
+    ptxas = ptxas_report(build, 'conv_bn', ['conv_bn_conv_mma_kernel'])
+    ptxas['conv_bn_conv_mma_kernel']['dynamic_smem'] = \
+        build.library('conv_bn').conv_bn_mma_smem()
     for tag, w, h, ci, co in bench.SHAPES:
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
             label = '{} {}'.format(tag, 'f32' if dtype == torch.float32
@@ -615,9 +682,17 @@ def conv_bn_phase(bench, conv_bn_cuda):
                         reps=10, warmup=2),
                     'library_ms': median_ms(
                         lambda: layer(case['x'], ldt)),
+                    # what the wrapper adds before the launch: the
+                    # channels-last copy of x and the tap packing
+                    'layout_ms': median_ms(lambda: (
+                        case['x'].permute(0, 2, 3, 1).contiguous(),
+                        conv_bn_cuda.pack_taps(case['kernel'], dtype))),
                     'vs_unfused_max_abs_diff': vs_layer}
             row['bound_ms'], row['bound_by'] = conv_bn_bound_ms(
                 64, w, h, ci, co, dtype)
+            row['device_tflops'] = achieved(
+                'conv_bn ' + label, 2 * 64 * w * h * co * ci * 9,
+                row['device_ms'], (row['bound_ms'], row['bound_by']))
             timings[label] = row
             print('conv_bn timing {:14s} {}'.format(label, json.dumps(row)),
                   flush=True)
@@ -628,6 +703,7 @@ def conv_bn_phase(bench, conv_bn_cuda):
             print('conv_bn a/b {}'.format(json.dumps(row)), flush=True)
     launches = conv_bn_cuda.conv3x3_bn_relu.launches
     check(launches > 0, 'the conv+BN A/B launched no kernel')
+    timings['ptxas'] = ptxas
     return errs, timings, launches
 
 
@@ -980,7 +1056,10 @@ def measure_rate(mods, model, optimizer, cfg, card, what, log):
           'ms/step'.format(what, n_timed, card, rate['steps_per_s'],
                            rate['images_per_s'], rate['ms_per_step']),
           flush=True)
-    profile_report('{} step (batch 64, bf16)'.format(what), one_step, reps=5)
+    rate['device_busy_ms_per_step'] = profile_report(
+        '{} step (batch 64, bf16)'.format(what), one_step, reps=5)
+    print('{} device busy ms per step: {}'.format(
+        what, rate['device_busy_ms_per_step']), flush=True)
     stream.close()
     return rate
 
@@ -1196,7 +1275,8 @@ def stacked_phase(mods, card, rec_path, log):
 def profile_report(what, fn, reps):
     """``torch.profiler`` over ``reps`` warm calls of ``fn``, each followed
     to its end on the device: device time by kernel and the device's busy
-    share of the wall time."""
+    share of the wall time. Returns the device busy ms per call (None when
+    the profiler saw no device events)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1216,7 +1296,7 @@ def profile_report(what, fn, reps):
         print('profile {}: wall {:.3f} ms; the profiler saw no device '
               'events, device time by kernel not measured'.format(
                   what, wall_ms), flush=True)
-        return
+        return None
     busy_ms = sum(ms for ms, _, _ in rows)
     launches = sum(n for _, n, _ in rows)
     print('profile {}: wall {:.3f} ms, device busy {:.3f} ms ({:.0%}), {} '
@@ -1229,6 +1309,7 @@ def profile_report(what, fn, reps):
         print('profile {:8.4f} ms {:5.1%} x{:<5.0f} {}'.format(
             ms, ms / busy_ms if busy_ms else 0.0, n, name[:84]),
             flush=True)
+    return busy_ms
 
 
 def main():
@@ -1270,10 +1351,10 @@ def main():
 
     errs, timings = bilstm_fwd_phase(rnn_cuda)
     bwd_errs, bwd_timings = bilstm_bwd_phase(rnn_cuda)
-    lstm_errs, lstm_timings = lstm_phase(rnn, rnn_cuda)
+    lstm_errs, lstm_timings = lstm_phase(rnn, rnn_cuda, _build)
     ctc_errs, ctc_timings = ctc_phase(ctc, ctc_cuda)
-    conv_errs, conv_timings, conv_launches = conv_bn_phase(bench_conv_bn,
-                                                           conv_bn_cuda)
+    conv_errs, conv_timings, conv_launches = conv_bn_phase(
+        bench_conv_bn, conv_bn_cuda, _build)
 
     out_dir = os.path.join(REPO, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
@@ -1405,6 +1486,8 @@ def main():
         'library': 'cuDNN nn.LSTM backward, one direction, input projection '
                    'included',
         'shape': 'bf16 T=23 N=64 H=512',
+        'device_tflops': uni['bwd_device_tflops'],
+        'ptxas': lstm_timings['ptxas'],
     }), dict(common, **{
         'name': 'conv_bn',
         'source': 'lstm_ctc_ocr_torch/csrc/conv_bn.cu',
@@ -1422,6 +1505,7 @@ def main():
         'library': 'the unfused layer: cuDNN conv, then bias, batch norm and '
                    'ReLU as torch ops',
         'shape': 'bf16 N=64 conv4_1 [24, 4, 256] -> 512',
+        'device_tflops': conv_row['device_tflops'],
         'by_shape': conv_timings,
     })], 'train': rate, 'stacked_lstm_train': stacked_rate,
         'seconds': time.perf_counter() - t_start}), flush=True)

@@ -15,28 +15,45 @@
 //
 // What bounds it on an H100: operations. conv4_2 at batch 64 is 29 GFLOP
 // against 9.4 MB of x and 6.3 MB of output (~2000 FLOP per byte), far above
-// the card's 295 FLOP per byte in bf16. This first version runs the products
-// as FP32 FMAs on CUDA cores for both element types, so it sits at the CUDA
-// cores' rate, not the tensor cores'; a wgmma (or wmma) product for bf16 is
-// the next step.
+// the card's 295 FLOP per byte in bf16: the products belong on the tensor
+// cores.
 //
 // Design: the TPU kernel kept the whole batch's activations in VMEM between
 // its conv phase and its normalise phase, on a grid that runs in order (25
 // MB at batch 256). An H100 block holds 227 KB and blocks run in no order,
 // so the work is three kernels behind the one entry point, with y making
 // one round trip through device memory (L2 holds it at these sizes):
-//  1. conv_bn_conv_kernel: an implicit GEMM, rows (n, w, h) x columns co
-//     over K = 9 taps x Ci. One 64x64 output tile per block of 256 threads
-//     (4x4 per thread), 16 input channels of one tap per shared-memory step;
-//     a shifted row outside the image loads zeros. The epilogue adds the
-//     bias, rounds, writes y, and reduces the tile's rounded values to one
-//     sum and one sum of squares per column, written to
-//     part[row tile][2][Co].
+//  1. the conv, an implicit GEMM: rows m = (n, w, h), columns co, depth
+//     K = 9 taps x Ci. Its epilogue adds the bias, rounds once, writes y,
+//     and reduces the tile's rounded values to one sum and one sum of
+//     squares per column, written to part[row tile][2][Co].
+//     bf16: conv_bn_conv_mma_kernel, tensor cores. mma.sync m16n8k16 (bf16
+//     in, f32 accumulators) and not wgmma: the A operand is a gather of
+//     shifted image rows whose out-of-image rows must read as zeros, which
+//     cp.async's zero-fill gives per 16-byte chunk with no branch per
+//     element, and a 128x128 tile of mma.sync keeps this first tensor-core
+//     version simple (no TMA descriptors, no warpgroup sync) while it lifts
+//     the products off the CUDA cores; wgmma is the next step if the conv
+//     becomes the limit. A block of 256 threads (8 warps, 2 x 4, 64 x 32
+//     outputs each) computes a 128 (rows) x 128 (columns) tile: 48 x 4 =
+//     192 tiles at conv4_1/conv4_2, batch 64, two blocks an SM. The depth
+//     goes in steps of 32 channels of one tap -- a step never crosses a
+//     tap, so the A tile is that tap's shifted rows of channels-last x,
+//     and channels past Ci (a Ci that is not a multiple of 32) and rows
+//     outside the image are zero-filled by the copy itself (cp.async with
+//     src-size 0). A and B ([9][Co][Ci] taps, so a column's depth is
+//     contiguous like a row's) come through a 3-stage cp.async ring and
+//     ldmatrix, rows padded to 80 bytes so ldmatrix meets no bank conflict.
+//     f32: conv_bn_conv_kernel, FP32 FMAs on CUDA cores (no TF32): one
+//     64x64 tile per block of 256 threads (4x4 per thread), 16 input
+//     channels of one tap per shared-memory step, taps [9][Ci][Co].
 //  2. conv_bn_stats_kernel: one thread per channel adds the row tiles'
 //     partials in ascending order and derives scale and shift.
 //  3. conv_bn_norm_kernel: y <- relu(y * scale + shift), in place.
-// Every sum has a fixed order (no atomics), so two runs agree bit for bit.
-// The f32 path is plain FP32 throughout (no TF32).
+// Every sum has a fixed order (no atomics, no split-K; the column sums of a
+// tile go thread, warp butterfly, then warp rows in order), so two runs
+// agree bit for bit. conv_bn_row_tile tells the wrapper the row tile, which
+// sizes part.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
@@ -50,8 +67,198 @@ namespace {
 using lstm_common::from_f32;
 using lstm_common::to_f32;
 
-constexpr int kTile = 64;    // output tile edge (rows and columns)
+constexpr int kTile = 64;    // f32: output tile edge (rows and columns)
 constexpr int kStep = 16;    // input channels per shared-memory step
+
+// bf16 tensor-core conv
+constexpr int kMmaRows = 128;                 // output tile: rows m
+constexpr int kMmaCols = 128;                 //              columns co
+constexpr int kMmaDepth = 32;                 // channels of one tap per stage
+constexpr int kMmaStages = 3;
+constexpr int kMmaPitch = kMmaDepth + 8;      // bf16 per smem row (80 bytes)
+constexpr int kMmaThreads = 256;
+constexpr size_t kMmaSmem =
+    (size_t)kMmaStages * (kMmaRows + kMmaCols) * kMmaPitch * 2 +
+    (size_t)2 * 2 * kMmaCols * sizeof(float);
+
+__global__ void __launch_bounds__(kMmaThreads, 2)
+conv_bn_conv_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ taps,
+                        const float* __restrict__ bias,
+                        __nv_bfloat16* __restrict__ y,
+                        float* __restrict__ part, int n_img, int w, int h,
+                        int ci, int co) {
+  using bf16 = __nv_bfloat16;
+  using lstm_common::cp_async16;
+  using lstm_common::smem_addr;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* a_s = reinterpret_cast<bf16*>(smem);           // [stage][row][pitch]
+  bf16* b_s = a_s + kMmaStages * kMmaRows * kMmaPitch;  // [stage][col][pitch]
+  float* red = reinterpret_cast<float*>(b_s + kMmaStages * kMmaCols * kMmaPitch);
+  // red: [warp row 0..1][sum, sum of squares][column]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wr = (warp / 4) * 64, wc = (warp % 4) * 32;   // warp's outputs
+  const long long m_total = (long long)n_img * w * h;
+  const long long m0 = (long long)blockIdx.y * kMmaRows;
+  const int c0 = blockIdx.x * kMmaCols;
+
+  // this thread's two 16-byte chunks of each tile: row (or column) and depth
+  int ld_row[2], ld_chunk[2], pix_w[2], pix_h[2];
+  long long pix_n[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int idx = tid + e * kMmaThreads;
+    ld_row[e] = idx / 4;
+    ld_chunk[e] = (idx % 4) * 8;
+    const long long m = m0 + ld_row[e];
+    row_ok[e] = m < m_total;
+    pix_h[e] = (int)(m % h);
+    pix_w[e] = (int)((m / h) % w);
+    pix_n[e] = m / ((long long)w * h);
+  }
+  const int steps_per_tap = (ci + kMmaDepth - 1) / kMmaDepth;
+  const int steps = 9 * steps_per_tap;
+
+  auto load = [&](int stage, int step) {
+    const int tap = step / steps_per_tap;
+    const int ci0 = (step % steps_per_tap) * kMmaDepth;
+    const int dw = tap / 3 - 1, dh = tap % 3 - 1;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ch = ci0 + ld_chunk[e];
+      const int w2 = pix_w[e] + dw, h2 = pix_h[e] + dh;
+      const bool ok_a = row_ok[e] && ch < ci && w2 >= 0 && w2 < w && h2 >= 0 &&
+                        h2 < h;
+      const bf16* src_a =
+          ok_a ? x + ((pix_n[e] * w + w2) * h + h2) * ci + ch : x;
+      cp_async16(smem_addr(a_s + (stage * kMmaRows + ld_row[e]) * kMmaPitch +
+                           ld_chunk[e]),
+                 src_a, ok_a);
+      const int col = c0 + ld_row[e];
+      const bool ok_b = col < co && ch < ci;
+      const bf16* src_b =
+          ok_b ? taps + ((long long)tap * co + col) * ci + ch : taps;
+      cp_async16(smem_addr(b_s + (stage * kMmaCols + ld_row[e]) * kMmaPitch +
+                           ld_chunk[e]),
+                 src_b, ok_b);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    lstm_common::cp_async_commit();
+  }
+  const int mi = lane / 8, mj = lane % 8;    // ldmatrix: matrix, row in it
+  for (int s = 0; s < steps; ++s) {
+    lstm_common::cp_async_wait<kMmaStages - 2>();
+    __syncthreads();
+    const int next = s + kMmaStages - 1;
+    if (next < steps) load(next % kMmaStages, next);
+    lstm_common::cp_async_commit();
+    const bf16* a_st = a_s + (s % kMmaStages) * kMmaRows * kMmaPitch;
+    const bf16* b_st = b_s + (s % kMmaStages) * kMmaCols * kMmaPitch;
+#pragma unroll
+    for (int kk = 0; kk < kMmaDepth; kk += 16) {
+      uint32_t af[4][4], bf[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        lstm_common::ldmatrix_x4(
+            af[i], smem_addr(a_st + (wr + i * 16 + lane % 16) * kMmaPitch +
+                             kk + (lane / 16) * 8));
+#pragma unroll
+      for (int p = 0; p < 2; ++p)
+        lstm_common::ldmatrix_x4(
+            bf[p], smem_addr(b_st + (wc + p * 16 + (mi / 2) * 8 + mj) *
+                                        kMmaPitch + kk + (mi % 2) * 8));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          lstm_common::mma_bf16(acc[i][j], af[i], bf[j / 2][(j % 2) * 2],
+                                bf[j / 2][(j % 2) * 2 + 1]);
+    }
+  }
+  lstm_common::cp_async_wait<0>();
+
+  // bias, the one rounding, y, and this thread's column sums over its rows
+  // (i, then the row half, ascending)
+  float cs[4][2], cq[4][2];
+  float bias_v[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int col = c0 + wc + j * 8 + (lane % 4) * 2 + p;
+      bias_v[j][p] = col < co ? bias[col] : 0.0f;
+      cs[j][p] = 0.0f;
+      cq[j][p] = 0.0f;
+    }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long m = m0 + wr + i * 16 + lane / 4 + half * 8;
+      if (m >= m_total) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c0 + wc + j * 8 + (lane % 4) * 2;
+        const __nv_bfloat162 r2 = __floats2bfloat162_rn(
+            acc[i][j][half * 2] + bias_v[j][0],
+            acc[i][j][half * 2 + 1] + bias_v[j][1]);
+        bf16* dst = y + m * co + col;
+        if (col + 1 < co && (co % 2) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(dst) = r2;
+        } else {
+          if (col < co) dst[0] = r2.x;
+          if (col + 1 < co) dst[1] = r2.y;
+        }
+        const float r0 = col < co ? __bfloat162float(r2.x) : 0.0f;
+        const float r1 = col + 1 < co ? __bfloat162float(r2.y) : 0.0f;
+        cs[j][0] += r0;
+        cq[j][0] += r0 * r0;
+        cs[j][1] += r1;
+        cq[j][1] += r1 * r1;
+      }
+    }
+  // over the warp's 8 row groups (lanes with the same lane % 4)
+#pragma unroll
+  for (int off = 4; off < 32; off *= 2)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        cs[j][p] += __shfl_xor_sync(0xffffffffu, cs[j][p], off);
+        cq[j][p] += __shfl_xor_sync(0xffffffffu, cq[j][p], off);
+      }
+  if (lane < 4) {
+    float* red_w = red + (warp / 4) * 2 * kMmaCols;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int c = wc + j * 8 + lane * 2 + p;
+        red_w[c] = cs[j][p];
+        red_w[kMmaCols + c] = cq[j][p];
+      }
+  }
+  __syncthreads();
+  if (tid < kMmaCols && c0 + tid < co) {
+    float* dst = part + (long long)blockIdx.y * 2 * co;
+    dst[c0 + tid] = red[tid] + red[2 * kMmaCols + tid];
+    dst[co + c0 + tid] = red[kMmaCols + tid] + red[3 * kMmaCols + tid];
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -184,6 +391,38 @@ conv_bn_norm_kernel(T* __restrict__ y, const float* __restrict__ scale_shift,
   }
 }
 
+template <typename T> constexpr int row_tile();
+template <> constexpr int row_tile<float>() { return kTile; }
+template <> constexpr int row_tile<__nv_bfloat16>() { return kMmaRows; }
+
+// The conv phase: FP32 FMAs for f32, tensor cores for bf16.
+int launch_conv(const float* x, const float* taps, const float* bias,
+                float* y, float* part, int n_img, int w, int h, int ci, int co,
+                int n_tiles, cudaStream_t stream) {
+  conv_bn_conv_kernel<float>
+      <<<dim3((co + kTile - 1) / kTile, n_tiles), 256, 0, stream>>>(
+          x, taps, bias, y, part, n_img, w, h, ci, co);
+  return (int)cudaGetLastError();
+}
+
+int launch_conv(const __nv_bfloat16* x, const __nv_bfloat16* taps,
+                const float* bias, __nv_bfloat16* y, float* part, int n_img,
+                int w, int h, int ci, int co, int n_tiles,
+                cudaStream_t stream) {
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_bn_conv_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kMmaSmem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  conv_bn_conv_mma_kernel<<<dim3((co + kMmaCols - 1) / kMmaCols, n_tiles),
+                            kMmaThreads, kMmaSmem, stream>>>(
+      x, taps, bias, y, part, n_img, w, h, ci, co);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* x, const void* taps, const void* bias,
            const void* gamma, const void* beta, void* y, void* part,
@@ -193,13 +432,11 @@ int launch(const void* x, const void* taps, const void* bias,
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const long long m_total = (long long)n_img * w * h;
-  const int n_tiles = (int)((m_total + kTile - 1) / kTile);
-  conv_bn_conv_kernel<T>
-      <<<dim3((co + kTile - 1) / kTile, n_tiles), 256, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const T*>(taps),
-          static_cast<const float*>(bias), static_cast<T*>(y),
-          static_cast<float*>(part), n_img, w, h, ci, co);
-  cudaError_t err = cudaGetLastError();
+  const int n_tiles = (int)((m_total + row_tile<T>() - 1) / row_tile<T>());
+  cudaError_t err = (cudaError_t)launch_conv(
+      static_cast<const T*>(x), static_cast<const T*>(taps),
+      static_cast<const float*>(bias), static_cast<T*>(y),
+      static_cast<float*>(part), n_img, w, h, ci, co, n_tiles, stream);
   if (err != cudaSuccess) return (int)err;
   conv_bn_stats_kernel<<<(co + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(part), static_cast<const float*>(gamma),
@@ -217,10 +454,20 @@ int launch(const void* x, const void* taps, const void* bias,
 
 }  // namespace
 
-// x: [N, W, H, Ci] channels last; taps: [9, Ci, Co] (tap = 3 dw + dh);
-// bias, gamma, beta: [Co] f32; y (output, also the conv's scratch):
-// [N, W, H, Co]; part: scratch [ceil(N W H / 64), 2, Co] f32; scale_shift:
-// scratch [2, Co] f32. Ci must be a multiple of 16. Returns a cudaError_t.
+// Rows of one conv tile, which size part: 128 for bf16 (bf16 != 0), 64 for
+// f32.
+extern "C" int conv_bn_row_tile(int bf16) {
+  return bf16 ? row_tile<__nv_bfloat16>() : row_tile<float>();
+}
+
+// Dynamic shared memory of one bf16 conv block, in bytes (for reports).
+extern "C" int conv_bn_mma_smem() { return (int)kMmaSmem; }
+
+// x: [N, W, H, Ci] channels last; taps (tap = 3 dw + dh): [9, Co, Ci] for
+// bf16, [9, Ci, Co] for f32; bias, gamma, beta: [Co] f32; y (output, also the
+// conv's scratch): [N, W, H, Co]; part: scratch [ceil(N W H / row tile), 2,
+// Co] f32; scale_shift: scratch [2, Co] f32. Ci must be a multiple of 16.
+// Returns a cudaError_t.
 extern "C" int conv_bn_bf16(const void* x, const void* taps, const void* bias,
                             const void* gamma, const void* beta, void* y,
                             void* part, void* scale_shift, int n_img, int w,

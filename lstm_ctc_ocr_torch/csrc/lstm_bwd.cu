@@ -16,48 +16,264 @@
 //   dU += h_prev^T round(dg),  db += sum_rows dg          (f32 accumulators)
 // A dead step has dg = 0 and passes dh, dc through unchanged.
 //
-// What bounds it on an H100: like the forward, a serial chain of T steps,
-// each a [rows, 4H] x [4H, H] product against a U^T (2 MB in bf16 at
-// H = 512) that does not fit a block's shared memory and is re-read from L2
-// every step, with FP32 FMAs on CUDA cores; then one [H, T*N] x [T*N, 4H]
-// product for dU (15 GFLOP at H = 512, T = 111, N = 64), also on CUDA cores.
+// What bounds it on an H100: a serial chain of T steps, each a
+// [rows, 4H] x [4H, H] product against U (2 MB in bf16, 4 MB in f32 at
+// H = 512, nine to eighteen times one block's 227 KB of shared memory); then
+// one [H, T*N] x [T*N, 4H] product for dU (15 GFLOP at H = 512, T = 111,
+// N = 64). The card's bound is far below either chain: what costs time is
+// how often U crosses from L2 and how long one step's dependent chain is.
 //
-// Design: the TPU kernel accumulated dU and db in VMEM scratch across a
-// sequential grid. GPU blocks run in parallel and in no order, so the work
-// is three kernels launched by the one entry point, all deterministic (no
-// atomics), the split bilstm_bwd.cu uses:
-//  1. lstm_bwd_rec_kernel, the recurrence. One block per batch row, H
-//     threads (up to 512); thread k owns hidden unit k: the gate derivatives,
-//     dc and dh of that unit are thread-local. The rounded dg row (4H
-//     values) goes through shared memory, and dh_prev[k] is its dot product
-//     with row k of U. The wrapper hands U^T packed as [4H/VEC][H][VEC]
-//     (VEC = 16 bytes of the element type), so a thread's 16-byte load
-//     brings VEC consecutive entries of its row and a warp's loads cover 512
-//     contiguous bytes; four accumulators break the FMA chain. A dead step
-//     (uniform over the block) writes zeros and skips the product. Each
-//     block sums its row's dg over time in registers and writes it to
-//     db_part[n][4H].
-//  2. lstm_bwd_du_kernel, dU = sum over rows r = (t, n) of h_prev[r]^T
-//     dx[r]: the shared-memory tiled product of lstm_common.cuh (64x64
-//     output tile per block, f32 accumulators). h_prev is the saved h
-//     shifted by one time step, so it is the same buffer against dx at an
-//     offset of N rows, and the first time step (zero state) drops out.
+// The TPU kernel did each step's dg U^T as one matrix-unit product over all
+// rows of a chunk and accumulated dU on the MXU; GPU blocks run in parallel
+// and in no order, so the work is three kernels behind the one entry point,
+// all deterministic (fixed summation order, no atomics). Dispatch by type
+// is explicit:
+//
+// bf16 (the training type) -- U on chip, rows in one tensor-core product:
+//  1. lstm_bwd_cluster_kernel, the recurrence. The batch rows go in groups
+//     of 16 (the mma M); each group is one thread-block cluster of CS
+//     blocks, and block b of it owns the UB hidden units [b UB, (b+1) UB)
+//     (UB = 8 ceil(H / 128), the mma N of 8 at least; CS = ceil(H / UB) <=
+//     16: at H = 512, 16 blocks of 32 units; at H = 256, 16 of 16; at H = 8,
+//     one of 8). Block b loads its 4 UB columns of U -- U[:, q H + b UB + j]
+//     for the gates q, all H rows, packed by the wrapper as [CS][H][4 UB]:
+//     128 KB at H = 512 -- into shared memory once with cp.async and keeps
+//     them for the whole sequence, so U crosses L2 once per cluster and
+//     launch, not once per block and step. Thread (row r, unit j) computes
+//     its four dg values (thread-local as in the f32 kernel), writes dx and
+//     puts the rounded dg into the block's A tile [16][4 UB]. Each step the
+//     block then computes the PARTIAL product P_b = dg[:, its columns]
+//     U[:, its columns]^T, [16, H] in f32, with mma.sync m16n8k16 (each warp
+//     owns four n8 tiles of the H outputs, the depth 4 UB in k16 steps) and
+//     stores it, double-buffered by t's parity. One cluster barrier; then
+//     thread (r, j) of block b reads P_b'[r][b UB + j] from each block b' of
+//     the cluster through distributed shared memory and adds them in
+//     ascending b': that sum is dh[r, b UB + j]. A dead row has dg = 0 in
+//     every block, so its sum is 0 and dh, dc pass through (the TPU
+//     kernel's form, rnn_pallas.py:225-244).
+//     Why partial products and not the dg slices: each block then reads
+//     16 x UB f32 from each of CS blocks (32 KB a step at H = 512) instead
+//     of the whole dg row block (64 KB), and each warp's product needs no
+//     reduction across warps. Why a non-portable cluster of 16 and not a
+//     cooperative launch: the exchange stays in the cluster's shared
+//     memory with one hardware cluster barrier a step, where a grid barrier
+//     would round-trip through L2 and need every block resident; a
+//     portable cluster of 8 would need 256 KB of U a block at H = 512. The
+//     launch checks cudaOccupancyMaxActiveClusters > 0 and fails otherwise
+//     (the wrapper raises); it never degrades. Each block also sums its
+//     rows' dg over time in registers and writes db_part[n][4H].
+//  2. lstm_bwd_du_mma_kernel, dU = sum over rows r = (t, n) of
+//     h_prev[r]^T dx[r] on tensor cores (lstm_common::du_mma_tile, 64x64
+//     output tiles, rows ascending). h_prev is the saved h shifted by one
+//     time step, so it is the same buffer against dx at an offset of N
+//     rows, and the first time step (zero state) drops out.
 //  3. lstm_bwd_db_kernel, db = sum over n of db_part.
+//
+// f32 -- PR 3's design, unchanged (its 4 MB of U^T fits no cluster):
+//  1. lstm_bwd_rec_kernel, one block per batch row, H threads; thread k owns
+//     hidden unit k; the rounded dg row goes through shared memory and
+//     dh_prev[k] is its dot product with row k of U, read from U^T packed
+//     [4H/VEC][H][VEC] (VEC = 16 bytes) in L2 every step.
+//  2. lstm_bwd_du_kernel, the FP32 tiled product lstm_common::du_tile.
+//  3. lstm_bwd_db_kernel as above.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
 // (lstm_ctc_ocr_torch/ops/rnn_cuda.py). The entry points launch on the given
-// stream, do not synchronise, and return cudaGetLastError().
+// stream, do not synchronise, and return a cudaError_t.
+
+#include <cooperative_groups.h>
 
 #include "lstm_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
+using lstm_common::cp_async16;
 using lstm_common::from_f32;
 using lstm_common::kTile;
+using lstm_common::smem_addr;
 using lstm_common::to_f32;
 
-constexpr int kMaxHidden = 512;   // H: threads per recurrence block
+constexpr int kMaxHidden = 512;   // H: threads per f32 recurrence block
+constexpr int kGroupRows = 16;    // batch rows per cluster: the mma M
+constexpr int kMaxCluster = 16;   // blocks per cluster (non-portable above 8)
+constexpr int kMaxUnits = 32;     // hidden units per cluster block
+
+// --- bf16: the cluster recurrence ------------------------------------------
+
+// Shared memory of one cluster block: U's columns [H][4 UB + 8] bf16 (the
+// pad keeps ldmatrix free of bank conflicts), the partial products
+// [2][16][H] f32, the A tile [16][4 UB + 8] bf16.
+__host__ __device__ constexpr int cluster_pitch(int ub) { return 4 * ub + 8; }
+__host__ __device__ constexpr size_t cluster_smem(int hid, int ub) {
+  return (size_t)hid * cluster_pitch(ub) * 2 + (size_t)2 * kGroupRows * hid * 4 +
+         (size_t)kGroupRows * cluster_pitch(ub) * 2;
+}
+
+__global__ void __launch_bounds__(kGroupRows * kMaxUnits)
+lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ dout,
+                        const __nv_bfloat16* __restrict__ gates,
+                        const __nv_bfloat16* __restrict__ c_res,
+                        const __nv_bfloat16* __restrict__ u_pack,
+                        const int* __restrict__ lens,
+                        __nv_bfloat16* __restrict__ dx,
+                        float* __restrict__ db_part, int t_len, int n_rows,
+                        int hid, int ub) {
+  using bf16 = __nv_bfloat16;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cs = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int k_len = 4 * ub, ld = cluster_pitch(ub);
+  const int four_h = 4 * hid;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* u_s = reinterpret_cast<bf16*>(smem);                     // [H][ld]
+  float* p_s = reinterpret_cast<float*>(smem + (size_t)hid * ld * 2);
+  bf16* a_s = reinterpret_cast<bf16*>(p_s + 2 * kGroupRows * hid);  // [16][ld]
+
+  // this block's columns of U, once for the whole sequence
+  {
+    const bf16* src = u_pack + (size_t)rank * hid * k_len;
+    const int cpr = k_len / 8;                   // 16-byte chunks per row
+    for (int i = tid; i < hid * cpr; i += blockDim.x) {
+      const int n = i / cpr, c = (i % cpr) * 8;
+      cp_async16(smem_addr(u_s + n * ld + c), src + (size_t)n * k_len + c,
+                 true);
+    }
+    lstm_common::cp_async_commit();
+  }
+
+  // this thread's (row, unit)
+  const int r = tid / ub, j = tid % ub;
+  const int k = rank * ub + j;                   // hidden unit
+  const int n = blockIdx.y * kGroupRows + r;     // batch row
+  const bool owns = n < n_rows && k < hid;
+  const int len = owns ? lens[n] : 0;
+
+  float dh = 0.0f, dc = 0.0f;
+  float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  // step t's inputs, loaded one step ahead
+  float g_nx[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c_nx = 0.0f, do_nx = 0.0f;
+  auto fetch = [&](int t) {
+    if (!owns || t < 0 || t >= len) return;
+    const long long row = (long long)t * n_rows + n;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) g_nx[q] = to_f32(gates[row * four_h + q * hid + k]);
+    c_nx = t > 0 ? to_f32(c_res[((long long)(t - 1) * n_rows + n) * hid + k])
+                 : 0.0f;
+    do_nx = to_f32(dout[row * hid + k]);
+  };
+  fetch(t_len - 1);
+
+  // the mma: warp w owns the n8 tiles 4w .. 4w+3 of the H outputs
+  const int mi = lane / 8, mj = lane % 8;
+  const int n_tiles = hid / 8;
+
+  for (int t = t_len - 1; t >= 0; --t) {
+    const int par = t & 1;
+    const bool live = owns && t < len;
+    const float gi = g_nx[0], gj = g_nx[1], gfo = g_nx[2], go = g_nx[3];
+    const float c_prev = c_nx, d_out = do_nx;
+    fetch(t - 1);
+
+    float dg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (live) {
+      const float tanh_c = tanhf(gfo * c_prev + gi * gj);
+      const float g_hnew = dh + d_out;
+      const float do_ = g_hnew * tanh_c;
+      const float dc_tot = dc + g_hnew * go * (1.0f - tanh_c * tanh_c);
+      dg[0] = dc_tot * gj * gi * (1.0f - gi);
+      dg[1] = dc_tot * gi * (1.0f - gj * gj);
+      dg[2] = dc_tot * c_prev * gfo * (1.0f - gfo);
+      dg[3] = do_ * go * (1.0f - go);
+      dc = dc_tot * gfo;
+    }
+    bf16* dx_row = dx + ((long long)t * n_rows + n) * four_h;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      db_acc[q] += dg[q];
+      const bf16 rq = from_f32<bf16>(dg[q]);
+      if (owns) dx_row[q * hid + k] = rq;
+      a_s[r * ld + q * ub + j] = rq;
+    }
+    lstm_common::cp_async_wait<0>();             // U has landed (first step)
+    __syncthreads();
+
+    // P[par] = a_s [16, 4 UB] x (this block's U columns)^T  ->  [16, H]
+    float* p_out = p_s + par * kGroupRows * hid;
+    if (warp * 4 < n_tiles) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+      for (int kk = 0; kk < k_len; kk += 16) {
+        uint32_t af[4], bq[2][4];
+        lstm_common::ldmatrix_x4(
+            af, smem_addr(a_s + (lane % 16) * ld + kk + (lane / 16) * 8));
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          // rows of U past H (a partial last pair) are clamped: their
+          // products are never stored
+          const int row = min((warp * 4 + 2 * p) * 8 + (mi / 2) * 8 + mj,
+                              hid - 1);
+          lstm_common::ldmatrix_x4(
+              bq[p], smem_addr(u_s + row * ld + kk + (mi % 2) * 8));
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          lstm_common::mma_bf16(acc[i], af, bq[i / 2][(i % 2) * 2],
+                                bq[i / 2][(i % 2) * 2 + 1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int nt = warp * 4 + i;
+        if (nt >= n_tiles) continue;
+        const int col = nt * 8 + (lane % 4) * 2;
+        *reinterpret_cast<float2*>(p_out + (lane / 4) * hid + col) =
+            make_float2(acc[i][0], acc[i][1]);
+        *reinterpret_cast<float2*>(p_out + (lane / 4 + 8) * hid + col) =
+            make_float2(acc[i][2], acc[i][3]);
+      }
+    }
+    cluster.sync();
+
+    // dh[r, k] = sum over the cluster's blocks, ascending, of P_b'[r][k]
+    if (owns) {
+      float sum = 0.0f;
+      for (int b = 0; b < cs; ++b) {
+        const float* remote = cluster.map_shared_rank(p_out, b);
+        sum += remote[r * hid + k];
+      }
+      dh = sum + (live ? 0.0f : dh);
+    }
+  }
+  // no block leaves while another may still read its partial products
+  cluster.sync();
+
+  if (owns) {
+    float* part = db_part + (long long)n * four_h;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) part[q * hid + k] = db_acc[q];
+  }
+}
+
+__global__ void __launch_bounds__(lstm_common::kDuThreads)
+lstm_bwd_du_mma_kernel(const __nv_bfloat16* __restrict__ hs,
+                       const __nv_bfloat16* __restrict__ dx,
+                       float* __restrict__ du, int t_len, int n_rows,
+                       int hid) {
+  const int four_h = 4 * hid;
+  // h_prev[t] = h[t-1]: rows t >= 1 of dx against rows t-1 of h
+  lstm_common::du_mma_tile(hs, dx + (long long)n_rows * four_h, du,
+                           (long long)(t_len - 1) * n_rows, hid, four_h,
+                           blockIdx.y * kTile, blockIdx.x * kTile);
+}
+
+// --- f32: one block per batch row ------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxHidden)
@@ -151,11 +367,111 @@ lstm_bwd_db_kernel(const float* __restrict__ db_part, float* __restrict__ db,
   lstm_common::db_sum(db_part, db, n_rows, four_h);
 }
 
-template <typename T>
-int launch(const void* dout, const void* gates, const void* hs,
-           const void* cs, const void* ut, const void* lens, void* dx,
-           void* du, void* db, void* db_part, int t_len, int n_rows, int hid,
-           void* stream_ptr) {
+int launch_db(const void* db_part, void* db, int n_rows, int hid,
+              cudaStream_t stream) {
+  const int four_h = 4 * hid;
+  lstm_bwd_db_kernel<<<(four_h + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(db_part), static_cast<float*>(db), n_rows,
+      four_h);
+  return (int)cudaGetLastError();
+}
+
+// The cluster launch of the bf16 recurrence; fails (never degrades) when
+// the card cannot hold one cluster of this shape.
+int launch_cluster(const void* dout, const void* gates, const void* cs_res,
+                   const void* u_pack, const void* lens, void* dx,
+                   void* db_part, int t_len, int n_rows, int hid, int ub,
+                   cudaStream_t stream) {
+  const int cs = (hid + ub - 1) / ub;
+  const size_t smem = cluster_smem(hid, ub);
+  if (ub <= 0 || ub % 8 != 0 || ub > kMaxUnits || cs > kMaxCluster ||
+      smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = lstm_bwd_cluster_kernel;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, (n_rows + kGroupRows - 1) / kGroupRows, 1);
+  cfg.blockDim = dim3(kGroupRows * ub, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the attributes and the occupancy check, once per shape
+  static int checked_hid = -1, checked_ub = -1;
+  if (checked_hid != hid || checked_ub != ub) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess && cs > 8)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    int clusters = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    checked_hid = hid;
+    checked_ub = ub;
+  }
+  return (int)cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const __nv_bfloat16*>(gates),
+      static_cast<const __nv_bfloat16*>(cs_res),
+      static_cast<const __nv_bfloat16*>(u_pack),
+      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(dx),
+      static_cast<float*>(db_part), t_len, n_rows, hid, ub);
+}
+
+}  // namespace
+
+// Dynamic shared memory of one bf16 cluster block at (H, UB), in bytes (for
+// reports).
+extern "C" int lstm_bwd_cluster_smem(int hid, int ub) {
+  return (int)cluster_smem(hid, ub);
+}
+
+// dout, hs, cs: [T, N, H]; gates, dx (output): [T, N, 4H]; u_pack: U's
+// columns packed [CS][H][4 UB] (block b's gate columns q H + b UB + j, zero
+// past H; CS = ceil(H / UB)); lens: [N] int32; du (output): [H, 4H] f32; db
+// (output): [4H] f32; db_part: scratch [N, 4H] f32; ub: hidden units a
+// cluster block owns (a multiple of 8, CS <= 16). H a multiple of 8, <= 512.
+// Returns a cudaError_t (cudaErrorInvalidConfiguration when no cluster of
+// CS blocks fits on the card).
+extern "C" int lstm_bwd_bf16(const void* dout, const void* gates,
+                             const void* hs, const void* cs,
+                             const void* u_pack, const void* lens, void* dx,
+                             void* du, void* db, void* db_part, int t_len,
+                             int n_rows, int hid, int ub, void* stream_ptr) {
+  if (t_len <= 0 || n_rows <= 0 || hid <= 0 || hid > kMaxHidden ||
+      hid % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  int err = launch_cluster(dout, gates, cs, u_pack, lens, dx, db_part, t_len,
+                           n_rows, hid, ub, stream);
+  if (err != cudaSuccess) return err;
+  const int four_h = 4 * hid;
+  lstm_bwd_du_mma_kernel<<<dim3((four_h + kTile - 1) / kTile,
+                                (hid + kTile - 1) / kTile),
+                           lstm_common::kDuThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(hs),
+      static_cast<const __nv_bfloat16*>(dx), static_cast<float*>(du), t_len,
+      n_rows, hid);
+  err = (int)cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_db(db_part, db, n_rows, hid, stream);
+}
+
+// As lstm_bwd_bf16, with ut: U^T packed as [4H/4][H][4]. Returns a
+// cudaError_t.
+extern "C" int lstm_bwd_f32(const void* dout, const void* gates,
+                            const void* hs, const void* cs, const void* ut,
+                            const void* lens, void* dx, void* du, void* db,
+                            void* db_part, int t_len, int n_rows, int hid,
+                            void* stream_ptr) {
+  using T = float;
   constexpr int VEC = 16 / sizeof(T);
   if (t_len <= 0 || n_rows <= 0 || hid <= 0 || hid > kMaxHidden ||
       hid % VEC != 0)
@@ -175,31 +491,5 @@ int launch(const void* dout, const void* gates, const void* hs,
                    static_cast<float*>(du), t_len, n_rows, hid);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  lstm_bwd_db_kernel<<<(four_h + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(db_part), static_cast<float*>(db), n_rows,
-      four_h);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// dout, hs, cs: [T, N, H]; gates, dx (output): [T, N, 4H]; ut: U^T packed as
-// [4H/VEC][H][VEC]; lens: [N] int32; du (output): [H, 4H] f32; db (output):
-// [4H] f32; db_part: scratch [N, 4H] f32. Returns a cudaError_t.
-extern "C" int lstm_bwd_bf16(const void* dout, const void* gates,
-                             const void* hs, const void* cs, const void* ut,
-                             const void* lens, void* dx, void* du, void* db,
-                             void* db_part, int t_len, int n_rows, int hid,
-                             void* stream) {
-  return launch<__nv_bfloat16>(dout, gates, hs, cs, ut, lens, dx, du, db,
-                               db_part, t_len, n_rows, hid, stream);
-}
-
-extern "C" int lstm_bwd_f32(const void* dout, const void* gates,
-                            const void* hs, const void* cs, const void* ut,
-                            const void* lens, void* dx, void* du, void* db,
-                            void* db_part, int t_len, int n_rows, int hid,
-                            void* stream) {
-  return launch<float>(dout, gates, hs, cs, ut, lens, dx, du, db, db_part,
-                       t_len, n_rows, hid, stream);
+  return launch_db(db_part, db, n_rows, hid, stream);
 }

@@ -11,9 +11,10 @@ The contract is stated in the port's layout: activations ``[N, C, W, H]``
 and conv kernels ``[C_out, C_in, 3, 3]`` (``models/layers.py``). The CUDA
 kernel works channels-last, so the wrapper makes ``x`` channels-last (no
 copy when it already is, in memory) and returns a ``[N, C_out, W, H]``
-tensor whose memory is channels-last; the one reordering of the 3x3 kernel
-into nine ``[C_in, C_out]`` taps is also inside the wrapper and inside its
-time.
+tensor whose memory is channels-last. The one reordering and cast of the
+3x3 kernel into the nine taps (:func:`pack_taps`, one copy) is also inside
+the wrapper and inside its time: ``[3, 3, C_out, C_in]`` for the bf16
+tensor-core product, ``[3, 3, C_in, C_out]`` for the f32 one.
 
 Numerics, as in the TPU kernel: the nine taps accumulate in f32 and round
 once, with the bias, to the compute dtype; the batch statistics come from
@@ -72,6 +73,25 @@ def conv3x3_bn_relu_reference(x, kernel, bias, gamma, beta, eps=1e-3):
     return out.reshape(n, w, h, co).permute(0, 3, 1, 2)
 
 
+def pack_taps(kernel, dtype):
+    """The kernel's taps from a ``[C_out, C_in, 3, 3]`` conv kernel, cast to
+    ``dtype`` and reordered in one copy: ``taps[dw, dh, co, ci] =
+    kernel[co, ci, dw, dh]`` for bf16 (each output channel's depth
+    contiguous, the B operand of the tensor-core product) and
+    ``taps[dw, dh, ci, co] = kernel[co, ci, dw, dh]`` for f32."""
+    order = (2, 3, 0, 1) if dtype == torch.bfloat16 else (2, 3, 1, 0)
+    src = kernel.permute(*order)
+    taps = torch.empty(src.shape, dtype=dtype, device=kernel.device)
+    return taps.copy_(src)
+
+
+def _row_tile(dtype):
+    """Rows of one conv tile of the kernel for ``dtype``, which size its
+    per-tile statistics; the number lives in ``csrc/conv_bn.cu``."""
+    return _build.library('conv_bn').conv_bn_row_tile(
+        int(dtype == torch.bfloat16))
+
+
 def _entry(dtype):
     lib = _build.library('conv_bn')
     fn = getattr(lib, 'conv_bn_bf16' if dtype == torch.bfloat16
@@ -117,11 +137,11 @@ def conv3x3_bn_relu(x, kernel, bias, gamma, beta, eps=1e-3):
                              .format(name, co, dev, tuple(tns.shape),
                                      tns.device))
     x_cl = x.permute(0, 2, 3, 1).contiguous()                 # [N, W, H, Ci]
-    taps = kernel.to(dtype).permute(2, 3, 1, 0).contiguous()  # [3, 3, Ci, Co]
+    taps = pack_taps(kernel, dtype)
     bias, gamma, beta = (t.float().contiguous() for t in (bias, gamma, beta))
     y = torch.empty(n, w, h, co, dtype=dtype, device=dev)
     if y.numel():
-        n_tiles = -(-(n * w * h) // 64)
+        n_tiles = -(-(n * w * h) // _row_tile(dtype))
         part = torch.empty(n_tiles, 2, co, dtype=torch.float32, device=dev)
         scale_shift = torch.empty(2, co, dtype=torch.float32, device=dev)
         err = _entry(dtype)(

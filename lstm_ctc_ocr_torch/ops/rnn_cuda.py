@@ -434,12 +434,36 @@ def lstm_fwd(x_proj, u, bias, lens, forget_bias=1.0, save_residuals=False):
 lstm_fwd.launches = 0
 
 
+def units_per_block(h_dim):
+    """Hidden units each block of ``lstm_bwd``'s bf16 cluster owns: the
+    mma's N of 8 at least, and few enough blocks, ``ceil(H / units)``, for
+    one cluster of at most 16: ``8 * ceil(H / 128)`` (32 at H = 512, 16 at
+    H = 256, 8 up to H = 128)."""
+    return 8 * -(-h_dim // 128)
+
+
+def pack_u_slices(u, ub):
+    """[H, 4H] -> [CS, H, 4 * ub] with CS = ceil(H / ub): block ``b`` of the
+    bf16 backward's cluster loads ``packed[b]``, whose row ``n`` holds U's
+    columns ``q * H + b * ub + j`` of its units (gate ``q``, unit ``j``) as
+    ``packed[b, n, q * ub + j]``, zero where ``b * ub + j >= H``."""
+    h_dim = u.shape[0]
+    cs = -(-h_dim // ub)
+    gates = u.reshape(h_dim, 4, h_dim)
+    if cs * ub != h_dim:
+        gates = torch.nn.functional.pad(gates, (0, cs * ub - h_dim))
+    return (gates.reshape(h_dim, 4, cs, ub).permute(2, 0, 1, 3)
+            .reshape(cs, h_dim, 4 * ub).contiguous())
+
+
 def lstm_bwd(dout, gates, hs, cs, u, lens):
     """Backward of :func:`lstm_fwd` from its residuals.
 
     Same contract as :func:`lstm_bwd_reference`. CPU tensors run the plain
     version; CUDA tensors launch ``csrc/lstm_bwd.cu`` (the recurrence, the
-    dU product and the db sum, one entry point) or raise."""
+    dU product and the db sum, one entry point) or raise: bf16 runs the
+    cluster recurrence with U in shared memory and tensor-core products,
+    f32 the one-block-per-row recurrence (its U does not fit a cluster)."""
     if gates.device.type == 'cpu':
         return lstm_bwd_reference(dout, gates, hs, cs, u, lens)
     four_h = gates.shape[2]
@@ -451,19 +475,29 @@ def lstm_bwd(dout, gates, hs, cs, u, lens):
     dtype, dev = gates.dtype, gates.device
     dout, gates, hs, cs, lens = (x.contiguous()
                                  for x in (dout, gates, hs, cs, lens))
-    ut = _pack_u(u.t(), vec)           # U^T in the forward's packing
+    if dtype == torch.bfloat16:
+        geometry = (units_per_block(h_dim),)
+        u_arg = pack_u_slices(u, geometry[0])
+    else:
+        geometry = ()
+        u_arg = _pack_u(u.t(), vec)    # U^T in the forward's packing
     dx = torch.empty(t_len, n, four_h, dtype=dtype, device=dev)
     du = torch.empty(h_dim, four_h, dtype=torch.float32, device=dev)
     db = torch.empty(four_h, dtype=torch.float32, device=dev)
     if t_len and n:
         db_part = torch.empty(n, four_h, dtype=torch.float32, device=dev)
-        err = _lstm_entry('lstm_bwd', dtype, 10, [ctypes.c_int] * 3)(
-            *(x.data_ptr() for x in (dout, gates, hs, cs, ut, lens, dx, du,
+        err = _lstm_entry('lstm_bwd', dtype, 10,
+                          [ctypes.c_int] * (3 + len(geometry)))(
+            *(x.data_ptr() for x in (dout, gates, hs, cs, u_arg, lens, dx, du,
                                      db, db_part)),
-            t_len, n, h_dim, torch.cuda.current_stream(dev).cuda_stream)
+            t_len, n, h_dim, *geometry,
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError('lstm_bwd kernel launch failed: cudaError {}'
-                               .format(err))
+            raise RuntimeError('lstm_bwd kernel launch failed: cudaError {}{}'
+                               .format(err, ' (bf16 runs one thread-block '
+                                       'cluster of {} blocks per 16 rows)'
+                                       .format(u_arg.shape[0])
+                                       if geometry else ''))
         lstm_bwd.launches += 1
     else:
         du.zero_()

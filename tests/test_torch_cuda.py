@@ -305,6 +305,45 @@ def test_lstm_kernels_match_reference(cuda_device, dtype, t, n, h):
         assert float((g.float() - w).abs().max()) <= tol, i
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('t,n,h', [(23, 37, 512), (1, 5, 256), (11, 1, 8),
+                                   (6, 20, 136), (4, 17, 264)])
+def test_lstm_bwd_kernel_edges_and_determinism(cuda_device, dtype, t, n, h):
+    """``lstm_bwd`` at the edges of the bf16 cluster tiling: rows that die
+    at different t inside one 16-row group and a row of length 0; T = 1; a
+    partial last row group (N = 37, 1, 5, 20, 17); H from one block of 8
+    units to 16 blocks of 32, and H = 136 and 264, whose last cluster block
+    owns fewer units than the others. Two calls are bit-identical."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(7 * t + n + h)
+
+    def mk(*shape, scale=1.0):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(cuda_device, dt)
+    lens = (np.arange(n) * 5) % (t + 1)
+    lens[0], lens[-1] = 0, t
+    lens = torch.from_numpy(lens.astype(np.int32)).to(cuda_device)
+    u = mk(h, 4 * h, scale=h ** -0.5)
+    _, gates, hs, cs = rnn_cuda.lstm_fwd(mk(t, n, 4 * h), u,
+                                         mk(4 * h, scale=0.1), lens,
+                                         save_residuals=True)
+    args = (mk(t, n, h), gates, hs, cs, u, lens)
+    before = rnn_cuda.lstm_bwd.launches
+    got = rnn_cuda.lstm_bwd(*args)
+    again = rnn_cuda.lstm_bwd(*args)
+    assert rnn_cuda.lstm_bwd.launches == before + 2
+    want = rnn_cuda.lstm_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a), i
+        w = w.float()
+        scale = max(float(w.abs().max()), 1e-6)
+        tol = 1e-4 * scale if dt == torch.float32 else 4 * scale / 256.0
+        assert float((g.float() - w).abs().max()) <= tol, i
+    dead = torch.arange(t, device=cuda_device)[:, None] >= lens[None, :]
+    assert not got[0][dead].any()           # dead steps: dg = 0
+
+
 def test_lstm_gradients_through_kernels(cuda_device):
     """``ops/rnn.lstm`` under autograd on CUDA tensors: one forward and one
     backward launch, output and gradients equal to the CPU (plain) ones."""
@@ -355,7 +394,15 @@ def test_lstm_kernels_reject_bad_inputs(cuda_device):
 @pytest.mark.parametrize('n,w,h,ci,co', [(64, 24, 4, 256, 512),
                                          (16, 24, 4, 32, 48),
                                          (8, 12, 2, 64, 64),
-                                         (6, 10, 4, 16, 32)])
+                                         (6, 10, 4, 16, 32),
+                                         # the bf16 tile's edges: N = 1,
+                                         # C_in = 16 and 272 (not a multiple
+                                         # of the 32-channel step), M = N W H
+                                         # not a multiple of 128, C_out 48
+                                         # and odd
+                                         (1, 24, 4, 16, 48),
+                                         (5, 13, 3, 272, 48),
+                                         (2, 9, 5, 48, 37)])
 def test_conv_bn_kernel_matches_reference(cuda_device, dtype, n, w, h, ci, co):
     dt = getattr(torch, dtype)
     rng = np.random.RandomState(n * co)

@@ -273,3 +273,23 @@ def test_no_gradient_needed_saves_no_residuals():
     tracked = rnn.lstm(tc, xg, torch.from_numpy(lens))
     assert tracked.grad_fn is not None
     np.testing.assert_array_equal(plain.numpy(), tracked.detach().numpy())
+
+
+@pytest.mark.parametrize('h,ub,cs', [(8, 8, 1), (24, 8, 3), (136, 16, 9),
+                                     (256, 16, 16), (264, 24, 11),
+                                     (512, 32, 16)])
+def test_pack_u_slices_matches_index_formula(h, ub, cs):
+    """``lstm_bwd``'s bf16 packing of U: block ``b`` of the cluster gets
+    ``packed[b, n, q * ub + j] = U[n, q * H + b * ub + j]`` (zero past H),
+    with ``ub = units_per_block(H)`` a multiple of 8 and at most 16 blocks."""
+    assert rnn_cuda.units_per_block(h) == ub
+    u = np.random.RandomState(h).randn(h, 4 * h).astype(np.float32)
+    packed = rnn_cuda.pack_u_slices(torch.from_numpy(u), ub)
+    assert packed.shape == (cs, h, 4 * ub) and packed.is_contiguous()
+    got = packed.numpy()
+    for b in range(cs):
+        for q in range(4):
+            for j in range(ub):
+                unit = b * ub + j
+                want = u[:, q * h + unit] if unit < h else np.zeros(h)
+                np.testing.assert_array_equal(got[b, :, q * ub + j], want)
