@@ -103,12 +103,13 @@ constexpr int kMaxUnits = 32;     // hidden units per cluster block
 
 // --- bf16: the cluster recurrence ------------------------------------------
 
-// Shared memory of one cluster block: U's columns [H][4 UB + 8] bf16 (the
-// pad keeps ldmatrix free of bank conflicts), the partial products
-// [2][16][H] f32, the A tile [16][4 UB + 8] bf16.
+// Shared memory of one cluster block: U's columns [H][4 UB + 8] bf16, the
+// partial products [2][16][H + 8] f32, the A tile [16][4 UB + 8] bf16 (each
+// pad keeps ldmatrix or the accumulator stores free of bank conflicts).
 __host__ __device__ constexpr int cluster_pitch(int ub) { return 4 * ub + 8; }
 __host__ __device__ constexpr size_t cluster_smem(int hid, int ub) {
-  return (size_t)hid * cluster_pitch(ub) * 2 + (size_t)2 * kGroupRows * hid * 4 +
+  return (size_t)hid * cluster_pitch(ub) * 2 +
+         (size_t)2 * kGroupRows * (hid + 8) * 4 +
          (size_t)kGroupRows * cluster_pitch(ub) * 2;
 }
 
@@ -131,8 +132,9 @@ lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ dout,
 
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* u_s = reinterpret_cast<bf16*>(smem);                     // [H][ld]
+  const int p_ld = hid + 8;                      // partial products' pitch
   float* p_s = reinterpret_cast<float*>(smem + (size_t)hid * ld * 2);
-  bf16* a_s = reinterpret_cast<bf16*>(p_s + 2 * kGroupRows * hid);  // [16][ld]
+  bf16* a_s = reinterpret_cast<bf16*>(p_s + 2 * kGroupRows * p_ld);  // [16][ld]
 
   // this block's columns of U, once for the whole sequence
   {
@@ -203,14 +205,17 @@ lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ dout,
     __syncthreads();
 
     // P[par] = a_s [16, 4 UB] x (this block's U columns)^T  ->  [16, H]
-    float* p_out = p_s + par * kGroupRows * hid;
+    float* p_out = p_s + par * kGroupRows * p_ld;
     if (warp * 4 < n_tiles) {
       float acc[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-      for (int kk = 0; kk < k_len; kk += 16) {
+#pragma unroll
+      for (int ks = 0; ks < kMaxUnits / 4; ++ks) {   // unrolled: fragment
+        const int kk = ks * 16;                      // loads overlap mmas
+        if (kk >= k_len) break;
         uint32_t af[4], bq[2][4];
         lstm_common::ldmatrix_x4(
             af, smem_addr(a_s + (lane % 16) * ld + kk + (lane / 16) * 8));
@@ -233,9 +238,9 @@ lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ dout,
         const int nt = warp * 4 + i;
         if (nt >= n_tiles) continue;
         const int col = nt * 8 + (lane % 4) * 2;
-        *reinterpret_cast<float2*>(p_out + (lane / 4) * hid + col) =
+        *reinterpret_cast<float2*>(p_out + (lane / 4) * p_ld + col) =
             make_float2(acc[i][0], acc[i][1]);
-        *reinterpret_cast<float2*>(p_out + (lane / 4 + 8) * hid + col) =
+        *reinterpret_cast<float2*>(p_out + (lane / 4 + 8) * p_ld + col) =
             make_float2(acc[i][2], acc[i][3]);
       }
     }
@@ -246,7 +251,7 @@ lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ dout,
       float sum = 0.0f;
       for (int b = 0; b < cs; ++b) {
         const float* remote = cluster.map_shared_rank(p_out, b);
-        sum += remote[r * hid + k];
+        sum += remote[r * p_ld + k];
       }
       dh = sum + (live ? 0.0f : dh);
     }
@@ -431,6 +436,36 @@ int launch_cluster(const void* dout, const void* gates, const void* cs_res,
 // reports).
 extern "C" int lstm_bwd_cluster_smem(int hid, int ub) {
   return (int)cluster_smem(hid, ub);
+}
+
+// How many clusters of the bf16 recurrence at (H, UB) the card holds at
+// once (cudaOccupancyMaxActiveClusters; for reports), or -cudaError_t.
+extern "C" int lstm_bwd_max_clusters(int hid, int ub) {
+  const int cs = (hid + ub - 1) / ub;
+  const size_t smem = cluster_smem(hid, ub);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess && cs > 8)
+    err = cudaFuncSetAttribute(lstm_bwd_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, 1, 1);
+  cfg.blockDim = dim3(kGroupRows * ub, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, lstm_bwd_cluster_kernel,
+                                         &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
 }
 
 // dout, hs, cs: [T, N, H]; gates, dx (output): [T, N, 4H]; u_pack: U's
