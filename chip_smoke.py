@@ -490,10 +490,11 @@ def lstm_phase(rnn, rnn_cuda, build):
     ub = rnn_cuda.units_per_block(512)
     ptxas = ptxas_report(build, 'lstm_bwd', ['lstm_bwd_cluster_kernel',
                                              'lstm_bwd_du_mma_kernel'])
+    lib = build.library('lstm_bwd')
     ptxas['cluster'] = {
         'units_per_block': ub, 'blocks': -(-512 // ub),
-        'dynamic_smem': build.library('lstm_bwd').lstm_bwd_cluster_smem(512,
-                                                                       ub)}
+        'dynamic_smem': lib.lstm_bwd_cluster_smem(512, ub),
+        'max_active_clusters': lib.lstm_bwd_max_clusters(512, ub)}
     print('lstm_bwd bf16 cluster at H=512: {}'.format(
         json.dumps(ptxas['cluster'])), flush=True)
     errs = {}
@@ -682,11 +683,11 @@ def conv_bn_phase(bench, conv_bn_cuda, build):
                         reps=10, warmup=2),
                     'library_ms': median_ms(
                         lambda: layer(case['x'], ldt)),
-                    # what the wrapper adds before the launch: the
-                    # channels-last copy of x and the tap packing
-                    'layout_ms': median_ms(lambda: (
-                        case['x'].permute(0, 2, 3, 1).contiguous(),
-                        conv_bn_cuda.pack_taps(case['kernel'], dtype))),
+                    # the conv kernel alone, without the layout, taps,
+                    # statistics and normalisation launches
+                    'conv_device_ms': device_ms(
+                        lambda: conv_bn_cuda.conv3x3_bn_relu(*args),
+                        ['conv_bn_conv']),
                     'vs_unfused_max_abs_diff': vs_layer}
             row['bound_ms'], row['bound_by'] = conv_bn_bound_ms(
                 64, w, h, ci, co, dtype)

@@ -50,10 +50,15 @@
 //  2. conv_bn_stats_kernel: one thread per channel adds the row tiles'
 //     partials in ascending order and derives scale and shift.
 //  3. conv_bn_norm_kernel: y <- relu(y * scale + shift), in place.
+// Before them the entry point launches the layout work the wrapper would
+// otherwise do with torch ops on the host: conv_bn_layout_kernel makes x
+// channels-last (skipped when it already is) and conv_bn_taps_kernel casts
+// and reorders the 3x3 kernel into the taps. Both, part and scale_shift live
+// in one scratch buffer whose layout (and so the row tile) this file alone
+// decides: conv_bn_scratch_bytes tells the wrapper its size.
 // Every sum has a fixed order (no atomics, no split-K; the column sums of a
 // tile go thread, warp butterfly, then warp rows in order), so two runs
-// agree bit for bit. conv_bn_row_tile tells the wrapper the row tile, which
-// sizes part.
+// agree bit for bit.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
@@ -94,8 +99,9 @@ conv_bn_conv_mma_kernel(const __nv_bfloat16* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* a_s = reinterpret_cast<bf16*>(smem);           // [stage][row][pitch]
   bf16* b_s = a_s + kMmaStages * kMmaRows * kMmaPitch;  // [stage][col][pitch]
-  float* red = reinterpret_cast<float*>(b_s + kMmaStages * kMmaCols * kMmaPitch);
   // red: [warp row 0..1][sum, sum of squares][column]
+  float* red =
+      reinterpret_cast<float*>(b_s + kMmaStages * kMmaCols * kMmaPitch);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wr = (warp / 4) * 64, wc = (warp % 4) * 32;   // warp's outputs
@@ -391,9 +397,79 @@ conv_bn_norm_kernel(T* __restrict__ y, const float* __restrict__ scale_shift,
   }
 }
 
+// The wrapper's layout work, as two launches inside the entry point.
+// x [N][Ci][W H] (the port's [N, C, W, H]) -> x_cl [N][W H][Ci]: 32 x 32
+// tiles through shared memory, both sides coalesced.
+template <typename T>
+__global__ void __launch_bounds__(256)
+conv_bn_layout_kernel(const T* __restrict__ x, T* __restrict__ x_cl, int ci,
+                      int wh) {
+  __shared__ T tile[32][33];
+  const long long base = (long long)blockIdx.z * ci * wh;
+  const int c0 = blockIdx.y * 32, p0 = blockIdx.x * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;   // 32 x 8
+  for (int i = ty; i < 32; i += 8)
+    if (c0 + i < ci && p0 + tx < wh)
+      tile[i][tx] = x[base + (long long)(c0 + i) * wh + p0 + tx];
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8)
+    if (p0 + i < wh && c0 + tx < ci)
+      x_cl[base + (long long)(p0 + i) * ci + c0 + tx] = tile[tx][i];
+}
+
+// The taps from the f32 kernel [Co][Ci][3][3], cast once: [9][Co][Ci] for
+// bf16 (each output channel's depth contiguous, the B operand of the
+// tensor-core product), [9][Ci][Co] for f32. One thread per (co, ci) pair
+// reads its nine contiguous entries; in bf16 a warp's writes to each tap
+// are contiguous too.
+template <typename T> __host__ __device__ constexpr bool taps_co_major();
+template <> __host__ __device__ constexpr bool taps_co_major<float>() {
+  return false;
+}
+template <> __host__ __device__ constexpr bool taps_co_major<__nv_bfloat16>() {
+  return true;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+conv_bn_taps_kernel(const float* __restrict__ kernel, T* __restrict__ taps,
+                    int ci, int co) {
+  const long long per_tap = (long long)ci * co;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < per_tap; i += stride) {                  // i = co_index * Ci + ci
+    const long long dst = taps_co_major<T>() ? i : (i % ci) * co + i / ci;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+      taps[tap * per_tap + dst] = from_f32<T>(kernel[i * 9 + tap]);
+  }
+}
+
 template <typename T> constexpr int row_tile();
 template <> constexpr int row_tile<float>() { return kTile; }
 template <> constexpr int row_tile<__nv_bfloat16>() { return kMmaRows; }
+
+// One scratch buffer holds, 256-byte aligned: x_cl (when x is not channels
+// last already), the taps, the per-tile statistics part[n_tiles][2][Co] and
+// scale_shift[2][Co].
+struct Scratch {
+  size_t x_cl, taps, part, scale_shift, bytes;
+};
+
+template <typename T>
+Scratch scratch_layout(int n_img, int w, int h, int ci, int co,
+                       bool x_channels_last) {
+  auto up = [](size_t b) { return (b + 255) / 256 * 256; };
+  const size_t m_total = (size_t)n_img * w * h;
+  const size_t n_tiles = (m_total + row_tile<T>() - 1) / row_tile<T>();
+  Scratch s;
+  s.x_cl = 0;
+  s.taps = x_channels_last ? 0 : up(m_total * ci * sizeof(T));
+  s.part = s.taps + up((size_t)9 * ci * co * sizeof(T));
+  s.scale_shift = s.part + up(n_tiles * 2 * co * sizeof(float));
+  s.bytes = s.scale_shift + up((size_t)2 * co * sizeof(float));
+  return s;
+}
 
 // The conv phase: FP32 FMAs for f32, tensor cores for bf16.
 int launch_conv(const float* x, const float* taps, const float* bias,
@@ -424,62 +500,89 @@ int launch_conv(const __nv_bfloat16* x, const __nv_bfloat16* taps,
 }
 
 template <typename T>
-int launch(const void* x, const void* taps, const void* bias,
-           const void* gamma, const void* beta, void* y, void* part,
-           void* scale_shift, int n_img, int w, int h, int ci, int co,
-           float eps, void* stream_ptr) {
+int launch(const void* x, int x_channels_last, const void* kernel,
+           const void* bias, const void* gamma, const void* beta, void* y,
+           void* scratch, int n_img, int w, int h, int ci, int co, float eps,
+           void* stream_ptr) {
   if (n_img <= 0 || w <= 0 || h <= 0 || co <= 0 || ci <= 0 || ci % kStep != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const Scratch s =
+      scratch_layout<T>(n_img, w, h, ci, co, x_channels_last != 0);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  const T* x_cl = static_cast<const T*>(x);
+  if (!x_channels_last) {
+    T* dst = reinterpret_cast<T*>(base + s.x_cl);
+    conv_bn_layout_kernel<T>
+        <<<dim3((w * h + 31) / 32, (ci + 31) / 32, n_img), 256, 0, stream>>>(
+            static_cast<const T*>(x), dst, ci, w * h);
+    x_cl = dst;
+  }
+  T* taps = reinterpret_cast<T*>(base + s.taps);
+  const long long pairs = (long long)ci * co;
+  conv_bn_taps_kernel<T><<<(int)((pairs + 255) / 256 < 132 * 8
+                                     ? (pairs + 255) / 256
+                                     : 132 * 8),
+                           256, 0, stream>>>(
+      static_cast<const float*>(kernel), taps, ci, co);
+  float* part = reinterpret_cast<float*>(base + s.part);
+  float* scale_shift = reinterpret_cast<float*>(base + s.scale_shift);
   const long long m_total = (long long)n_img * w * h;
   const int n_tiles = (int)((m_total + row_tile<T>() - 1) / row_tile<T>());
   cudaError_t err = (cudaError_t)launch_conv(
-      static_cast<const T*>(x), static_cast<const T*>(taps),
-      static_cast<const float*>(bias), static_cast<T*>(y),
-      static_cast<float*>(part), n_img, w, h, ci, co, n_tiles, stream);
+      x_cl, taps, static_cast<const float*>(bias), static_cast<T*>(y), part,
+      n_img, w, h, ci, co, n_tiles, stream);
   if (err != cudaSuccess) return (int)err;
   conv_bn_stats_kernel<<<(co + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<float*>(scale_shift),
-      n_tiles, co, 1.0f / (float)m_total, eps);
+      part, static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      scale_shift, n_tiles, co, 1.0f / (float)m_total, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long total = m_total * co;
   const int blocks = (int)((total + 255) / 256 < 132 * 16 ? (total + 255) / 256
                                                           : 132 * 16);
   conv_bn_norm_kernel<T><<<blocks, 256, 0, stream>>>(
-      static_cast<T*>(y), static_cast<const float*>(scale_shift), total, co);
+      static_cast<T*>(y), scale_shift, total, co);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Rows of one conv tile, which size part: 128 for bf16 (bf16 != 0), 64 for
-// f32.
-extern "C" int conv_bn_row_tile(int bf16) {
-  return bf16 ? row_tile<__nv_bfloat16>() : row_tile<float>();
+// Bytes of scratch the entry point for the type (bf16 != 0) needs at this
+// shape; x_channels_last != 0 when x is already [N, W, H, Ci] in memory.
+extern "C" long long conv_bn_scratch_bytes(int bf16, int n_img, int w, int h,
+                                           int ci, int co,
+                                           int x_channels_last) {
+  return (long long)(bf16 ? scratch_layout<__nv_bfloat16>(
+                                n_img, w, h, ci, co, x_channels_last != 0)
+                          : scratch_layout<float>(n_img, w, h, ci, co,
+                                                  x_channels_last != 0))
+      .bytes;
 }
 
 // Dynamic shared memory of one bf16 conv block, in bytes (for reports).
 extern "C" int conv_bn_mma_smem() { return (int)kMmaSmem; }
 
-// x: [N, W, H, Ci] channels last; taps (tap = 3 dw + dh): [9, Co, Ci] for
-// bf16, [9, Ci, Co] for f32; bias, gamma, beta: [Co] f32; y (output, also the
-// conv's scratch): [N, W, H, Co]; part: scratch [ceil(N W H / row tile), 2,
-// Co] f32; scale_shift: scratch [2, Co] f32. Ci must be a multiple of 16.
-// Returns a cudaError_t.
-extern "C" int conv_bn_bf16(const void* x, const void* taps, const void* bias,
+// x: [N, Ci, W, H] (x_channels_last == 0) or [N, W, H, Ci] (!= 0) in the
+// element type; kernel: [Co, Ci, 3, 3] f32; bias, gamma, beta: [Co] f32; y
+// (output, also the conv's scratch): [N, W, H, Co]; scratch:
+// conv_bn_scratch_bytes(...) bytes, 256-byte aligned. Ci must be a multiple
+// of 16. Launches, in order: the layout of x (when needed), the taps, the
+// conv, the statistics, the normalisation. Returns a cudaError_t.
+extern "C" int conv_bn_bf16(const void* x, int x_channels_last,
+                            const void* kernel, const void* bias,
                             const void* gamma, const void* beta, void* y,
-                            void* part, void* scale_shift, int n_img, int w,
-                            int h, int ci, int co, float eps, void* stream) {
-  return launch<__nv_bfloat16>(x, taps, bias, gamma, beta, y, part,
-                               scale_shift, n_img, w, h, ci, co, eps, stream);
+                            void* scratch, int n_img, int w, int h, int ci,
+                            int co, float eps, void* stream) {
+  return launch<__nv_bfloat16>(x, x_channels_last, kernel, bias, gamma, beta,
+                               y, scratch, n_img, w, h, ci, co, eps, stream);
 }
 
-extern "C" int conv_bn_f32(const void* x, const void* taps, const void* bias,
+extern "C" int conv_bn_f32(const void* x, int x_channels_last,
+                           const void* kernel, const void* bias,
                            const void* gamma, const void* beta, void* y,
-                           void* part, void* scale_shift, int n_img, int w,
-                           int h, int ci, int co, float eps, void* stream) {
-  return launch<float>(x, taps, bias, gamma, beta, y, part, scale_shift,
-                       n_img, w, h, ci, co, eps, stream);
+                           void* scratch, int n_img, int w, int h, int ci,
+                           int co, float eps, void* stream) {
+  return launch<float>(x, x_channels_last, kernel, bias, gamma, beta, y,
+                       scratch, n_img, w, h, ci, co, eps, stream);
 }

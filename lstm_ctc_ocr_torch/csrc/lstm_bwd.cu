@@ -134,7 +134,8 @@ lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ dout,
   bf16* u_s = reinterpret_cast<bf16*>(smem);                     // [H][ld]
   const int p_ld = hid + 8;                      // partial products' pitch
   float* p_s = reinterpret_cast<float*>(smem + (size_t)hid * ld * 2);
-  bf16* a_s = reinterpret_cast<bf16*>(p_s + 2 * kGroupRows * p_ld);  // [16][ld]
+  bf16* a_s =                                                   // [16][ld]
+      reinterpret_cast<bf16*>(p_s + 2 * kGroupRows * p_ld);
 
   // this block's columns of U, once for the whole sequence
   {
@@ -163,7 +164,8 @@ lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ dout,
     if (!owns || t < 0 || t >= len) return;
     const long long row = (long long)t * n_rows + n;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) g_nx[q] = to_f32(gates[row * four_h + q * hid + k]);
+    for (int q = 0; q < 4; ++q)
+      g_nx[q] = to_f32(gates[row * four_h + q * hid + k]);
     c_nx = t > 0 ? to_f32(c_res[((long long)(t - 1) * n_rows + n) * hid + k])
                  : 0.0f;
     do_nx = to_f32(dout[row * hid + k]);
@@ -381,48 +383,72 @@ int launch_db(const void* db_part, void* db, int n_rows, int hid,
   return (int)cudaGetLastError();
 }
 
+bool cluster_shape_ok(int hid, int ub) {
+  return ub > 0 && ub % 8 == 0 && ub <= kMaxUnits &&
+         (hid + ub - 1) / ub <= kMaxCluster &&
+         cluster_smem(hid, ub) <= 232448;    // a block's shared memory
+}
+
+// The launch configuration of the bf16 recurrence at (H, UB): clusters of
+// CS blocks along x, one cluster per 16 rows along y.
+void cluster_config(int hid, int ub, int n_groups, cudaStream_t stream,
+                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  const int cs = (hid + ub - 1) / ub;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cs, n_groups, 1);
+  cfg->blockDim = dim3(kGroupRows * ub, 1, 1);
+  cfg->dynamicSmemBytes = cluster_smem(hid, ub);
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// Sets the recurrence's attributes for (H, UB) and returns how many of its
+// clusters the card holds at once, or -cudaError_t.
+int max_active_clusters(int hid, int ub) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(hid, ub, 1, nullptr, &cfg, &attr);
+  cudaError_t err = cudaFuncSetAttribute(
+      lstm_bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)cfg.dynamicSmemBytes);
+  if (err == cudaSuccess && attr.val.clusterDim.x > 8)
+    err = cudaFuncSetAttribute(lstm_bwd_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, lstm_bwd_cluster_kernel,
+                                         &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
 // The cluster launch of the bf16 recurrence; fails (never degrades) when
 // the card cannot hold one cluster of this shape.
 int launch_cluster(const void* dout, const void* gates, const void* cs_res,
                    const void* u_pack, const void* lens, void* dx,
                    void* db_part, int t_len, int n_rows, int hid, int ub,
                    cudaStream_t stream) {
-  const int cs = (hid + ub - 1) / ub;
-  const size_t smem = cluster_smem(hid, ub);
-  if (ub <= 0 || ub % 8 != 0 || ub > kMaxUnits || cs > kMaxCluster ||
-      smem > 232448)
-    return (int)cudaErrorInvalidValue;
-  auto kernel = lstm_bwd_cluster_kernel;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, (n_rows + kGroupRows - 1) / kGroupRows, 1);
-  cfg.blockDim = dim3(kGroupRows * ub, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  if (!cluster_shape_ok(hid, ub)) return (int)cudaErrorInvalidValue;
   // the attributes and the occupancy check, once per shape
   static int checked_hid = -1, checked_ub = -1;
   if (checked_hid != hid || checked_ub != ub) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess && cs > 8)
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    int clusters = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    const int clusters = max_active_clusters(hid, ub);
+    if (clusters < 0) return -clusters;
+    if (clusters == 0) return (int)cudaErrorInvalidConfiguration;
     checked_hid = hid;
     checked_ub = ub;
   }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(hid, ub, (n_rows + kGroupRows - 1) / kGroupRows, stream,
+                 &cfg, &attr);
   return (int)cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const __nv_bfloat16*>(dout),
+      &cfg, lstm_bwd_cluster_kernel, static_cast<const __nv_bfloat16*>(dout),
       static_cast<const __nv_bfloat16*>(gates),
       static_cast<const __nv_bfloat16*>(cs_res),
       static_cast<const __nv_bfloat16*>(u_pack),
@@ -441,31 +467,8 @@ extern "C" int lstm_bwd_cluster_smem(int hid, int ub) {
 // How many clusters of the bf16 recurrence at (H, UB) the card holds at
 // once (cudaOccupancyMaxActiveClusters; for reports), or -cudaError_t.
 extern "C" int lstm_bwd_max_clusters(int hid, int ub) {
-  const int cs = (hid + ub - 1) / ub;
-  const size_t smem = cluster_smem(hid, ub);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err == cudaSuccess && cs > 8)
-    err = cudaFuncSetAttribute(lstm_bwd_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs, 1, 1);
-  cfg.blockDim = dim3(kGroupRows * ub, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, lstm_bwd_cluster_kernel,
-                                         &cfg);
-  return err == cudaSuccess ? clusters : -(int)err;
+  if (!cluster_shape_ok(hid, ub)) return -(int)cudaErrorInvalidValue;
+  return max_active_clusters(hid, ub);
 }
 
 // dout, hs, cs: [T, N, H]; gates, dx (output): [T, N, 4H]; u_pack: U's

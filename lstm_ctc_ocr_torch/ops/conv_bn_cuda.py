@@ -9,12 +9,12 @@ it on an H100 and how its design answers that.
 
 The contract is stated in the port's layout: activations ``[N, C, W, H]``
 and conv kernels ``[C_out, C_in, 3, 3]`` (``models/layers.py``). The CUDA
-kernel works channels-last, so the wrapper makes ``x`` channels-last (no
-copy when it already is, in memory) and returns a ``[N, C_out, W, H]``
-tensor whose memory is channels-last. The one reordering and cast of the
-3x3 kernel into the nine taps (:func:`pack_taps`, one copy) is also inside
-the wrapper and inside its time: ``[3, 3, C_out, C_in]`` for the bf16
-tensor-core product, ``[3, 3, C_in, C_out]`` for the f32 one.
+kernel works channels-last; the entry point makes ``x`` channels-last (no
+copy when it already is, in memory) and casts and reorders the 3x3 kernel
+into the nine taps with two launches of its own, inside the wrapper's
+time, and the wrapper returns a ``[N, C_out, W, H]`` tensor whose memory is
+channels-last. The wrapper allocates the output and one scratch buffer
+whose size the CUDA side states (``conv_bn_scratch_bytes``).
 
 Numerics, as in the TPU kernel: the nine taps accumulate in f32 and round
 once, with the bias, to the compute dtype; the batch statistics come from
@@ -73,23 +73,15 @@ def conv3x3_bn_relu_reference(x, kernel, bias, gamma, beta, eps=1e-3):
     return out.reshape(n, w, h, co).permute(0, 3, 1, 2)
 
 
-def pack_taps(kernel, dtype):
-    """The kernel's taps from a ``[C_out, C_in, 3, 3]`` conv kernel, cast to
-    ``dtype`` and reordered in one copy: ``taps[dw, dh, co, ci] =
-    kernel[co, ci, dw, dh]`` for bf16 (each output channel's depth
-    contiguous, the B operand of the tensor-core product) and
-    ``taps[dw, dh, ci, co] = kernel[co, ci, dw, dh]`` for f32."""
-    order = (2, 3, 0, 1) if dtype == torch.bfloat16 else (2, 3, 1, 0)
-    src = kernel.permute(*order)
-    taps = torch.empty(src.shape, dtype=dtype, device=kernel.device)
-    return taps.copy_(src)
-
-
-def _row_tile(dtype):
-    """Rows of one conv tile of the kernel for ``dtype``, which size its
-    per-tile statistics; the number lives in ``csrc/conv_bn.cu``."""
-    return _build.library('conv_bn').conv_bn_row_tile(
-        int(dtype == torch.bfloat16))
+def _scratch_bytes(dtype, n, w, h, ci, co, channels_last):
+    """Bytes of scratch ``csrc/conv_bn.cu`` needs at this shape (channels-
+    last x, taps, per-tile statistics); the layout lives in the CUDA file."""
+    fn = _build.library('conv_bn').conv_bn_scratch_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 7
+        fn.restype = ctypes.c_longlong
+    return fn(int(dtype == torch.bfloat16), n, w, h, ci, co,
+              int(channels_last))
 
 
 def _entry(dtype):
@@ -97,8 +89,9 @@ def _entry(dtype):
     fn = getattr(lib, 'conv_bn_bf16' if dtype == torch.bfloat16
                  else 'conv_bn_f32')
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_void_p])
+        p = ctypes.c_void_p
+        fn.argtypes = ([p, ctypes.c_int] + [p] * 6 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -107,9 +100,9 @@ def conv3x3_bn_relu(x, kernel, bias, gamma, beta, eps=1e-3):
     """Fused conv3x3 (SAME) + bias + batch norm on batch statistics + ReLU.
 
     Same contract as :func:`conv3x3_bn_relu_reference`. CPU tensors run the
-    plain version; CUDA tensors launch ``csrc/conv_bn.cu`` (the conv with
-    its partial statistics, their reduction, the normalisation: one entry
-    point) or raise."""
+    plain version; CUDA tensors launch ``csrc/conv_bn.cu`` (the layout of x
+    and of the taps, the conv with its partial statistics, their reduction,
+    the normalisation: one entry point) or raise."""
     if x.device.type == 'cpu':
         return conv3x3_bn_relu_reference(x, kernel, bias, gamma, beta, eps)
     if x.device.type != 'cuda':
@@ -136,17 +129,19 @@ def conv3x3_bn_relu(x, kernel, bias, gamma, beta, eps=1e-3):
             raise ValueError('{}: expected a [{}] tensor on {}, got {} on {}'
                              .format(name, co, dev, tuple(tns.shape),
                                      tns.device))
-    x_cl = x.permute(0, 2, 3, 1).contiguous()                 # [N, W, H, Ci]
-    taps = pack_taps(kernel, dtype)
-    bias, gamma, beta = (t.float().contiguous() for t in (bias, gamma, beta))
+    channels_last = x.permute(0, 2, 3, 1).is_contiguous()
+    if not channels_last:
+        x = x.contiguous()              # [N, C, W, H] rows for the kernel
+    kernel, bias, gamma, beta = (t.float().contiguous()
+                                 for t in (kernel, bias, gamma, beta))
     y = torch.empty(n, w, h, co, dtype=dtype, device=dev)
     if y.numel():
-        n_tiles = -(-(n * w * h) // _row_tile(dtype))
-        part = torch.empty(n_tiles, 2, co, dtype=torch.float32, device=dev)
-        scale_shift = torch.empty(2, co, dtype=torch.float32, device=dev)
+        scratch = torch.empty(
+            _scratch_bytes(dtype, n, w, h, ci, co, channels_last),
+            dtype=torch.uint8, device=dev)
         err = _entry(dtype)(
-            *(t.data_ptr() for t in (x_cl, taps, bias, gamma, beta, y, part,
-                                     scale_shift)),
+            x.data_ptr(), int(channels_last),
+            *(t.data_ptr() for t in (kernel, bias, gamma, beta, y, scratch)),
             n, w, h, ci, co, float(eps),
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:

@@ -1,0 +1,147 @@
+"""Where a step of the bf16 LSTM backward's cluster recurrence goes.
+
+Builds copies of ``csrc/lstm_bwd.cu`` with parts of the recurrence's step
+taken out and times each copy's ``lstm_bwd_cluster_kernel`` on the device,
+at the stacked head's H = 512, batch 64, T = 23 and T = 111:
+
+* ``full``: the kernel as it is;
+* ``local_reads``: each block adds its own partial products (the same loads
+  from its own shared memory) instead of the cluster's;
+* ``no_cluster_barrier``: the step's cluster barrier becomes a block
+  barrier;
+* ``no_product``: the step's tensor-core product is skipped;
+* ``dg_only``: all three taken out, leaving the gate math, dx and the block
+  barrier.
+
+The copies compute wrong gradients on purpose: only their times mean
+anything. Each line is the device time of the recurrence kernel (median
+over ``torch.profiler`` passes of 20 calls) and its time per step::
+
+    python -m lstm_ctc_ocr_torch.tools.ablate_lstm_bwd
+
+Needs the GPU machine (nvcc and a card); the copies are built under the
+ignored ``lstm_ctc_ocr_torch/build/ablate/``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import torch
+
+from ..engine.test import resolve_device
+from ..ops import _build, rnn_cuda
+
+_BARRIER = '    cluster.sync();\n\n    // dh[r, k]'
+_REMOTE = 'cluster.map_shared_rank(p_out, b);'
+_PRODUCT = 'if (warp * 4 < n_tiles) {'
+ABLATIONS = {
+    'full': [],
+    'local_reads': [(_REMOTE, 'p_out;')],
+    'no_cluster_barrier': [(_BARRIER, _BARRIER.replace('cluster.sync()',
+                                                       '__syncthreads()'))],
+    'no_product': [(_PRODUCT, 'if (false) {')],
+}
+ABLATIONS['dg_only'] = (ABLATIONS['local_reads']
+                        + ABLATIONS['no_cluster_barrier']
+                        + ABLATIONS['no_product'])
+
+
+def build_variants():
+    """Compile every variant, one nvcc each, all at once: name -> .so."""
+    with open(os.path.join(_build.SRC_DIR, 'lstm_bwd.cu')) as f:
+        source = f.read()
+    out = os.path.join(_build.BUILD_DIR, 'ablate')
+    os.makedirs(out, exist_ok=True)
+    shutil.copy(os.path.join(_build.SRC_DIR, 'lstm_common.cuh'), out)
+    procs = {}
+    for name, edits in ABLATIONS.items():
+        text = source
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError('ablation {}: {!r} is not in lstm_bwd.cu '
+                                   'exactly once'.format(name, old))
+            text = text.replace(old, new)
+        src = os.path.join(out, name + '.cu')
+        with open(src, 'w') as f:
+            f.write(text)
+        so = os.path.join(out, 'lib{}.so'.format(name))
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc()] + _build.NVCC_FLAGS + ['-o', so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    for name, (_, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError('nvcc failed for {}:\n{}'.format(
+                name, log.decode(errors='replace')))
+    return {name: so for name, (so, _) in procs.items()}
+
+
+def backward_args(t_len, n, h, device, seed=7):
+    """lstm_bwd's inputs at one shape: the forward kernel's residuals from
+    seeded inputs (lengths near T, as an eval bucket's) and a cotangent."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(device,
+                                                            torch.bfloat16)
+    u = rnd(h, 4 * h, scale=h ** -0.5)
+    lens = torch.randint(max(1, t_len - 8), t_len + 1, (n,), generator=g)
+    lens = lens.to(device, torch.int32)
+    _, gates, hs, cs = rnn_cuda.lstm_fwd(rnd(t_len, n, 4 * h), u,
+                                         rnd(4 * h, scale=0.1), lens,
+                                         save_residuals=True)
+    return rnd(t_len, n, h, scale=0.1), gates, hs, cs, u, lens
+
+
+def recurrence_ms(args, passes=3, reps=20):
+    """Median over ``passes`` profiler passes of the cluster kernel's device
+    time per call, or None when the profiler sees no device time."""
+    for _ in range(3):
+        rnn_cuda.lstm_bwd(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    times = []
+    for _ in range(passes):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                rnn_cuda.lstm_bwd(*args)
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and 'lstm_bwd_cluster_kernel' in e.key)
+        if total > 0:
+            times.append(total / 1e3 / reps)
+    return sorted(times)[len(times) // 2] if times else None
+
+
+def main():
+    resolve_device('cuda')
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    variants = build_variants()
+    try:
+        for t_len in (23, 111):
+            args = backward_args(t_len, 64, 512, 'cuda')
+            for name, so in variants.items():
+                _build._loaded['lstm_bwd'] = ctypes.CDLL(so)
+                ms = recurrence_ms(args)
+                print(json.dumps({
+                    'variant': name, 't': t_len, 'n': 64, 'h': 512,
+                    'recurrence_device_ms': ms,
+                    'us_per_step': 1e3 * ms / t_len if ms else None,
+                    'device': card}), flush=True)
+    finally:
+        _build._loaded.pop('lstm_bwd', None)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

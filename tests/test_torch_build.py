@@ -38,3 +38,21 @@ def test_repo_kernels_share_the_common_header():
         assert name in names
         with open('{}/{}.cu'.format(_build.SRC_DIR, name)) as f:
             assert '#include "lstm_common.cuh"' in f.read()
+
+
+def test_ablation_tool_matches_the_kernel_source():
+    """``tools/ablate_lstm_bwd`` edits the recurrence by text: each edit's
+    anchor is in ``csrc/lstm_bwd.cu`` exactly once, and the tool refuses
+    to run without a card."""
+    import pytest
+    import torch
+    from lstm_ctc_ocr_torch.tools import ablate_lstm_bwd
+    with open('{}/lstm_bwd.cu'.format(_build.SRC_DIR)) as f:
+        source = f.read()
+    for name, edits in ablate_lstm_bwd.ABLATIONS.items():
+        for old, _ in edits:
+            assert source.count(old) == 1, (name, old)
+    assert len(ablate_lstm_bwd.ABLATIONS['dg_only']) == 3
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            ablate_lstm_bwd.main()

@@ -112,23 +112,3 @@ def test_bench_tool_runs_on_the_cpu(capsys):
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             bench_conv_bn.main(['--batch', '1'])
 
-
-@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-def test_pack_taps_matches_index_formula(dtype):
-    """The wrapper's one tap packing: ``taps[dw, dh, co, ci]`` for bf16 (the
-    tensor-core product's B operand, depth contiguous), ``taps[dw, dh, ci,
-    co]`` for f32, each ``kernel[co, ci, dw, dh]`` cast to ``dtype``."""
-    rng = np.random.RandomState(4)
-    co, ci = 5, 16
-    kernel = torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32))
-    taps = conv_bn_cuda.pack_taps(kernel, dtype)
-    assert taps.dtype == dtype and taps.is_contiguous()
-    got = taps.float().numpy()
-    want = kernel.to(dtype).float().numpy()
-    for dw in range(3):
-        for dh in range(3):
-            for o in range(co):
-                for i in range(ci):
-                    entry = (got[dw, dh, o, i] if dtype == torch.bfloat16
-                             else got[dw, dh, i, o])
-                    assert entry == want[o, i, dw, dh], (dw, dh, o, i)

@@ -13,7 +13,8 @@ output's largest entry (dU sums T*N products). CTC: 1e-5 on loss, alphas
 and gradient (f32 throughout, same operation order). The unidirectional
 LSTM kernels carry the BiLSTM kernels' bars at H = 512. The fused
 conv3x3+BN+ReLU kernel: 2e-5 absolute and relative in f32, 2e-2 in bf16
-(the bars of tests/test_conv_bn_pallas.py), and two runs bit-identical.
+(the bars of tests/test_conv_bn_pallas.py), and two runs bit-identical, as
+for the LSTM backward at the edges of its bf16 cluster tiling.
 """
 
 import numpy as np
@@ -423,6 +424,27 @@ def test_conv_bn_kernel_matches_reference(cuda_device, dtype, n, w, h, ci, co):
     assert torch.equal(got, again)          # fixed-order sums: bit for bit
     tol = 2e-5 if dt == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_conv_bn_kernel_takes_channels_last_input(cuda_device, dtype):
+    """An ``x`` whose memory is already channels-last skips the kernel's
+    layout launch and gives the same bits as the standard layout."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(3)
+
+    def mk(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.randn(*shape) * scale + shift)
+                                .astype(np.float32)).to(cuda_device)
+    x = mk(4, 48, 10, 3).to(dt)
+    args = (mk(40, 48, 3, 3, scale=0.1), mk(40, scale=0.1),
+            mk(40, scale=0.1, shift=1.0), mk(40, scale=0.1))
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    assert not x_cl.is_contiguous()
+    got = conv_bn_cuda.conv3x3_bn_relu(x_cl, *args)
+    want = conv_bn_cuda.conv3x3_bn_relu(x, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_conv_bn_kernel_rejects_bad_inputs(cuda_device):
