@@ -631,7 +631,7 @@ def conv_bn_phase(bench, conv_bn_cuda, build):
     (``tools/bench_conv_bn.run``) with the launch count read around it."""
     errs, timings = {}, {}
     ptxas = ptxas_report(build, 'conv_bn', ['conv_bn_conv_mma_kernel'])
-    ptxas['conv_bn_conv_mma_kernel']['dynamic_smem'] = \
+    ptxas.setdefault('conv_bn_conv_mma_kernel', {})['dynamic_smem'] = \
         build.library('conv_bn').conv_bn_mma_smem()
     for tag, w, h, ci, co in bench.SHAPES:
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
