@@ -111,4 +111,3 @@ def test_bench_tool_runs_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             bench_conv_bn.main(['--batch', '1'])
-
