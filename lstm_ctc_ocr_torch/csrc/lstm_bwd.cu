@@ -69,7 +69,7 @@
 //     rows, and the first time step (zero state) drops out.
 //  3. lstm_bwd_db_kernel, db = sum over n of db_part.
 //
-// f32 -- PR 3's design, unchanged (its 4 MB of U^T fits no cluster):
+// f32 -- one block per batch row (its 4 MB of U^T fits no cluster):
 //  1. lstm_bwd_rec_kernel, one block per batch row, H threads; thread k owns
 //     hidden unit k; the rounded dg row goes through shared memory and
 //     dh_prev[k] is its dot product with row k of U, read from U^T packed
