@@ -11,16 +11,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2. Kernel phase: each of the seven kernels against its plain PyTorch version
    on the card.
    ``bilstm_fwd`` (vs ``bilstm_fwd_reference``), residuals on and off, f32
-   and bf16 at batch 64 with T=23 (the W=96 bucket) and T=111 (W=448), and
-   a ragged batch of 37 with empty rows; tolerance f32 max |difference| <=
-   1e-4, bf16 <= 4 bf16 ulps of the reference's magnitude (4 * max|ref| /
-   256, as tests/test_rnn_pallas.py defines it). ``bilstm_bwd`` (vs
+   and bf16 at batch 64 with T=23 (the W=96 bucket) and T=111 (W=448),
+   ragged batches of 37 with empty rows at T=23 and 7, and T=1 at batch 3;
+   tolerance f32 max |difference| <= 1e-4, bf16 <= 4 bf16 ulps of the
+   reference's magnitude (4 * max|ref| / 256, as tests/test_rnn_pallas.py
+   defines it), and two bf16 calls bit-identical. ``bilstm_bwd`` (vs
    ``bilstm_bwd_reference``) on the same cases: f32 <= 1e-4 relative to the
    largest entry of each output, bf16 within 4 bf16 ulps of it.
    ``lstm_fwd`` and ``lstm_bwd`` (vs ``lstm_fwd_reference`` /
    ``lstm_bwd_reference``) on the same cases and bars at the stacked head's
-   H=512, and the two-scan BiLSTM pair on them at H=256 against the fused
-   BiLSTM kernels (the A/B of the JAX package's tools/bench_rnn.py).
+   H=512, ``lstm_fwd`` also at the edges of its bf16 cluster (a ragged
+   batch at T=7, T=1 at batch 3 and H=256, H=136 and H=8; two calls
+   bit-identical), and the two-scan BiLSTM pair on them at H=256 against
+   the fused BiLSTM kernels (the A/B of the JAX package's
+   tools/bench_rnn.py).
    ``ctc_fwd`` and ``ctc_bwd`` (vs ``ctc_forward_reference`` /
    ``ctc_backward_reference``) at batch 64 with T=23, L=6 and T=111, L=24,
    and (checked, not timed) with L=64 and L=511, the longest label one block
@@ -37,11 +41,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    a packed sequence (bidirectional or one direction; forward, and backward
    alone), ``torch.nn.functional.ctc_loss`` forward+backward, and the
    unfused cuDNN conv + BN + ReLU layer (plain versions: median of 10).
-   Yardsticks are timed here only; the port never calls them. For the two
-   kernels redesigned for the tensor cores (``conv_bn`` bf16 and
-   ``lstm_bwd`` bf16) the phase also prints each device kernel's registers,
-   shared memory and spills from the build's ptxas report, and the TFLOP/s
-   it reached on the device beside its bound.
+   Yardsticks are timed here only; the port never calls them. For the
+   kernels redesigned for the tensor cores (``conv_bn``, ``lstm_bwd``,
+   ``lstm_fwd`` and ``bilstm_fwd``, each in bf16) the phase also prints each
+   device kernel's registers, shared memory and spills from the build's
+   ptxas report, the TFLOP/s it reached on the device beside its bound, and
+   for the three cluster kernels the cluster's shape and how many such
+   clusters the card holds at once.
 3. Eval phase, the serving path: the evaluation entry point
    (``engine/test.py``, bf16, batch 64) on the tracked releases —
    ``lstm_ctc`` on ``data/val`` under ``BN_EVAL`` batch and moving and
@@ -142,6 +148,21 @@ def median_ms(fn, reps=50, warmup=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(fn, reps=100, warmup=5):
+    """Host time of one call of ``fn``: the host clock over ``reps`` calls
+    that end without waiting for the device (a wrapper's checks,
+    allocations and launch). The device's queue absorbs the calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / reps
 
 
 def device_ms(fn, names, reps=20):
@@ -490,23 +511,28 @@ def lstm_phase(rnn, rnn_cuda, build):
     ub = rnn_cuda.units_per_block(512)
     ptxas = ptxas_report(build, 'lstm_bwd', ['lstm_bwd_cluster_kernel',
                                              'lstm_bwd_du_mma_kernel'])
-    lib = build.library('lstm_bwd')
-    ptxas['cluster'] = {
-        'units_per_block': ub, 'blocks': -(-512 // ub),
-        'dynamic_smem': lib.lstm_bwd_cluster_smem(512, ub),
-        'max_active_clusters': lib.lstm_bwd_max_clusters(512, ub)}
+    ptxas['cluster'] = rnn_cuda.cluster_report('lstm_bwd', 512, ub)
     print('lstm_bwd bf16 cluster at H=512: {}'.format(
         json.dumps(ptxas['cluster'])), flush=True)
+    fwd_ptxas = ptxas_report(build, 'lstm_fwd', ['lstm_fwd_cluster_kernel'])
+    fwd_ptxas['cluster'] = rnn_cuda.cluster_report('lstm_fwd', 512, ub)
+    print('lstm_fwd bf16 cluster at H=512: {}'.format(
+        json.dumps(fwd_ptxas['cluster'])), flush=True)
+    # batch 64 is four row groups: one wave when four clusters fit
+    check(fwd_ptxas['cluster']['max_active_clusters'] > 0,
+          'no lstm_fwd cluster fits the card')
     errs = {}
     for i, (label, t_len, n, dtype, ragged) in enumerate(BILSTM_CASES):
         c = lstm_case(t_len, n, dtype, ragged, seed=40 + i)
         args = (c['xp'], c['u'], c['b'], c['lens'])
         out = rnn_cuda.lstm_fwd(*args)
         got = rnn_cuda.lstm_fwd(*args, save_residuals=True)
+        again = rnn_cuda.lstm_fwd(*args, save_residuals=True)
         want = rnn_cuda.lstm_fwd_reference(*args, save_residuals=True)
         torch.cuda.synchronize()
         e_fwd, ok = max_err(got, want, dtype)
-        ok = ok and torch.equal(out, got[0])
+        ok = ok and torch.equal(out, got[0]) and all(
+            torch.equal(a, b) for a, b in zip(got, again))
         g = torch.Generator().manual_seed(1040 + i)
         dout = (torch.randn(out.shape, generator=g) * 0.1).cuda().to(dtype)
         bwd_args = (dout,) + tuple(got[1:]) + (c['u'], c['lens'])
@@ -520,6 +546,23 @@ def lstm_phase(rnn, rnn_cuda, build):
         check(ok, 'lstm_fwd {}: max|diff| {}'.format(label, e_fwd))
         check(ok_b, 'lstm_bwd {}: {} of the largest entry'.format(label, rel))
         errs[label] = {'lstm_fwd': e_fwd, 'lstm_bwd': e_bwd}
+    # the forward's bf16 cluster at its edges: a short ragged batch, T = 1
+    # with a partial row group, and H = 136 and 8 (U zero-filled past H)
+    for i, (label, t_len, n, ragged, h) in enumerate(LSTM_FWD_EDGES):
+        c = lstm_case(t_len, n, torch.bfloat16, ragged, seed=60 + i, h=h)
+        args = (c['xp'], c['u'], c['b'], c['lens'])
+        got = rnn_cuda.lstm_fwd(*args, save_residuals=True)
+        again = rnn_cuda.lstm_fwd(*args, save_residuals=True)
+        want = rnn_cuda.lstm_fwd_reference(*args, save_residuals=True)
+        torch.cuda.synchronize()
+        e_fwd, ok = max_err(got, want, torch.bfloat16)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print('lstm_fwd check {:28s} max|diff| {:.3e} within tolerance: {}, '
+              'two calls bit-identical: {}'.format(label, e_fwd, ok, same),
+              flush=True)
+        check(ok and same, 'lstm_fwd {}: max|diff| {}, identical {}'.format(
+            label, e_fwd, same))
+        errs[label] = {'lstm_fwd': e_fwd}
 
     timings = {}
     for label, t_len, dtype in (('bf16 N=64 T=23', 23, torch.bfloat16),
@@ -550,7 +593,8 @@ def lstm_phase(rnn, rnn_cuda, build):
                 row['fwd_library_ms'] = median_ms(lambda: lstm(packed))
             row.update({
                 'fwd_device_ms': device_ms(lambda: rnn_cuda.lstm_fwd(*args),
-                                           ['lstm_fwd_kernel']),
+                                           ['lstm_fwd_']),
+                'fwd_host_ms': host_ms(lambda: rnn_cuda.lstm_fwd(*args)),
                 'bwd_device_ms': device_ms(
                     lambda: rnn_cuda.lstm_bwd(*bwd_args), ['lstm_bwd_']),
                 'fwd_plain_ms': median_ms(
@@ -561,6 +605,10 @@ def lstm_phase(rnn, rnn_cuda, build):
                     warmup=2),
                 'bwd_library_ms': median_ms(cudnn_backward_yardstick(c))})
             live = int(c['lens'].sum())
+            row['fwd_device_tflops'] = achieved(
+                'lstm_fwd H=512 ' + label, live * 2 * 512 * 2048,
+                row['fwd_device_ms'], (row['fwd_bound_ms'],
+                                       row['fwd_bound_by']))
             row['bwd_device_tflops'] = achieved(
                 'lstm_bwd H=512 ' + label, 2 * live * 2 * 512 * 2048,
                 row['bwd_device_ms'], (row['bwd_bound_ms'],
@@ -608,6 +656,7 @@ def lstm_phase(rnn, rnn_cuda, build):
               'projection included, H=256 bf16 N=64 T={}: {}'.format(
                   t_len, json.dumps(row)), flush=True)
     timings['ptxas'] = ptxas
+    timings['fwd_ptxas'] = fwd_ptxas
     return errs, timings
 
 
@@ -707,6 +756,12 @@ def conv_bn_phase(bench, conv_bn_cuda, build):
     timings['ptxas'] = ptxas
     return errs, timings, launches
 
+
+# (label, T, N, ragged, H): lstm_fwd's bf16 cluster beyond BILSTM_CASES
+LSTM_FWD_EDGES = [('bf16 ragged N=37 T=7 H=512', 7, 37, True, 512),
+                  ('bf16 N=3 T=1 H=256', 1, 3, False, 256),
+                  ('bf16 ragged N=20 T=6 H=136', 6, 20, True, 136),
+                  ('bf16 N=5 T=11 H=8', 11, 5, True, 8)]
 
 BILSTM_CASES = [('f32 N=64 T=23', 23, 64, torch.float32, False),
                 ('f32 N=64 T=111', 111, 64, torch.float32, False),
@@ -815,26 +870,39 @@ def ctc_phase(ctc, ctc_cuda):
     return errs, timings
 
 
-def bilstm_fwd_phase(rnn_cuda):
-    """Correctness on every case, then timings at the eval shapes."""
+def bilstm_fwd_phase(rnn_cuda, build):
+    """Correctness on every case (bf16 also two calls bit-identical), then
+    timings at the eval shapes and the bf16 cluster's ptxas report."""
     cases = [('f32 N=64 T=23', 23, 64, torch.float32, False),
              ('bf16 N=64 T=23', 23, 64, torch.bfloat16, False),
              ('bf16 N=64 T=111', 111, 64, torch.bfloat16, False),
-             ('bf16 ragged N=37 T=23', 23, 37, torch.bfloat16, True)]
+             ('bf16 ragged N=37 T=23', 23, 37, torch.bfloat16, True),
+             ('bf16 ragged N=37 T=7', 7, 37, torch.bfloat16, True),
+             ('bf16 N=3 T=1', 1, 3, torch.bfloat16, False)]
+    ptxas = ptxas_report(build, 'bilstm_fwd', ['bilstm_fwd_cluster_kernel'])
+    ptxas['cluster'] = rnn_cuda.cluster_report(
+        'bilstm_fwd', 256, rnn_cuda.units_per_block(256))
+    print('bilstm_fwd bf16 cluster at H=256: {}'.format(
+        json.dumps(ptxas['cluster'])), flush=True)
+    # batch 64 is eight clusters (four row groups, two directions)
+    check(ptxas['cluster']['max_active_clusters'] > 0,
+          'no bilstm_fwd cluster fits the card')
     errs = {}
     for i, (label, t_len, n, dtype, ragged) in enumerate(cases):
         c = bilstm_case(t_len, n, dtype, ragged, seed=i)
         for res in (False, True):
             got = rnn_cuda.bilstm_fwd(*kernel_args(c), save_residuals=res)
+            again = rnn_cuda.bilstm_fwd(*kernel_args(c), save_residuals=res)
             want = rnn_cuda.bilstm_fwd_reference(*kernel_args(c),
                                                  save_residuals=res)
             torch.cuda.synchronize()
             err, ok = max_err(got, want, dtype)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
             print('kernel check {:24s} residuals={!s:5s} max|diff| {:.3e} '
-                  'within tolerance: {}'.format(label, res, err, ok),
-                  flush=True)
-            check(ok, '{} residuals={}: max|diff| {} out of tolerance'.format(
-                label, res, err))
+                  'within tolerance: {}, two calls bit-identical: {}'.format(
+                      label, res, err, ok, same), flush=True)
+            check(ok and same, '{} residuals={}: max|diff| {} out of '
+                  'tolerance or calls differ'.format(label, res, err))
             errs[(label, res)] = err
 
     timings = {}
@@ -858,7 +926,8 @@ def bilstm_fwd_phase(rnn_cuda):
             row = {
                 'kernel_ms': median_ms(lambda: rnn_cuda.bilstm_fwd(*args)),
                 'device_ms': device_ms(lambda: rnn_cuda.bilstm_fwd(*args),
-                                       ['bilstm_fwd_kernel']),
+                                       ['bilstm_fwd_']),
+                'host_ms': host_ms(lambda: rnn_cuda.bilstm_fwd(*args)),
                 'kernel_residuals_ms': median_ms(
                     lambda: rnn_cuda.bilstm_fwd(*args, save_residuals=True)),
                 'plain_ms': median_ms(
@@ -868,10 +937,15 @@ def bilstm_fwd_phase(rnn_cuda):
                 'library_ms': median_ms(lambda: lstm(packed)),
             }
         row['bound_ms'], row['bound_by'] = bound_ms(c, torch.bfloat16)
+        row['device_tflops'] = achieved(
+            'bilstm_fwd H=256 ' + label,
+            2 * int(c['lens'].sum()) * 2 * 256 * 1024, row['device_ms'],
+            (row['bound_ms'], row['bound_by']))
         row['cudnn_vs_kernel_max_abs_diff'] = lib_diff
         timings[label] = row
         print('kernel timing {:16s} {}'.format(label, json.dumps(row)),
               flush=True)
+    timings['ptxas'] = ptxas
     return errs, timings
 
 
@@ -1350,7 +1424,7 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print('ptxas {}: {}'.format(name, line.strip()), flush=True)
 
-    errs, timings = bilstm_fwd_phase(rnn_cuda)
+    errs, timings = bilstm_fwd_phase(rnn_cuda, _build)
     bwd_errs, bwd_timings = bilstm_bwd_phase(rnn_cuda)
     lstm_errs, lstm_timings = lstm_phase(rnn, rnn_cuda, _build)
     ctc_errs, ctc_timings = ctc_phase(ctc, ctc_cuda)
@@ -1378,7 +1452,9 @@ def main():
               '{} was not launched on the stacked-LSTM path'.format(name))
 
     fwd, bwd = timings['bf16 N=64 T=23'], bwd_timings['bf16 N=64 T=23']
-    uni = lstm_timings['bf16 N=64 T=23']
+    fwd111 = timings['bf16 N=64 T=111']
+    uni, uni111 = (lstm_timings['bf16 N=64 T=23'],
+                   lstm_timings['bf16 N=64 T=111'])
     ctc_row = ctc_timings['N=64 T=23 L=6']
     conv_row = conv_timings['conv4_1 bf16']
     common = {'route': 'cuda', 'card': card, 'train_steps': 60}
@@ -1405,7 +1481,17 @@ def main():
         'bound_by': fwd['bound_by'],
         'library_ms': fwd['library_ms'],
         'kernel_plus_proj_ms': fwd['kernel_plus_proj_ms'],
+        'library': 'cuDNN nn.LSTM forward, bidirectional, packed, input '
+                   'projection included',
         'shape': 'bf16 T=23 N=64 H=256',
+        'device_tflops': fwd['device_tflops'],
+        'host_ms': fwd['host_ms'],
+        'max_active_clusters':
+            timings['ptxas']['cluster']['max_active_clusters'],
+        'ptxas': timings['ptxas'],
+        't111': {('ms' if k == 'kernel_ms' else k): fwd111[k] for k in (
+            'kernel_ms', 'device_ms', 'plain_ms', 'library_ms', 'bound_ms',
+            'device_tflops')},
     }), dict(common, **{
         'name': 'bilstm_bwd',
         'source': 'lstm_ctc_ocr_torch/csrc/bilstm_bwd.cu',
@@ -1470,6 +1556,14 @@ def main():
         'library': 'cuDNN nn.LSTM forward, one direction, packed, input '
                    'projection included',
         'shape': 'bf16 T=23 N=64 H=512',
+        'device_tflops': uni['fwd_device_tflops'],
+        'host_ms': uni['fwd_host_ms'],
+        'max_active_clusters':
+            lstm_timings['fwd_ptxas']['cluster']['max_active_clusters'],
+        'ptxas': lstm_timings['fwd_ptxas'],
+        't111': {k[4:]: uni111[k] for k in (
+            'fwd_ms', 'fwd_device_ms', 'fwd_plain_ms', 'fwd_library_ms',
+            'fwd_bound_ms', 'fwd_device_tflops')},
     }), dict(common, **{
         'name': 'lstm_bwd',
         'source': 'lstm_ctc_ocr_torch/csrc/lstm_bwd.cu',

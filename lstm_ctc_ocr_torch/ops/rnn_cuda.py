@@ -17,7 +17,10 @@ the kernels, as they stayed outside the TPU kernels (large matmuls).
 ``bilstm_fwd`` / ``bilstm_bwd`` / ``lstm_fwd`` / ``lstm_bwd`` launch the
 kernel for CUDA tensors and run ``*_reference`` for CPU tensors; they never
 fall back from one to the other. Each wrapper's ``launches`` counts its
-launches (one per call).
+launches (one per call). In bf16, ``bilstm_fwd``, ``lstm_fwd`` and
+``lstm_bwd`` run thread-block clusters that hold U in shared memory
+(:func:`units_per_block`, :func:`cluster_report`); a shape for which no
+cluster fits the card raises, nothing degrades to another kernel.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from . import _build
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
-# one thread per hidden unit: kMaxHidden in the kernels
+# kMaxHidden in the kernels (one thread per hidden unit in the f32 ones)
 MAX_HIDDEN = 256           # bilstm_fwd / bilstm_bwd, per direction
 MAX_HIDDEN_LSTM = 512      # lstm_fwd / lstm_bwd
 
@@ -118,14 +121,52 @@ def _pack_u(u, vec):
     return u.reshape(h_dim // vec, vec, four_h).transpose(1, 2).contiguous()
 
 
+def units_per_block(h_dim):
+    """Hidden units each block of a bf16 cluster kernel owns (``bilstm_fwd``,
+    ``lstm_fwd``, ``lstm_bwd``): the mma's N of 8 at least, and few enough
+    blocks, ``ceil(H / units)``, for one cluster of at most 16:
+    ``8 * ceil(H / 128)`` (32 at H = 512, 16 at H = 256, 8 up to H = 128).
+    A block runs 16 rows x ``units`` threads."""
+    return 8 * -(-h_dim // 128)
+
+
+def cluster_report(name, h_dim, units):
+    """The bf16 cluster of kernel ``name`` (``bilstm_fwd``, ``lstm_fwd`` or
+    ``lstm_bwd``) at hidden size ``h_dim``: units a block, blocks a cluster,
+    threads a block, dynamic shared memory a block in bytes (the kernel's
+    own formula) and how many such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; negative: a cudaError)."""
+    lib = _build.library(name)
+    return {'units_per_block': units, 'blocks': -(-h_dim // units),
+            'threads': 16 * units,
+            'dynamic_smem': getattr(lib, name + '_cluster_smem')(h_dim, units),
+            'max_active_clusters': getattr(lib, name + '_max_clusters')(
+                h_dim, units)}
+
+
+def _launch_failed(name, err, h_dim, units=None):
+    """The error of a failed launch of ``name``: its cudaError and, for a
+    bf16 cluster launch (``units`` given), the cluster's shape and how many
+    such clusters the card holds."""
+    msg = '{} kernel launch failed: cudaError {}'.format(name, err)
+    if units:
+        shape = cluster_report(name, h_dim, units)
+        msg += (' (bf16 runs one thread-block cluster of {blocks} blocks of '
+                '{threads} threads per 16 rows, {dynamic_smem} bytes of shared '
+                'memory a block; the card holds {max_active_clusters} such '
+                'clusters at once)'.format(**shape))
+    return RuntimeError(msg)
+
+
 def _entry(dtype):
     lib = _build.library('bilstm_fwd')
-    fn = getattr(lib, 'bilstm_fwd_bf16' if dtype == torch.bfloat16
-                 else 'bilstm_fwd_f32')
+    bf16 = dtype == torch.bfloat16
+    fn = getattr(lib, 'bilstm_fwd_bf16' if bf16 else 'bilstm_fwd_f32')
     if fn.argtypes is None:
         p = ctypes.c_void_p
         fn.argtypes = ([p, p, ctypes.c_longlong] + [p] * 13
-                       + [ctypes.c_int] * 3 + [ctypes.c_float, p])
+                       + [ctypes.c_int] * (4 if bf16 else 3)
+                       + [ctypes.c_float, p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -137,7 +178,9 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
     Same contract as :func:`bilstm_fwd_reference`. ``xpf``/``xpb`` may be
     column slices of one [T, N, 8H] projection (rows need only share a
     stride). CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/bilstm_fwd.cu`` or raise.
+    ``csrc/bilstm_fwd.cu`` or raise: bf16 runs the cluster recurrence (U in
+    shared memory, tensor-core products), f32 one block per row and
+    direction.
     """
     if xpf.device.type == 'cpu':
         return bilstm_fwd_reference(xpf, xpb, uf, ub, bf, bb, lens,
@@ -172,7 +215,12 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
             raise ValueError('xpf/xpb need unit column stride and a shared '
                              'row stride')
     bf, bb, lens = bf.contiguous(), bb.contiguous(), lens.contiguous()
-    upf, upb = _pack_u(uf, vec), _pack_u(ub, vec)
+    if dtype == torch.bfloat16:   # the kernel gathers its slices of U
+        geometry = (units_per_block(h_dim),)
+        upf, upb = uf.contiguous(), ub.contiguous()
+    else:
+        geometry = ()
+        upf, upb = _pack_u(uf, vec), _pack_u(ub, vec)
 
     def new(width):
         return torch.empty(t_len, n, width, dtype=dtype, device=xpf.device)
@@ -186,11 +234,11 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
         err = _entry(dtype)(
             ptr(xpf), ptr(xpb), row_stride, ptr(upf), ptr(upb), ptr(bf),
             ptr(bb), ptr(lens), ptr(of), ptr(ob), ptr(gf), ptr(gb), ptr(hf),
-            ptr(hb), ptr(cf), ptr(cb), t_len, n, h_dim, float(forget_bias),
+            ptr(hb), ptr(cf), ptr(cb), t_len, n, h_dim, *geometry,
+            float(forget_bias),
             torch.cuda.current_stream(xpf.device).cuda_stream)
         if err != 0:
-            raise RuntimeError('bilstm_fwd kernel launch failed: cudaError {}'
-                               .format(err))
+            raise _launch_failed('bilstm_fwd', err, h_dim, *geometry)
         bilstm_fwd.launches += 1
     if save_residuals:
         return of, gf, hf, cf, ob, gb, hb, cb
@@ -398,7 +446,9 @@ def lstm_fwd(x_proj, u, bias, lens, forget_bias=1.0, save_residuals=False):
     """Masked unidirectional LSTM recurrence from the input projection.
 
     Same contract as :func:`lstm_fwd_reference`. CPU tensors run the plain
-    version; CUDA tensors launch ``csrc/lstm_fwd.cu`` or raise."""
+    version; CUDA tensors launch ``csrc/lstm_fwd.cu`` or raise: bf16 runs
+    the cluster recurrence (U in shared memory, tensor-core products), f32
+    one block per row (its U does not fit a cluster)."""
     if x_proj.device.type == 'cpu':
         return lstm_fwd_reference(x_proj, u, bias, lens, forget_bias,
                                   save_residuals)
@@ -409,7 +459,12 @@ def lstm_fwd(x_proj, u, bias, lens, forget_bias=1.0, save_residuals=False):
     dtype, dev = x_proj.dtype, x_proj.device
     x_proj, bias, lens = x_proj.contiguous(), bias.contiguous(), \
         lens.contiguous()
-    up = _pack_u(u, vec)
+    if dtype == torch.bfloat16:    # the kernel gathers its slices of U
+        geometry = (units_per_block(h_dim),)
+        u_arg = u.contiguous()
+    else:
+        geometry = ()
+        u_arg = _pack_u(u, vec)
 
     def new(width):
         return torch.empty(t_len, n, width, dtype=dtype, device=dev)
@@ -420,13 +475,13 @@ def lstm_fwd(x_proj, u, bias, lens, forget_bias=1.0, save_residuals=False):
     if t_len and n:
         ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
         err = _lstm_entry('lstm_fwd', dtype, 8,
-                          [ctypes.c_int] * 3 + [ctypes.c_float])(
-            ptr(x_proj), ptr(up), ptr(bias), ptr(lens), ptr(out), ptr(gates),
-            ptr(hs), ptr(cs), t_len, n, h_dim, float(forget_bias),
-            torch.cuda.current_stream(dev).cuda_stream)
+                          [ctypes.c_int] * (3 + len(geometry))
+                          + [ctypes.c_float])(
+            ptr(x_proj), ptr(u_arg), ptr(bias), ptr(lens), ptr(out),
+            ptr(gates), ptr(hs), ptr(cs), t_len, n, h_dim, *geometry,
+            float(forget_bias), torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError('lstm_fwd kernel launch failed: cudaError {}'
-                               .format(err))
+            raise _launch_failed('lstm_fwd', err, h_dim, *geometry)
         lstm_fwd.launches += 1
     return (out, gates, hs, cs) if save_residuals else out
 
@@ -434,19 +489,13 @@ def lstm_fwd(x_proj, u, bias, lens, forget_bias=1.0, save_residuals=False):
 lstm_fwd.launches = 0
 
 
-def units_per_block(h_dim):
-    """Hidden units each block of ``lstm_bwd``'s bf16 cluster owns: the
-    mma's N of 8 at least, and few enough blocks, ``ceil(H / units)``, for
-    one cluster of at most 16: ``8 * ceil(H / 128)`` (32 at H = 512, 16 at
-    H = 256, 8 up to H = 128)."""
-    return 8 * -(-h_dim // 128)
-
-
 def pack_u_slices(u, ub):
     """[H, 4H] -> [CS, H, 4 * ub] with CS = ceil(H / ub): block ``b`` of the
     bf16 backward's cluster loads ``packed[b]``, whose row ``n`` holds U's
     columns ``q * H + b * ub + j`` of its units (gate ``q``, unit ``j``) as
-    ``packed[b, n, q * ub + j]``, zero where ``b * ub + j >= H``."""
+    ``packed[b, n, q * ub + j]``, zero where ``b * ub + j >= H``. The bf16
+    forward kernels' clusters copy the same image into shared memory
+    straight from U."""
     h_dim = u.shape[0]
     cs = -(-h_dim // ub)
     gates = u.reshape(h_dim, 4, h_dim)
@@ -493,11 +542,7 @@ def lstm_bwd(dout, gates, hs, cs, u, lens):
             t_len, n, h_dim, *geometry,
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError('lstm_bwd kernel launch failed: cudaError {}{}'
-                               .format(err, ' (bf16 runs one thread-block '
-                                       'cluster of {} blocks per 16 rows)'
-                                       .format(u_arg.shape[0])
-                                       if geometry else ''))
+            raise _launch_failed('lstm_bwd', err, h_dim, *geometry)
         lstm_bwd.launches += 1
     else:
         du.zero_()

@@ -20,7 +20,8 @@ over ``torch.profiler`` passes of 20 calls) and its time per step::
     python -m lstm_ctc_ocr_torch.tools.ablate_lstm_bwd
 
 Needs the GPU machine (nvcc and a card); the copies are built under the
-ignored ``lstm_ctc_ocr_torch/build/ablate/``.
+ignored ``lstm_ctc_ocr_torch/build/ablate/``. ``tools/ablate_lstm_fwd.py``
+does the same for the forward kernels' cluster recurrence.
 """
 
 from __future__ import annotations
@@ -52,27 +53,33 @@ ABLATIONS['dg_only'] = (ABLATIONS['local_reads']
                         + ABLATIONS['no_product'])
 
 
-def build_variants():
-    """Compile every variant, one nvcc each, all at once: name -> .so."""
-    with open(os.path.join(_build.SRC_DIR, 'lstm_bwd.cu')) as f:
-        source = f.read()
-    out = os.path.join(_build.BUILD_DIR, 'ablate')
-    os.makedirs(out, exist_ok=True)
-    shutil.copy(os.path.join(_build.SRC_DIR, 'lstm_common.cuh'), out)
+def build_variants(source='lstm_bwd', edited='lstm_bwd.cu',
+                   ablations=None):
+    """Compile ``csrc/<source>.cu`` once per variant, with the variant's
+    edits applied to ``csrc/<edited>`` (the source or a header it
+    includes), one nvcc each, all at once: name -> .so."""
+    ablations = ABLATIONS if ablations is None else ablations
+    with open(os.path.join(_build.SRC_DIR, edited)) as f:
+        original = f.read()
     procs = {}
-    for name, edits in ABLATIONS.items():
-        text = source
+    for name, edits in ablations.items():
+        text = original
         for old, new in edits:
             if text.count(old) != 1:
-                raise RuntimeError('ablation {}: {!r} is not in lstm_bwd.cu '
-                                   'exactly once'.format(name, old))
+                raise RuntimeError('ablation {}: {!r} is not in {} exactly '
+                                   'once'.format(name, old, edited))
             text = text.replace(old, new)
-        src = os.path.join(out, name + '.cu')
-        with open(src, 'w') as f:
+        out = os.path.join(_build.BUILD_DIR, 'ablate', source, name)
+        os.makedirs(out, exist_ok=True)
+        for fname in os.listdir(_build.SRC_DIR):
+            if fname.endswith('.cuh') or fname == source + '.cu':
+                shutil.copy(os.path.join(_build.SRC_DIR, fname), out)
+        with open(os.path.join(out, edited), 'w') as f:
             f.write(text)
-        so = os.path.join(out, 'lib{}.so'.format(name))
+        so = os.path.join(out, 'lib{}.so'.format(source))
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc()] + _build.NVCC_FLAGS + ['-o', so, src],
+            [_build._nvcc()] + _build.NVCC_FLAGS
+            + ['-o', so, os.path.join(out, source + '.cu')],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     for name, (_, proc) in procs.items():
         log, _ = proc.communicate()
@@ -99,11 +106,14 @@ def backward_args(t_len, n, h, device, seed=7):
     return rnd(t_len, n, h, scale=0.1), gates, hs, cs, u, lens
 
 
-def recurrence_ms(args, passes=3, reps=20):
-    """Median over ``passes`` profiler passes of the cluster kernel's device
-    time per call, or None when the profiler sees no device time."""
+def recurrence_ms(args, passes=3, reps=20, fn=None,
+                  kernel='lstm_bwd_cluster_kernel'):
+    """Median over ``passes`` profiler passes of the device time per call of
+    ``fn`` (default ``rnn_cuda.lstm_bwd``) spent in ``kernel``, or None when
+    the profiler sees no device time."""
+    fn = fn or rnn_cuda.lstm_bwd
     for _ in range(3):
-        rnn_cuda.lstm_bwd(*args)
+        fn(*args)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -111,21 +121,26 @@ def recurrence_ms(args, passes=3, reps=20):
     for _ in range(passes):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
-                rnn_cuda.lstm_bwd(*args)
+                fn(*args)
             torch.cuda.synchronize()
         total = sum(e.self_device_time_total for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA
-                    and 'lstm_bwd_cluster_kernel' in e.key)
+                    and kernel in e.key)
         if total > 0:
             times.append(total / 1e3 / reps)
     return sorted(times)[len(times) // 2] if times else None
 
 
-def main():
-    resolve_device('cuda')
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+def card_name():
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def main():
+    resolve_device('cuda')
+    card = card_name()
     variants = build_variants()
     try:
         for t_len in (23, 111):

@@ -34,10 +34,33 @@ def test_repo_kernels_share_the_common_header():
     """Every kernel source that the redesign touches includes the shared
     header, so a change there rebuilds all of them."""
     names = _build.kernel_sources()
-    for name in ('bilstm_bwd', 'conv_bn', 'lstm_bwd', 'lstm_fwd'):
+    for name in ('bilstm_bwd', 'bilstm_fwd', 'conv_bn', 'lstm_bwd',
+                 'lstm_fwd'):
         assert name in names
         with open('{}/{}.cu'.format(_build.SRC_DIR, name)) as f:
             assert '#include "lstm_common.cuh"' in f.read()
+
+
+def test_forward_kernels_share_the_cluster_header(tmp_path, monkeypatch):
+    """Both LSTM forward kernels run the recurrence of
+    ``lstm_fwd_cluster.cuh``, and a change to that header renames both of
+    their libraries."""
+    for name in ('bilstm_fwd', 'lstm_fwd'):
+        with open('{}/{}.cu'.format(_build.SRC_DIR, name)) as f:
+            text = f.read()
+        assert '#include "lstm_fwd_cluster.cuh"' in text
+        assert 'lstm_fwd_cluster::recurrence(' in text
+    src = tmp_path / 'csrc'
+    src.mkdir()
+    for fname in ('bilstm_fwd.cu', 'lstm_fwd.cu', 'lstm_common.cuh',
+                  'lstm_fwd_cluster.cuh'):
+        with open('{}/{}'.format(_build.SRC_DIR, fname)) as f:
+            (src / fname).write_text(f.read())
+    monkeypatch.setattr(_build, 'SRC_DIR', str(src))
+    before = {n: _build._target(n) for n in ('bilstm_fwd', 'lstm_fwd')}
+    with open(src / 'lstm_fwd_cluster.cuh', 'a') as f:
+        f.write('// edited\n')
+    assert all(_build._target(n) != t for n, t in before.items())
 
 
 def test_ablation_tool_matches_the_kernel_source():
@@ -56,3 +79,25 @@ def test_ablation_tool_matches_the_kernel_source():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             ablate_lstm_bwd.main()
+
+
+def test_forward_ablation_tool_matches_the_cluster_header():
+    """``tools/ablate_lstm_fwd`` edits the forward recurrence by text: each
+    edit's anchor is in ``csrc/lstm_fwd_cluster.cuh`` exactly once, the
+    combined ablation applies cleanly, and the tool refuses to run without
+    a card."""
+    import pytest
+    import torch
+    from lstm_ctc_ocr_torch.tools import ablate_lstm_fwd
+    with open('{}/{}'.format(_build.SRC_DIR, ablate_lstm_fwd.HEADER)) as f:
+        source = f.read()
+    for name, edits in ablate_lstm_fwd.ABLATIONS.items():
+        text = source
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert (text == source) == (name == 'full'), name
+    assert len(ablate_lstm_fwd.ABLATIONS['gates_only']) == 5
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            ablate_lstm_fwd.main()

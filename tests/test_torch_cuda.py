@@ -66,6 +66,112 @@ def test_bilstm_kernel_matches_reference(cuda_device, dtype, t, n):
             assert float((g.float() - w).abs().max()) <= _atol(w, dt)
 
 
+def _ragged_lens(t, n, dev):
+    """Lengths that die at different t inside one 16-row group, with a row
+    of length 0 and a full row."""
+    lens = (np.arange(n) * 5) % (t + 1)
+    lens[0], lens[-1] = 0, t
+    return torch.from_numpy(lens.astype(np.int32)).to(dev)
+
+
+def _check_fwd(got, again, want, dt, lens, outputs):
+    """A forward's results within the bar of the plain version, a second
+    call bit-identical, and the ``outputs`` (indices) zero at dead steps."""
+    assert len(got) == len(want) == len(again)
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert g.dtype == dt and g.shape == w.shape, i
+        assert torch.equal(g, a), i
+        w = w.float()
+        assert float((g.float() - w).abs().max()) <= _atol(w, dt), i
+    dead = torch.arange(got[0].shape[0], device=lens.device)[:, None] \
+        >= lens[None, :]
+    for i in outputs:
+        assert not got[i][dead].any(), i
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('t,n,h', [(23, 64, 256), (111, 64, 256),
+                                   (7, 37, 256), (1, 3, 256), (5, 20, 136),
+                                   (3, 4, 8)])
+def test_bilstm_fwd_cluster_edges_and_determinism(cuda_device, dtype, t, n,
+                                                  h):
+    """``bilstm_fwd`` at the edges of the bf16 cluster tiling (f32 runs the
+    one-block-per-row kernel on the same cases): the eval buckets' T = 23
+    and 111 at batch 64, rows dying inside a 16-row group and a row of
+    length 0, T = 1, a partial last row group, H = 136 (the last block owns
+    fewer units) and H = 8 (one block); residuals off and on, each called
+    twice: bit-identical."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(3 * t + n + h)
+
+    def mk(*shape, scale=1.0):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(cuda_device, dt)
+    lens = _ragged_lens(t, n, cuda_device)
+    xp = mk(t, n, 8 * h)           # both projections as slices of one
+    args = (xp[:, :, :4 * h], xp[:, :, 4 * h:], mk(h, 4 * h, scale=h ** -0.5),
+            mk(h, 4 * h, scale=h ** -0.5), mk(4 * h, scale=0.1),
+            mk(4 * h, scale=0.1), lens)
+    for residuals in (False, True):
+        before = rnn_cuda.bilstm_fwd.launches
+        got = rnn_cuda.bilstm_fwd(*args, save_residuals=residuals)
+        again = rnn_cuda.bilstm_fwd(*args, save_residuals=residuals)
+        assert rnn_cuda.bilstm_fwd.launches == before + 2
+        want = rnn_cuda.bilstm_fwd_reference(*args,
+                                             save_residuals=residuals)
+        torch.cuda.synchronize()
+        _check_fwd(got, again, want, dt, lens, (0, 4) if residuals
+                   else (0, 1))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('t,n,h', [(23, 64, 512), (111, 64, 512),
+                                   (7, 37, 512), (1, 3, 256), (6, 20, 136),
+                                   (11, 1, 8)])
+def test_lstm_fwd_cluster_edges_and_determinism(cuda_device, dtype, t, n, h):
+    """``lstm_fwd`` at the edges of the bf16 cluster tiling (f32 runs the
+    one-block-per-row kernel on the same cases): the stacked head's H = 512
+    at T = 23 and 111, rows dying inside a 16-row group and a row of length
+    0, T = 1, N = 1 and 3 (a partial row group), H = 136 (the last block
+    owns fewer units than the others, U's columns zero-filled past H) and
+    H = 8 (a cluster of one block); residuals off and on, each called
+    twice: bit-identical."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(5 * t + n + h)
+
+    def mk(*shape, scale=1.0):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(cuda_device, dt)
+    lens = _ragged_lens(t, n, cuda_device)
+    args = (mk(t, n, 4 * h), mk(h, 4 * h, scale=h ** -0.5),
+            mk(4 * h, scale=0.1), lens)
+    for residuals in (False, True):
+        before = rnn_cuda.lstm_fwd.launches
+        got = rnn_cuda.lstm_fwd(*args, save_residuals=residuals)
+        again = rnn_cuda.lstm_fwd(*args, save_residuals=residuals)
+        assert rnn_cuda.lstm_fwd.launches == before + 2
+        want = rnn_cuda.lstm_fwd_reference(*args, save_residuals=residuals)
+        torch.cuda.synchronize()
+        if not residuals:
+            got, again, want = (got,), (again,), (want,)
+        _check_fwd(got, again, want, dt, lens, (0,))
+
+
+def test_cluster_reports(cuda_device):
+    """Each bf16 cluster kernel reports its shape at the main path's widths,
+    at least one such cluster fits the card, and a failed launch's error
+    names the shape."""
+    for name, h in (('bilstm_fwd', 256), ('lstm_fwd', 512),
+                    ('lstm_bwd', 512)):
+        units = rnn_cuda.units_per_block(h)
+        rep = rnn_cuda.cluster_report(name, h, units)
+        assert rep['blocks'] == 16 and rep['threads'] == 16 * units
+        assert 0 < rep['dynamic_smem'] <= 232448
+        assert rep['max_active_clusters'] > 0, rep
+        err = rnn_cuda._launch_failed(name, 9, h, units)
+        assert 'cudaError 9' in str(err) and '16 blocks' in str(err)
+
+
 def test_bilstm_dispatch_launches_kernel(cuda_device):
     """``ops/rnn.bilstm`` on CUDA tensors goes through the kernel once and
     agrees with the same call on CPU tensors (the plain version) in f32."""
