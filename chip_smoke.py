@@ -16,8 +16,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    tolerance f32 max |difference| <= 1e-4, bf16 <= 4 bf16 ulps of the
    reference's magnitude (4 * max|ref| / 256, as tests/test_rnn_pallas.py
    defines it), and two bf16 calls bit-identical. ``bilstm_bwd`` (vs
-   ``bilstm_bwd_reference``) on the same cases: f32 <= 1e-4 relative to the
-   largest entry of each output, bf16 within 4 bf16 ulps of it.
+   ``bilstm_bwd_reference``) on the same cases, plus a bf16 ragged batch of
+   37 with empty rows at T=7 and T=1 at batch 3: f32 <= 1e-4 relative to
+   the largest entry of each output, bf16 within 4 bf16 ulps of it, two
+   calls bit-identical.
    ``lstm_fwd`` and ``lstm_bwd`` (vs ``lstm_fwd_reference`` /
    ``lstm_bwd_reference``) on the same cases and bars at the stacked head's
    H=512, ``lstm_fwd`` also at the edges of its bf16 cluster (a ragged
@@ -27,27 +29,32 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    tools/bench_rnn.py).
    ``ctc_fwd`` and ``ctc_bwd`` (vs ``ctc_forward_reference`` /
    ``ctc_backward_reference``) at batch 64 with T=23, L=6 and T=111, L=24,
-   and (checked, not timed) with L=64 and L=511, the longest label one block
-   of threads holds, each batch ragged with an empty label, an infeasible
-   example and a one-frame example: f32 <= 1e-5 on logZ, alphas and
-   gradient. ``conv_bn`` (``conv3x3_bn_relu`` vs its plain version and vs the
-   unfused ``ConvSingle`` layer, through ``tools/bench_conv_bn``'s functions)
-   at the conv4_1 and conv4_2 geometry, batch 64: f32 <= 2e-5 absolute and
-   relative, bf16 <= 2e-2, two runs bit-identical. Then CUDA-event timings
-   (median of 50 after warm-up) of each kernel's wrapper call, and the
-   kernel's own device time from ``torch.profiler`` (null, and no failure,
-   where the profiler's device tracing comes back empty), beside its plain
+   and (checked, not timed) with L=15/16 and L=31/32 (both sides of each
+   path boundary of ``ctc_bwd``: one warp per example with one or two
+   states a lane up to S=64, one block per example past it), L=64 and
+   L=511, the longest label one block of threads holds, each batch ragged
+   with an empty label, an infeasible example and a one-frame example: f32
+   <= 1e-5 on logZ, alphas and gradient, two ``ctc_bwd`` calls
+   bit-identical. ``conv_bn`` (``conv3x3_bn_relu`` vs its plain version and
+   vs the unfused ``ConvSingle`` layer, through ``tools/bench_conv_bn``'s
+   functions) at the conv4_1 and conv4_2 geometry, batch 64: f32 <= 2e-5
+   absolute and relative, bf16 <= 2e-2, two runs bit-identical. Then
+   CUDA-event timings (median of 50 after warm-up) of each kernel's
+   wrapper call, and the kernel's own device time from ``torch.profiler``
+   (null, and no failure, where the profiler's device tracing comes back
+   empty), beside its plain
    version, its bound and a library yardstick: cuDNN's ``torch.nn.LSTM`` on
    a packed sequence (bidirectional or one direction; forward, and backward
    alone), ``torch.nn.functional.ctc_loss`` forward+backward, and the
    unfused cuDNN conv + BN + ReLU layer (plain versions: median of 10).
    Yardsticks are timed here only; the port never calls them. For the
-   kernels redesigned for the tensor cores (``conv_bn``, ``lstm_bwd``,
-   ``lstm_fwd`` and ``bilstm_fwd``, each in bf16) the phase also prints each
-   device kernel's registers, shared memory and spills from the build's
-   ptxas report, the TFLOP/s it reached on the device beside its bound, and
-   for the three cluster kernels the cluster's shape and how many such
-   clusters the card holds at once.
+   redesigned kernels (``conv_bn``, ``lstm_bwd``, ``lstm_fwd``,
+   ``bilstm_fwd`` and ``bilstm_bwd``, each in bf16, and ``ctc_bwd``) the
+   phase also prints each device kernel's registers, shared memory and
+   spills from the build's ptxas report and the TFLOP/s it reached on the
+   device beside its bound, for the four cluster kernels the cluster's
+   shape and how many such clusters the card holds at once, and for the
+   kernels of the main path the host time of a wrapper call.
 3. Eval phase, the serving path: the evaluation entry point
    (``engine/test.py``, bf16, batch 64) on the tracked releases —
    ``lstm_ctc`` on ``data/val`` under ``BN_EVAL`` batch and moving and
@@ -771,21 +778,42 @@ BILSTM_CASES = [('f32 N=64 T=23', 23, 64, torch.float32, False),
                 ('f32 ragged N=37 T=23', 23, 37, torch.float32, True)]
 
 
-def bilstm_bwd_phase(rnn_cuda):
-    """``bilstm_bwd`` against ``bilstm_bwd_reference`` on every case, then
-    timings at the main path's shapes."""
+# (label, T, N, ragged): bilstm_bwd's bf16 cluster beyond BILSTM_CASES
+BILSTM_BWD_EDGES = [('bf16 ragged N=37 T=7', 7, 37, True),
+                    ('bf16 N=3 T=1', 1, 3, False)]
+
+
+def bilstm_bwd_phase(rnn_cuda, build):
+    """``bilstm_bwd`` against ``bilstm_bwd_reference`` on every case and at
+    the edges of its bf16 cluster (two calls bit-identical in every case),
+    then timings at the main path's shapes and the bf16 cluster's ptxas
+    report."""
+    ptxas = ptxas_report(build, 'bilstm_bwd', ['bilstm_bwd_cluster_kernel',
+                                               'bilstm_bwd_du_mma_kernel'])
+    ptxas['cluster'] = rnn_cuda.cluster_report(
+        'bilstm_bwd', 256, rnn_cuda.units_per_block(256))
+    print('bilstm_bwd bf16 cluster at H=256: {}'.format(
+        json.dumps(ptxas['cluster'])), flush=True)
+    # batch 64 is eight clusters (four row groups, two directions)
+    check(ptxas['cluster']['max_active_clusters'] > 0,
+          'no bilstm_bwd cluster fits the card')
     errs = {}
-    for i, (label, t_len, n, dtype, ragged) in enumerate(BILSTM_CASES):
+    cases = BILSTM_CASES + [(label, t_len, n, torch.bfloat16, ragged)
+                            for label, t_len, n, ragged in BILSTM_BWD_EDGES]
+    for i, (label, t_len, n, dtype, ragged) in enumerate(cases):
         c = bilstm_case(t_len, n, dtype, ragged, seed=20 + i)
         args = bilstm_bwd_args(c, rnn_cuda, i)
         got = rnn_cuda.bilstm_bwd(*args)
+        again = rnn_cuda.bilstm_bwd(*args)
         want = rnn_cuda.bilstm_bwd_reference(*args)
         torch.cuda.synchronize()
         err, rel, ok = rel_err(got, want, dtype)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
         print('bilstm_bwd check {:24s} max|diff| {:.3e} ({:.2e} of the '
-              'largest entry) within tolerance: {}'.format(label, err, rel,
-                                                           ok), flush=True)
-        check(ok, 'bilstm_bwd {}: {} of the largest entry'.format(label, rel))
+              'largest entry) within tolerance: {}, two calls bit-identical: '
+              '{}'.format(label, err, rel, ok, same), flush=True)
+        check(ok and same, 'bilstm_bwd {}: {} of the largest entry, '
+              'identical {}'.format(label, rel, same))
         errs[label] = err
     timings = {}
     for label, t_len in (('bf16 N=64 T=23', 23), ('bf16 N=64 T=111', 111)):
@@ -795,6 +823,10 @@ def bilstm_bwd_phase(rnn_cuda):
             'kernel_ms': median_ms(lambda: rnn_cuda.bilstm_bwd(*args)),
             'device_ms': device_ms(lambda: rnn_cuda.bilstm_bwd(*args),
                                    ['bilstm_bwd_']),
+            'recurrence_device_ms': device_ms(
+                lambda: rnn_cuda.bilstm_bwd(*args),
+                ['bilstm_bwd_cluster_kernel']),
+            'host_ms': host_ms(lambda: rnn_cuda.bilstm_bwd(*args)),
             'plain_ms': median_ms(
                 lambda: rnn_cuda.bilstm_bwd_reference(*args), reps=10,
                 warmup=2),
@@ -802,24 +834,45 @@ def bilstm_bwd_phase(rnn_cuda):
         }
         row['bound_ms'], row['bound_by'] = bilstm_bwd_bound_ms(
             c, torch.bfloat16)
+        row['device_tflops'] = achieved(
+            'bilstm_bwd H=256 ' + label,
+            2 * int(c['lens'].sum()) * 4 * 256 * 1024, row['device_ms'],
+            (row['bound_ms'], row['bound_by']))
         timings[label] = row
         print('bilstm_bwd timing {:16s} {}'.format(label, json.dumps(row)),
               flush=True)
+    timings['ptxas'] = ptxas
     return errs, timings
 
 
-def ctc_phase(ctc, ctc_cuda):
-    """``ctc_fwd`` / ``ctc_bwd`` against their plain versions, then timings
-    beside ``torch.nn.functional.ctc_loss``."""
+# (label, T, L, timed): the main path (S=13, the warp backward with K=1),
+# longline (S=49, K=2), both sides of each of the backward's path
+# boundaries (S=31/33: K=1/2; S=63/65: K=2/the block kernel), and the block
+# kernel's widths up to its 1023 states
+CTC_CASES = [('N=64 T=23 L=6', 23, 6, True),
+             ('N=64 T=111 L=24', 111, 24, True),
+             ('N=64 T=50 L=15', 50, 15, False),
+             ('N=64 T=50 L=16', 50, 16, False),
+             ('N=64 T=100 L=31', 100, 31, False),
+             ('N=64 T=100 L=32', 100, 32, False),
+             ('N=64 T=160 L=64', 160, 64, False),
+             ('N=64 T=560 L=511', 560, 511, False)]
+
+
+def ctc_phase(ctc, ctc_cuda, build):
+    """``ctc_fwd`` / ``ctc_bwd`` against their plain versions on every case
+    (``ctc_bwd`` also two calls bit-identical), then timings beside
+    ``torch.nn.functional.ctc_loss``."""
     errs, timings = {}, {}
-    for label, t_len, l_max, timed in (('N=64 T=23 L=6', 23, 6, True),
-                                       ('N=64 T=111 L=24', 111, 24, True),
-                                       ('N=64 T=160 L=64', 160, 64, False),
-                                       ('N=64 T=560 L=511', 560, 511, False)):
+    timings['ptxas'] = ptxas_report(build, 'ctc', [
+        'ctc_bwd_warp_kernelILi1', 'ctc_bwd_warp_kernelILi2',
+        'ctc_bwd_kernel', 'ctc_fwd_kernel'])
+    for label, t_len, l_max, timed in CTC_CASES:
         case = ctc_case(ctc, t_len, l_max, seed=t_len)
         g, masks, lens = case['g'], case['masks'], case['logit_lens']
         logz, alphas = ctc_cuda.ctc_forward(g, *masks)
         grad = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
+        again = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
         logz_r, alphas_r = ctc.ctc_forward_reference(g, *masks)
         grad_r = ctc.ctc_backward_reference(g, *masks, alphas_r, logz_r, lens)
         torch.cuda.synchronize()
@@ -832,11 +885,14 @@ def ctc_phase(ctc, ctc_cuda):
         e_g, ok_g = close(grad, grad_r)
         special = (float(logz[2]) <= ctc.NEG_INF / 2 and not bool(grad[2].any())
                    and bool(torch.isfinite(logz[1])))
-        print('ctc check {:16s} max|diff| logz {:.2e} alphas {:.2e} grad '
-              '{:.2e}; infeasible row: zero gradient, empty label finite: {}'
-              .format(label, e_z, e_a, e_g, special), flush=True)
-        check(ok_z and ok_a and ok_g and special,
-              'ctc {}: out of tolerance'.format(label))
+        same = torch.equal(grad, again)
+        print('ctc check {:16s} S={:4d} max|diff| logz {:.2e} alphas {:.2e} '
+              'grad {:.2e}; infeasible row: zero gradient, empty label '
+              'finite: {}; two ctc_bwd calls bit-identical: {}'.format(
+                  label, g.shape[2], e_z, e_a, e_g, special, same),
+              flush=True)
+        check(ok_z and ok_a and ok_g and special and same,
+              'ctc {}: out of tolerance or calls differ'.format(label))
         errs[label] = {'ctc_fwd': max(e_z, e_a), 'ctc_bwd': e_g}
         if not timed:
             continue
@@ -850,7 +906,9 @@ def ctc_phase(ctc, ctc_cuda):
             'bwd_ms': median_ms(lambda: ctc_cuda.ctc_backward(
                 g, *masks, alphas, logz, lens)),
             'bwd_device_ms': device_ms(lambda: ctc_cuda.ctc_backward(
-                g, *masks, alphas, logz, lens), ['ctc_bwd_kernel']),
+                g, *masks, alphas, logz, lens), ['ctc_bwd_']),
+            'bwd_host_ms': host_ms(lambda: ctc_cuda.ctc_backward(
+                g, *masks, alphas, logz, lens)),
             'fwd_plain_ms': median_ms(
                 lambda: ctc.ctc_forward_reference(g, *masks), reps=10,
                 warmup=2),
@@ -864,6 +922,9 @@ def ctc_phase(ctc, ctc_cuda):
         }
         row['fwd_bound_ms'], row['fwd_bound_by'] = ctc_bound_ms(case, False)
         row['bwd_bound_ms'], row['bwd_bound_by'] = ctc_bound_ms(case, True)
+        row['bwd_device_tflops'] = achieved(
+            'ctc_bwd ' + label, 14 * g.numel(), row['bwd_device_ms'],
+            (row['bwd_bound_ms'], row['bwd_bound_by']))
         timings[label] = row
         print('ctc timing {:16s} {}'.format(label, json.dumps(row)),
               flush=True)
@@ -1425,9 +1486,9 @@ def main():
                 print('ptxas {}: {}'.format(name, line.strip()), flush=True)
 
     errs, timings = bilstm_fwd_phase(rnn_cuda, _build)
-    bwd_errs, bwd_timings = bilstm_bwd_phase(rnn_cuda)
+    bwd_errs, bwd_timings = bilstm_bwd_phase(rnn_cuda, _build)
     lstm_errs, lstm_timings = lstm_phase(rnn, rnn_cuda, _build)
-    ctc_errs, ctc_timings = ctc_phase(ctc, ctc_cuda)
+    ctc_errs, ctc_timings = ctc_phase(ctc, ctc_cuda, _build)
     conv_errs, conv_timings, conv_launches = conv_bn_phase(
         bench_conv_bn, conv_bn_cuda, _build)
 
@@ -1452,10 +1513,11 @@ def main():
               '{} was not launched on the stacked-LSTM path'.format(name))
 
     fwd, bwd = timings['bf16 N=64 T=23'], bwd_timings['bf16 N=64 T=23']
-    fwd111 = timings['bf16 N=64 T=111']
+    fwd111, bwd111 = timings['bf16 N=64 T=111'], bwd_timings['bf16 N=64 T=111']
     uni, uni111 = (lstm_timings['bf16 N=64 T=23'],
                    lstm_timings['bf16 N=64 T=111'])
-    ctc_row = ctc_timings['N=64 T=23 L=6']
+    ctc_row, ctc111 = (ctc_timings['N=64 T=23 L=6'],
+                       ctc_timings['N=64 T=111 L=24'])
     conv_row = conv_timings['conv4_1 bf16']
     common = {'route': 'cuda', 'card': card, 'train_steps': 60}
 
@@ -1508,6 +1570,15 @@ def main():
         'library_ms': bwd['library_ms'],
         'library': 'cuDNN nn.LSTM backward, input projection included',
         'shape': 'bf16 T=23 N=64 H=256',
+        'recurrence_device_ms': bwd['recurrence_device_ms'],
+        'device_tflops': bwd['device_tflops'],
+        'host_ms': bwd['host_ms'],
+        'max_active_clusters':
+            bwd_timings['ptxas']['cluster']['max_active_clusters'],
+        'ptxas': bwd_timings['ptxas'],
+        't111': {('ms' if k == 'kernel_ms' else k): bwd111[k] for k in (
+            'kernel_ms', 'device_ms', 'recurrence_device_ms', 'plain_ms',
+            'library_ms', 'bound_ms', 'device_tflops')},
     }), dict(common, **ctc_launches('ctc_fwd'), **{
         'name': 'ctc_fwd',
         'source': 'lstm_ctc_ocr_torch/csrc/ctc.cu',
@@ -1538,6 +1609,12 @@ def main():
         'library': 'torch.nn.functional.ctc_loss forward+backward, which '
                    'covers ctc_fwd and ctc_bwd together',
         'shape': 'f32 T=23 N=64 S=13',
+        'device_tflops': ctc_row['bwd_device_tflops'],
+        'host_ms': ctc_row['bwd_host_ms'],
+        'ptxas': ctc_timings['ptxas'],
+        't111': dict({k[4:]: ctc111[k] for k in (
+            'bwd_ms', 'bwd_device_ms', 'bwd_plain_ms', 'bwd_bound_ms',
+            'bwd_device_tflops')}, library_ms=ctc111['library_fwd_bwd_ms']),
     }), dict(common, **{
         'name': 'lstm_fwd',
         'source': 'lstm_ctc_ocr_torch/csrc/lstm_fwd.cu',

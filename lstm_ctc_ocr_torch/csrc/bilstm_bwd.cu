@@ -19,73 +19,137 @@
 // A dead step has dg = 0 and passes dh, dc through unchanged.
 //
 // What bounds it on an H100: like the forward, a serial chain of T steps,
-// each a [rows, 4H] x [4H, H] product against a U^T (512 KB in bf16) that
-// does not fit a block's shared memory and is re-read from L2 every step,
-// with FP32 FMAs on CUDA cores; then one [H, T*N] x [T*N, 4H] product per
-// direction for dU.
+// each a [rows, 4H] x [4H, H] product per direction against a U (512 KB in
+// bf16 at H = 256) larger than a block's 227 KB of shared memory; then one
+// [H, T*N] x [T*N, 4H] product per direction for dU. The card's bound is
+// far below the chain (0.006 ms at T = 23, N = 64): what costs time is how
+// often U crosses from L2 and how long one step's dependent chain is.
 //
-// Design: the TPU kernel accumulated dU and db in VMEM scratch across a
-// sequential grid. GPU blocks run in parallel and in no order, so the work
-// is three kernels launched by the one entry point, all deterministic (no
-// atomics):
-//  1. bilstm_bwd_rec_kernel, the recurrence. One block per (batch row,
-//     direction), H threads; thread k owns hidden unit k: the gate
-//     derivatives, dc and dh of that unit are thread-local. The rounded dg
-//     row (4H values) goes through shared memory, and dh_prev[k] is its dot
-//     product with row k of U. The wrapper hands U^T packed as
-//     [4H/VEC][H][VEC] (VEC = 16 bytes of the element type), so a thread's
-//     16-byte load brings VEC consecutive entries of its row and a warp's
-//     loads cover 512 contiguous bytes; four accumulators break the FMA
-//     chain. A dead step (uniform over the block) writes zeros and skips the
-//     product. Each block sums its row's dg over time in registers and
-//     writes it to db_part[dir][n][4H].
-//  2. bilstm_bwd_du_kernel, dU = sum over rows r = (t, n) of
-//     h_prev[r]^T dx[r]: a shared-memory tiled product (du_tile in
-//     lstm_common.cuh, shared with lstm_bwd.cu), 64x64 output tile per
-//     block, 4x4 per thread, 16 rows per tile step, f32 accumulators.
-//     h_prev is the saved h shifted by one time step, so it is the same
-//     buffer at an offset of N rows and the first (last) time step drops out.
-//  3. bilstm_bwd_db_kernel, db = sum over n of db_part.
+// The TPU kernel accumulated dU and db in VMEM scratch across a sequential
+// grid. GPU blocks run in parallel and in no order, so the work is three
+// kernels launched by the one entry point, all deterministic (fixed
+// summation order, no atomics). Dispatch by type is explicit:
+//
+// bf16 (the training type) -- U on chip, rows in one tensor-core product:
+//  1. bilstm_bwd_cluster_kernel, the cluster recurrence of
+//     lstm_bwd_cluster.cuh that kernel 6 (lstm_bwd.cu) runs too, for both
+//     directions along the grid's z: one non-portable thread-block cluster
+//     of CS = 16 blocks of UB = 16 units (256 threads) per 16 batch rows
+//     and direction, each block's 4 UB columns of its direction's U (32 KB)
+//     in shared memory for the whole sequence, copied by the kernel
+//     straight from U, each step's partial product dg U_b^T on tensor cores
+//     (mma.sync), the partials summed by their owners through distributed
+//     shared memory after one cluster barrier. The backward direction walks
+//     t ascending with its carry from row t+1. A block takes 72,960 bytes
+//     of shared memory, so three share an SM and batch 64 -- 4 row groups x
+//     2 directions = 8 clusters, 128 blocks -- runs in one wave. The launch
+//     checks cudaOccupancyMaxActiveClusters and fails where no cluster of
+//     the shape fits (the wrapper raises); it never degrades to another
+//     kernel. It replaced, for bf16, the one-block-per-row recurrence below,
+//     which re-read U^T from L2 in each of 128 blocks every step and ran
+//     the product as FP32 FMAs.
+//  2. bilstm_bwd_du_mma_kernel, dU of one direction per blockIdx.z on
+//     tensor cores (lstm_common::du_mma_tile, 64x64 output tiles, rows
+//     ascending). h_prev is the saved h shifted by one time step, so it is
+//     the same buffer against dx at an offset of N rows, and the first
+//     (fw) or last (bw) time step, whose carry is zero, drops out.
+//  3. bilstm_bwd_db_kernel, db = sum over n of db_part, per direction.
+//
+// f32 -- one block per (batch row, direction) (its 1 MB of U^T a direction
+// fits no cluster):
+//  1. bilstm_bwd_rec_kernel, H threads; thread k owns hidden unit k: the
+//     gate derivatives, dc and dh of that unit are thread-local. The
+//     rounded dg row (4H values) goes through shared memory, and
+//     dh_prev[k] is its dot product with row k of U. The wrapper hands U^T
+//     packed as [4H/4][H][4], so a thread's 16-byte load brings four
+//     consecutive entries of its row and a warp's loads cover 512
+//     contiguous bytes; four accumulators break the FMA chain. A dead step
+//     (uniform over the block) writes zeros and skips the product. Each
+//     block sums its row's dg over time in registers and writes it to
+//     db_part[dir][n][4H].
+//  2. bilstm_bwd_du_kernel, the FP32 tiled product lstm_common::du_tile.
+//  3. bilstm_bwd_db_kernel as above.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
 // (lstm_ctc_ocr_torch/ops/rnn_cuda.py). The entry points launch on the given
-// stream, do not synchronise, and return cudaGetLastError().
+// stream, do not synchronise, and return a cudaError_t.
 
+#include "lstm_bwd_cluster.cuh"
 #include "lstm_common.cuh"
 
 namespace {
 
-using lstm_common::from_f32;
 using lstm_common::kTile;
-using lstm_common::to_f32;
 
-constexpr int kMaxHidden = 256;   // H: threads per recurrence block
+constexpr int kMaxHidden = 256;   // H: threads per f32 recurrence block
 
-template <typename T>
+// --- bf16: the cluster recurrence (lstm_bwd_cluster.cuh) -------------------
+
+// Direction blockIdx.z: 0 forward (t descending), 1 backward (ascending).
+__global__ void __launch_bounds__(lstm_bwd_cluster::kMaxThreads)
+bilstm_bwd_cluster_kernel(
+    const __nv_bfloat16* __restrict__ dof,
+    const __nv_bfloat16* __restrict__ dob,
+    const __nv_bfloat16* __restrict__ gf, const __nv_bfloat16* __restrict__ gb,
+    const __nv_bfloat16* __restrict__ cf, const __nv_bfloat16* __restrict__ cb,
+    const __nv_bfloat16* __restrict__ uf, const __nv_bfloat16* __restrict__ ub,
+    const int* __restrict__ lens, __nv_bfloat16* __restrict__ dxf,
+    __nv_bfloat16* __restrict__ dxb, float* __restrict__ db_part, int t_len,
+    int n_rows, int hid, int units) {
+  const bool bw = blockIdx.z == 1;
+  lstm_bwd_cluster::recurrence(
+      bw ? dob : dof, bw ? gb : gf, bw ? cb : cf, bw ? ub : uf, lens,
+      bw ? dxb : dxf, db_part + (bw ? (long long)n_rows * 4 * hid : 0),
+      t_len, n_rows, hid, units, bw);
+}
+
+// dU of one direction per blockIdx.z: du = h_prev^T dx over the rows (t, n).
+__global__ void __launch_bounds__(lstm_common::kDuThreads)
+bilstm_bwd_du_mma_kernel(const __nv_bfloat16* __restrict__ hf,
+                         const __nv_bfloat16* __restrict__ hb,
+                         const __nv_bfloat16* __restrict__ dxf,
+                         const __nv_bfloat16* __restrict__ dxb,
+                         float* __restrict__ duf, float* __restrict__ dub,
+                         int t_len, int n_rows, int hid) {
+  const int dir = blockIdx.z;
+  const int four_h = 4 * hid;
+  // fw: h_prev[t] = h[t-1], rows t >= 1; bw: h_prev[t] = h[t+1], rows t < T-1
+  lstm_common::du_mma_tile(
+      dir ? hb + (long long)n_rows * hid : hf,
+      dir ? dxb : dxf + (long long)n_rows * four_h, dir ? dub : duf,
+      (long long)(t_len - 1) * n_rows, hid, four_h, blockIdx.y * kTile,
+      blockIdx.x * kTile);
+}
+
+// --- f32: one block per batch row and direction ----------------------------
+
 __global__ void __launch_bounds__(kMaxHidden)
-bilstm_bwd_rec_kernel(const T* __restrict__ dof, const T* __restrict__ dob,
-                      const T* __restrict__ gf, const T* __restrict__ gb,
-                      const T* __restrict__ cf, const T* __restrict__ cb,
-                      const T* __restrict__ utf, const T* __restrict__ utb,
-                      const int* __restrict__ lens,
-                      T* __restrict__ dxf, T* __restrict__ dxb,
-                      float* __restrict__ db_part,
+bilstm_bwd_rec_kernel(const float* __restrict__ dof,
+                      const float* __restrict__ dob,
+                      const float* __restrict__ gf,
+                      const float* __restrict__ gb,
+                      const float* __restrict__ cf,
+                      const float* __restrict__ cb,
+                      const float* __restrict__ utf,
+                      const float* __restrict__ utb,
+                      const int* __restrict__ lens, float* __restrict__ dxf,
+                      float* __restrict__ dxb, float* __restrict__ db_part,
                       int t_len, int n_rows, int hid) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 4;                         // 16 bytes of f32
   const int dir = blockIdx.y;                    // 0: forward, 1: backward
-  const T* __restrict__ dout = dir ? dob : dof;
-  const T* __restrict__ gates = dir ? gb : gf;
-  const T* __restrict__ c_res = dir ? cb : cf;
-  const T* __restrict__ ut = dir ? utb : utf;
-  T* __restrict__ dx = dir ? dxb : dxf;
+  const float* __restrict__ dout = dir ? dob : dof;
+  const float* __restrict__ gates = dir ? gb : gf;
+  const float* __restrict__ c_res = dir ? cb : cf;
+  const float* __restrict__ ut = dir ? utb : utf;
+  float* __restrict__ dx = dir ? dxb : dxf;
 
   const int k = threadIdx.x;                     // hidden unit
   const int n = blockIdx.x;                      // batch row
   const int four_h = 4 * hid;
   const int len = lens[n];
 
-  extern __shared__ float dg_row[];              // [4H], rounded dg
+  extern __shared__ float dg_row[];              // [4H]
 
   float dh = 0.0f, dc = 0.0f;
   float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -93,25 +157,24 @@ bilstm_bwd_rec_kernel(const T* __restrict__ dof, const T* __restrict__ dob,
   for (int s = 0; s < t_len; ++s) {
     const int t = dir ? s : t_len - 1 - s;       // reverse scan order
     const long long row = (long long)t * n_rows + n;
-    T* dx_row = dx + row * four_h;
+    float* dx_row = dx + row * four_h;
     if (len <= t) {                              // dead step, block-uniform
-      const T zero = from_f32<T>(0.0f);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) dx_row[q * hid + k] = zero;
+      for (int q = 0; q < 4; ++q) dx_row[q * hid + k] = 0.0f;
       continue;
     }
-    const T* g_row = gates + row * four_h;
-    const float gi = to_f32(g_row[k]);
-    const float gj = to_f32(g_row[hid + k]);
-    const float gfo = to_f32(g_row[2 * hid + k]);
-    const float go = to_f32(g_row[3 * hid + k]);
+    const float* g_row = gates + row * four_h;
+    const float gi = g_row[k];
+    const float gj = g_row[hid + k];
+    const float gfo = g_row[2 * hid + k];
+    const float go = g_row[3 * hid + k];
     const int tp = dir ? t + 1 : t - 1;          // the step's incoming carry
     const bool has_prev = dir ? (t < t_len - 1) : (t > 0);
     const float c_prev =
-        has_prev ? to_f32(c_res[((long long)tp * n_rows + n) * hid + k]) : 0.0f;
+        has_prev ? c_res[((long long)tp * n_rows + n) * hid + k] : 0.0f;
 
     const float tanh_c = tanhf(gfo * c_prev + gi * gj);
-    const float g_hnew = dh + to_f32(dout[row * hid + k]);
+    const float g_hnew = dh + dout[row * hid + k];
     const float do_ = g_hnew * tanh_c;
     const float dc_tot = dc + g_hnew * go * (1.0f - tanh_c * tanh_c);
     float dg[4];
@@ -122,9 +185,8 @@ bilstm_bwd_rec_kernel(const T* __restrict__ dof, const T* __restrict__ dob,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       db_acc[q] += dg[q];
-      const T r = from_f32<T>(dg[q]);
-      dx_row[q * hid + k] = r;
-      dg_row[q * hid + k] = to_f32(r);
+      dx_row[q * hid + k] = dg[q];
+      dg_row[q * hid + k] = dg[q];
     }
     dc = dc_tot * gfo;
     __syncthreads();
@@ -133,12 +195,13 @@ bilstm_bwd_rec_kernel(const T* __restrict__ dof, const T* __restrict__ dob,
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 4
     for (int mb = 0; mb < four_h / VEC; ++mb) {
-      alignas(16) T uv[VEC];
-      *reinterpret_cast<uint4*>(uv) = __ldg(reinterpret_cast<const uint4*>(
+      const float4 uv = __ldg(reinterpret_cast<const float4*>(
           ut + ((long long)mb * hid + k) * VEC));
-#pragma unroll
-      for (int v = 0; v < VEC; ++v)
-        acc[v & 3] = fmaf(dg_row[mb * VEC + v], to_f32(uv[v]), acc[v & 3]);
+      const float* dgv = dg_row + mb * VEC;
+      acc[0] = fmaf(dgv[0], uv.x, acc[0]);
+      acc[1] = fmaf(dgv[1], uv.y, acc[1]);
+      acc[2] = fmaf(dgv[2], uv.z, acc[2]);
+      acc[3] = fmaf(dgv[3], uv.w, acc[3]);
     }
     dh = (acc[0] + acc[1]) + (acc[2] + acc[3]);
     __syncthreads();                             // dg_row is free again
@@ -150,16 +213,17 @@ bilstm_bwd_rec_kernel(const T* __restrict__ dof, const T* __restrict__ dob,
 }
 
 // dU of one direction per blockIdx.z: du = h_prev^T dx over the rows (t, n).
-template <typename T>
 __global__ void __launch_bounds__(256)
-bilstm_bwd_du_kernel(const T* __restrict__ hf, const T* __restrict__ hb,
-                     const T* __restrict__ dxf, const T* __restrict__ dxb,
-                     float* __restrict__ duf, float* __restrict__ dub,
-                     int t_len, int n_rows, int hid) {
+bilstm_bwd_du_kernel(const float* __restrict__ hf,
+                     const float* __restrict__ hb,
+                     const float* __restrict__ dxf,
+                     const float* __restrict__ dxb, float* __restrict__ duf,
+                     float* __restrict__ dub, int t_len, int n_rows,
+                     int hid) {
   const int dir = blockIdx.z;
   const int four_h = 4 * hid;
   // fw: h_prev[t] = h[t-1], rows t >= 1; bw: h_prev[t] = h[t+1], rows t < T-1
-  lstm_common::du_tile<T>(
+  lstm_common::du_tile<float>(
       dir ? hb + (long long)n_rows * hid : hf,
       dir ? dxb : dxf + (long long)n_rows * four_h, dir ? dub : duf,
       (long long)(t_len - 1) * n_rows, hid, four_h, blockIdx.y * kTile,
@@ -175,38 +239,15 @@ bilstm_bwd_db_kernel(const float* __restrict__ db_part,
                       dir ? dbb : dbf, n_rows, four_h);
 }
 
-template <typename T>
-int launch(const void* dof, const void* dob, const void* gf, const void* gb,
-           const void* hf, const void* hb, const void* cf, const void* cb,
-           const void* utf, const void* utb, const void* lens, void* dxf,
-           void* dxb, void* duf, void* dub, void* dbf, void* dbb,
-           void* db_part, int t_len, int n_rows, int hid, void* stream_ptr) {
-  constexpr int VEC = 16 / sizeof(T);
-  if (t_len <= 0 || n_rows <= 0 || hid <= 0 || hid > kMaxHidden ||
-      hid % VEC != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// The dU grid (64x64 tiles, both directions) and the db launch, shared by
+// the two types.
+dim3 du_grid(int hid) {
+  return dim3((4 * hid + kTile - 1) / kTile, (hid + kTile - 1) / kTile, 2);
+}
+
+int launch_db(const void* db_part, void* dbf, void* dbb, int n_rows, int hid,
+              cudaStream_t stream) {
   const int four_h = 4 * hid;
-  bilstm_bwd_rec_kernel<T>
-      <<<dim3(n_rows, 2), hid, sizeof(float) * four_h, stream>>>(
-          static_cast<const T*>(dof), static_cast<const T*>(dob),
-          static_cast<const T*>(gf), static_cast<const T*>(gb),
-          static_cast<const T*>(cf), static_cast<const T*>(cb),
-          static_cast<const T*>(utf), static_cast<const T*>(utb),
-          static_cast<const int*>(lens), static_cast<T*>(dxf),
-          static_cast<T*>(dxb), static_cast<float*>(db_part), t_len, n_rows,
-          hid);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bilstm_bwd_du_kernel<T>
-      <<<dim3((four_h + kTile - 1) / kTile, (hid + kTile - 1) / kTile, 2), 256,
-         0, stream>>>(
-          static_cast<const T*>(hf), static_cast<const T*>(hb),
-          static_cast<const T*>(dxf), static_cast<const T*>(dxb),
-          static_cast<float*>(duf), static_cast<float*>(dub), t_len, n_rows,
-          hid);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   bilstm_bwd_db_kernel<<<dim3((four_h + 255) / 256, 2), 256, 0, stream>>>(
       static_cast<const float*>(db_part), static_cast<float*>(dbf),
       static_cast<float*>(dbb), n_rows, four_h);
@@ -215,31 +256,90 @@ int launch(const void* dof, const void* dob, const void* gf, const void* gb,
 
 }  // namespace
 
+// Dynamic shared memory of one bf16 cluster block at (H, units), in bytes
+// (for reports).
+extern "C" int bilstm_bwd_cluster_smem(int hid, int units) {
+  return (int)lstm_bwd_cluster::smem_bytes(hid, units);
+}
+
+// How many clusters of the bf16 recurrence at (H, units) the card holds at
+// once (cudaOccupancyMaxActiveClusters; for reports), or -cudaError_t.
+extern "C" int bilstm_bwd_max_clusters(int hid, int units) {
+  if (!lstm_bwd_cluster::shape_ok(hid, units))
+    return -(int)cudaErrorInvalidValue;
+  return lstm_bwd_cluster::max_active_clusters(bilstm_bwd_cluster_kernel,
+                                               hid, units);
+}
+
 // dof/dob, hf/hb, cf/cb: [T, N, H]; gf/gb, dxf/dxb (outputs): [T, N, 4H];
-// utf/utb: U^T packed as [4H/VEC][H][VEC]; lens: [N] int32; duf/dub
-// (outputs): [H, 4H] f32; dbf/dbb (outputs): [4H] f32; db_part: scratch
-// [2, N, 4H] f32. Returns a cudaError_t.
+// uf/ub: U [H, 4H] as it is; lens: [N] int32; duf/dub (outputs): [H, 4H]
+// f32; dbf/dbb (outputs): [4H] f32; db_part: scratch [2, N, 4H] f32; units:
+// hidden units a cluster block owns (a multiple of 8, ceil(H / units) <=
+// 16). H a multiple of 8, <= 256. Returns a cudaError_t
+// (cudaErrorInvalidConfiguration when no cluster of ceil(H / units) blocks
+// fits on the card).
 extern "C" int bilstm_bwd_bf16(const void* dof, const void* dob,
                                const void* gf, const void* gb, const void* hf,
                                const void* hb, const void* cf, const void* cb,
-                               const void* utf, const void* utb,
+                               const void* uf, const void* ub,
                                const void* lens, void* dxf, void* dxb,
                                void* duf, void* dub, void* dbf, void* dbb,
                                void* db_part, int t_len, int n_rows, int hid,
-                               void* stream) {
-  return launch<__nv_bfloat16>(dof, dob, gf, gb, hf, hb, cf, cb, utf, utb,
-                               lens, dxf, dxb, duf, dub, dbf, dbb, db_part,
-                               t_len, n_rows, hid, stream);
+                               int units, void* stream_ptr) {
+  using bf16 = __nv_bfloat16;
+  if (t_len <= 0 || n_rows <= 0 || hid > kMaxHidden)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  static int checked[2] = {-1, -1};
+  int err = lstm_bwd_cluster::launch(
+      bilstm_bwd_cluster_kernel, checked, hid, units, n_rows, 2, stream,
+      static_cast<const bf16*>(dof), static_cast<const bf16*>(dob),
+      static_cast<const bf16*>(gf), static_cast<const bf16*>(gb),
+      static_cast<const bf16*>(cf), static_cast<const bf16*>(cb),
+      static_cast<const bf16*>(uf), static_cast<const bf16*>(ub),
+      static_cast<const int*>(lens), static_cast<bf16*>(dxf),
+      static_cast<bf16*>(dxb), static_cast<float*>(db_part), t_len, n_rows,
+      hid, units);
+  if (err != cudaSuccess) return err;
+  bilstm_bwd_du_mma_kernel<<<du_grid(hid), lstm_common::kDuThreads, 0,
+                             stream>>>(
+      static_cast<const bf16*>(hf), static_cast<const bf16*>(hb),
+      static_cast<const bf16*>(dxf), static_cast<const bf16*>(dxb),
+      static_cast<float*>(duf), static_cast<float*>(dub), t_len, n_rows, hid);
+  err = (int)cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_db(db_part, dbf, dbb, n_rows, hid, stream);
 }
 
+// As bilstm_bwd_bf16 without units, with utf/utb: U^T packed as
+// [4H/4][H][4]; H a multiple of 4. Returns a cudaError_t.
 extern "C" int bilstm_bwd_f32(const void* dof, const void* dob, const void* gf,
                               const void* gb, const void* hf, const void* hb,
                               const void* cf, const void* cb, const void* utf,
                               const void* utb, const void* lens, void* dxf,
                               void* dxb, void* duf, void* dub, void* dbf,
                               void* dbb, void* db_part, int t_len, int n_rows,
-                              int hid, void* stream) {
-  return launch<float>(dof, dob, gf, gb, hf, hb, cf, cb, utf, utb, lens, dxf,
-                       dxb, duf, dub, dbf, dbb, db_part, t_len, n_rows, hid,
-                       stream);
+                              int hid, void* stream_ptr) {
+  if (t_len <= 0 || n_rows <= 0 || hid <= 0 || hid > kMaxHidden || hid % 4)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int four_h = 4 * hid;
+  bilstm_bwd_rec_kernel<<<dim3(n_rows, 2), hid, sizeof(float) * four_h,
+                          stream>>>(
+      static_cast<const float*>(dof), static_cast<const float*>(dob),
+      static_cast<const float*>(gf), static_cast<const float*>(gb),
+      static_cast<const float*>(cf), static_cast<const float*>(cb),
+      static_cast<const float*>(utf), static_cast<const float*>(utb),
+      static_cast<const int*>(lens), static_cast<float*>(dxf),
+      static_cast<float*>(dxb), static_cast<float*>(db_part), t_len, n_rows,
+      hid);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bilstm_bwd_du_kernel<<<du_grid(hid), 256, 0, stream>>>(
+      static_cast<const float*>(hf), static_cast<const float*>(hb),
+      static_cast<const float*>(dxf), static_cast<const float*>(dxb),
+      static_cast<float*>(duf), static_cast<float*>(dub), t_len, n_rows, hid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_db(db_part, dbf, dbb, n_rows, hid, stream);
 }

@@ -38,18 +38,50 @@
 // labels of up to 511 characters, where the TPU kernel's one 128-lane row
 // stopped at 63.
 //
+// The backward for S <= 64 (labels of up to 31 characters: every tracked
+// config; the main path has S = 13, longline S = 49) runs
+// ctc_bwd_warp_kernel instead: one warp per example, a block of one warp
+// (on an H100, blocks of several warps -- examples -- ran each warp's
+// chain slower at S = 49, as the SM's warps contend for the steps' shared
+// memory reads, and no faster at S = 13). Lane l holds beta for the K
+// consecutive states l K .. l K + K - 1
+// (K = 1 up to S = 32, 2 up to 64) in registers; the s+1 and s+2
+// neighbours come from the lane's own registers or from __shfl_down_sync,
+// NEG past the warp, so the step chain has no shared-memory round trip and
+// no barrier. The example's g and alphas rows reach shared memory ahead of
+// the chain: a ring of two stages of kChunk time steps each, filled with
+// cp.async one chunk ahead (16-byte copies, each chunk shifted in its stage
+// so that shared and global addresses agree mod 16, since a row of S floats
+// is not 16-byte aligned for odd S), so the chain reads only shared memory,
+// and any T fits in a bounded ring. grad is stored straight to global
+// memory, and each step's gradient is computed beside the next step's
+// recursion, off its chain. The per-state arithmetic, its order and the
+// masks are those of ctc_bwd_kernel, so both give the same bits.
+//
 // Built with nvcc into a shared library with a plain C interface
 // (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
 // (lstm_ctc_ocr_torch/ops/ctc_cuda.py). Each entry point launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "lstm_common.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr int kMaxThreads = 1024;  // one thread per state, S <= 1023
 constexpr int kMaxStates = kMaxThreads - 1;   // labels up to 511 characters
+constexpr int kWarpMaxStates = 64;    // the warp backward: 32 lanes x K <= 2
+constexpr int kChunk = 16;            // time steps a ring stage holds
+
+// Floats of one half (g or alphas) of a ring stage: kChunk rows of S, 3
+// floats of slack for the shift that aligns its copy, rounded up to 16
+// bytes.
+__host__ __device__ constexpr int stage_floats(int s_len) {
+  return (kChunk * s_len + 3 + 3) / 4 * 4;
+}
 
 __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float m = fmaxf(fmaxf(a, b), c);
@@ -168,7 +200,230 @@ ctc_bwd_kernel(const float* __restrict__ g, const float* __restrict__ skip,
   }
 }
 
+using lstm_common::cp_async_commit;
+using lstm_common::smem_addr;
+
+// 4-byte asynchronous copy global -> shared, completed by
+// cp.async.wait_group (the 16-byte one is lstm_common::cp_async16).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+      smem_addr(dst)), "l"(src));
+}
+
+// The float offset of p in its 16 bytes.
+__device__ __forceinline__ int shift_of(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// Copies `count` floats from `src` into a ring stage `dst` (16-byte
+// aligned, count + 3 floats long) at dst + shift_of(src), so that shared
+// and global addresses agree mod 16 and all but the ragged ends go as
+// 16-byte copies. Issued by the 32 lanes of a warp.
+__device__ __forceinline__ void stage_copy(float* dst, const float* src,
+                                           int count, int lane) {
+  const int shift = shift_of(src);
+  float* d = dst + shift;
+  const int head = min((4 - shift) & 3, count);  // floats before 16 bytes
+  const int vecs = (count - head) / 4;           // 16-byte copies
+  const int tail = head + 4 * vecs;              // floats from here on
+  if (lane < head) cp_async4(d + lane, src + lane);
+  for (int i = lane; i < vecs; i += 32)
+    lstm_common::cp_async16(smem_addr(d + head + 4 * i), src + head + 4 * i,
+                            true);
+  if (lane < count - tail) cp_async4(d + tail + lane, src + tail + lane);
+}
+
+// Stores v to p in the lanes where `on` holds, as one predicated
+// instruction: a branch around the store would split the step into basic
+// blocks that the compiler does not schedule into each other.
+__device__ __forceinline__ void store_if(float* p, float v, bool on) {
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n"
+      " @q st.global.f32 [%0], %1;\n}\n" ::"l"(p),
+      "f"(v), "r"((unsigned)on));
+}
+
+// The backward for S <= 32 K: block n, one warp, owns example n, lane l
+// the states l K + k. Chunk c of the
+// descending walk holds the steps hi(c) = T - 1 - c kChunk down to lo(c) =
+// max(hi(c) - kChunk + 1, 0), staged as rows t - lo(c) of the stage c % 2:
+// [g rows | alphas rows], kChunk x S floats each, each half shifted by
+// stage_copy by up to 3 floats. Chunks c and c+1 are in
+// flight when chunk c starts; chunk c+2 is issued into the same stage once
+// every lane has finished reading chunk c. A step's gradient is computed in
+// the next step, beside its recursion: both need only the step's beta, so
+// the gradient's exp and store fill the recursion chain's stalls.
+template <int K>
+__global__ void __launch_bounds__(32)
+ctc_bwd_warp_kernel(const float* __restrict__ g,
+                    const float* __restrict__ skip,
+                    const float* __restrict__ valid,
+                    const float* __restrict__ fin,
+                    const float* __restrict__ alphas,
+                    const float* __restrict__ logz,
+                    const int* __restrict__ lens, float* __restrict__ grad,
+                    int t_len, int s_len) {
+  const int lane = threadIdx.x;
+  const int n = blockIdx.x;
+  const int stage = stage_floats(s_len);         // floats of g (or alphas)
+  extern __shared__ __align__(16) float mine[];  // [2][2][stage]
+  const long long base = (long long)n * t_len * s_len;
+  const float* gn = g + base;
+  const float* an = alphas + base;
+  float* dn = grad + base;
+  const int n_chunks = (t_len + kChunk - 1) / kChunk;
+
+  // chunk c: the steps hi(c) down to lo(c), into stage c % 2
+  auto chunk_lo = [&](int c) { return max(t_len - (c + 1) * kChunk, 0); };
+  auto issue = [&](int c) {
+    if (c < n_chunks) {
+      const int lo = chunk_lo(c);
+      const long long off = (long long)lo * s_len;
+      const int count = (t_len - c * kChunk - lo) * s_len;
+      float* dst = mine + (c & 1) * 2 * stage;
+      stage_copy(dst, gn + off, count, lane);
+      stage_copy(dst + stage, an + off, count, lane);
+    }
+    cp_async_commit();                           // a group per chunk, even
+  };                                             // an empty one
+  // the rows of chunk c in its stage: g and alphas
+  auto rows_g = [&](int c) {
+    return mine + (c & 1) * 2 * stage +
+           shift_of(gn + (long long)chunk_lo(c) * s_len);
+  };
+  auto rows_a = [&](int c) {
+    return mine + ((c & 1) * 2 + 1) * stage +
+           shift_of(an + (long long)chunk_lo(c) * s_len);
+  };
+  issue(0);
+  issue(1);
+
+  // per state: the s -> s+2 hop's additive mask skip[s+2], valid, final,
+  // and the column a row is read at (clamped below S, so that the read
+  // needs no branch: states past S take NEG in place of what they read)
+  bool act[K];
+  int col[K];
+  float sk_fwd[K], va[K], fi[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int s = lane * K + k;
+    act[k] = s < s_len;
+    col[k] = min(s, s_len - 1);
+    sk_fwd[k] = (s + 2 < s_len) ? skip[(long long)n * s_len + s + 2] : kNeg;
+    va[k] = act[k] ? valid[(long long)n * s_len + s] : kNeg;
+    fi[k] = act[k] ? fin[(long long)n * s_len + s] : kNeg;
+  }
+  const float lz = logz[n];
+  const float feasible = lz > 0.5f * kNeg ? 1.0f : 0.0f;
+  const int len = lens[n];
+
+  // One step of the recursion for this lane's states, from the next
+  // step's beta and this step's g.
+  auto step = [&](const float (&beta)[K], const float (&gt)[K],
+                  float (&nb)[K]) {
+    float nx[K];                                 // the next lane's states,
+#pragma unroll                                   // NEG past the warp
+    for (int k = 0; k < K; ++k) {
+      nx[k] = __shfl_down_sync(0xffffffffu, beta[k], 1);
+      if (lane == 31) nx[k] = kNeg;
+    }
+    float one[K], two[K];
+    if constexpr (K == 1) {
+      float nx2 = __shfl_down_sync(0xffffffffu, beta[0], 2);
+      if (lane >= 30) nx2 = kNeg;
+      one[0] = nx[0];
+      two[0] = nx2;
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        one[k] = k + 1 < K ? beta[k + 1] : nx[k + 1 - K];
+        two[k] = k + 2 < K ? beta[k + 2] : nx[k + 2 - K];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      nb[k] = fmaxf(gt[k] + lse3(beta[k], one[k], two[k] + sk_fwd[k]) + va[k],
+                    kNeg);
+  };
+  // The gradient of step t from its beta, g and alphas, stored straight to
+  // global memory at row, grad's row of step t.
+  auto emit = [&](int t, float* row, const float (&beta)[K],
+                  const float (&gt)[K], const float (&at)[K]) {
+    const float live = t < len ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float lg = at[k] + beta[k] - gt[k] - lz;
+      const float e = expf(fminf(lg, 0.0f));
+      const float post = lg > 0.5f * kNeg ? e : 0.0f;
+      store_if(row + lane * K + k, -post * feasible * live, act[k]);
+    }
+  };
+  // this lane's g and alphas of one step from its rows in a stage
+  auto read = [&](const float* gs, const float* as, int row, float (&gt)[K],
+                  float (&at)[K]) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float gv = gs[row + col[k]], av = as[row + col[k]];
+      gt[k] = act[k] ? gv : kNeg;
+      at[k] = act[k] ? av : kNeg;
+    }
+  };
+
+  // Step T-1 starts the walk; every later step t computes beta[t] and, off
+  // that chain, step t+1's gradient, which needs only beta[t+1]: the two
+  // interleave in one basic block.
+  lstm_common::cp_async_wait<1>();               // this lane's part of chunk 0
+  __syncwarp();                                  // ... and every lane's
+  float beta[K], gp[K], ap[K];                   // beta, g, alphas of step tp
+  int tp = t_len - 1;
+  float* grad_row = dn + (long long)tp * s_len;  // grad's row of step tp
+  read(rows_g(0), rows_a(0), (t_len - 1 - chunk_lo(0)) * s_len, gp, ap);
+#pragma unroll
+  for (int k = 0; k < K; ++k) beta[k] = fmaxf(gp[k] + fi[k] + va[k], kNeg);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c > 0) {
+      lstm_common::cp_async_wait<1>();           // this lane's part of c
+      __syncwarp();                              // ... and every lane's
+    }
+    const int hi = t_len - 1 - c * kChunk;
+    const int lo = chunk_lo(c);
+    const float* gs = rows_g(c);
+    const float* as = rows_a(c);
+    for (int t = c == 0 ? hi - 1 : hi; t >= lo; --t) {
+      float gt[K], at[K], nb[K];
+      read(gs, as, (t - lo) * s_len, gt, at);
+      step(beta, gt, nb);
+      emit(tp, grad_row, beta, gp, ap);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        beta[k] = nb[k];
+        gp[k] = gt[k];
+        ap[k] = at[k];
+      }
+      tp = t;
+      grad_row -= s_len;
+    }
+    __syncwarp();                                // stage c % 2 is read
+    issue(c + 2);
+  }
+  emit(tp, grad_row, beta, gp, ap);              // step 0
+}
+
 int block_threads(int s_len) { return ((s_len + 31) / 32) * 32; }
+
+template <int K>
+int launch_bwd_warp(const void* g, const void* skip, const void* valid,
+                    const void* fin, const void* alphas, const void* logz,
+                    const void* lens, void* grad, int n_rows, int t_len,
+                    int s_len, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 4 * stage_floats(s_len);
+  ctc_bwd_warp_kernel<K><<<n_rows, 32, smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(skip),
+      static_cast<const float*>(valid), static_cast<const float*>(fin),
+      static_cast<const float*>(alphas), static_cast<const float*>(logz),
+      static_cast<const int*>(lens), static_cast<float*>(grad), t_len, s_len);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -188,13 +443,23 @@ extern "C" int ctc_fwd(const void* g, const void* skip, const void* valid,
   return (int)cudaGetLastError();
 }
 
-// As ctc_fwd, plus lens: [N] int32 and grad: [N, T, S] f32 (output).
+// As ctc_fwd, plus lens: [N] int32 and grad: [N, T, S] f32 (output). S <=
+// 32 and S <= 64 run the warp kernel (K = 1, 2), longer rows the block
+// kernel.
 extern "C" int ctc_bwd(const void* g, const void* skip, const void* valid,
                        const void* fin, const void* alphas, const void* logz,
                        const void* lens, void* grad, int n_rows, int t_len,
                        int s_len, void* stream) {
   if (n_rows <= 0 || t_len <= 0 || s_len <= 0 || s_len > kMaxStates)
     return (int)cudaErrorInvalidValue;
+  if (s_len <= kWarpMaxStates) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return s_len <= 32
+               ? launch_bwd_warp<1>(g, skip, valid, fin, alphas, logz, lens,
+                                    grad, n_rows, t_len, s_len, st)
+               : launch_bwd_warp<2>(g, skip, valid, fin, alphas, logz, lens,
+                                    grad, n_rows, t_len, s_len, st);
+  }
   const int threads = block_threads(s_len);
   const size_t smem = sizeof(float) * 2 * (threads + 2);
   ctc_bwd_kernel<<<n_rows, threads, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -30,38 +30,22 @@
 // is explicit:
 //
 // bf16 (the training type) -- U on chip, rows in one tensor-core product:
-//  1. lstm_bwd_cluster_kernel, the recurrence. The batch rows go in groups
-//     of 16 (the mma M); each group is one thread-block cluster of CS
-//     blocks, and block b of it owns the UB hidden units [b UB, (b+1) UB)
-//     (UB = 8 ceil(H / 128), the mma N of 8 at least; CS = ceil(H / UB) <=
-//     16: at H = 512, 16 blocks of 32 units; at H = 256, 16 of 16; at H = 8,
-//     one of 8). Block b loads its 4 UB columns of U -- U[:, q H + b UB + j]
-//     for the gates q, all H rows, packed by the wrapper as [CS][H][4 UB]:
-//     128 KB at H = 512 -- into shared memory once with cp.async and keeps
-//     them for the whole sequence, so U crosses L2 once per cluster and
-//     launch, not once per block and step. Thread (row r, unit j) computes
-//     its four dg values (thread-local as in the f32 kernel), writes dx and
-//     puts the rounded dg into the block's A tile [16][4 UB]. Each step the
-//     block then computes the PARTIAL product P_b = dg[:, its columns]
-//     U[:, its columns]^T, [16, H] in f32, with mma.sync m16n8k16 (each warp
-//     owns four n8 tiles of the H outputs, the depth 4 UB in k16 steps) and
-//     stores it, double-buffered by t's parity. One cluster barrier; then
-//     thread (r, j) of block b reads P_b'[r][b UB + j] from each block b' of
-//     the cluster through distributed shared memory and adds them in
-//     ascending b': that sum is dh[r, b UB + j]. A dead row has dg = 0 in
-//     every block, so its sum is 0 and dh, dc pass through (the TPU
-//     kernel's form, rnn_pallas.py:225-244).
-//     Why partial products and not the dg slices: each block then reads
-//     16 x UB f32 from each of CS blocks (32 KB a step at H = 512) instead
-//     of the whole dg row block (64 KB), and each warp's product needs no
-//     reduction across warps. Why a non-portable cluster of 16 and not a
-//     cooperative launch: the exchange stays in the cluster's shared
-//     memory with one hardware cluster barrier a step, where a grid barrier
-//     would round-trip through L2 and need every block resident; a
-//     portable cluster of 8 would need 256 KB of U a block at H = 512. The
-//     launch checks cudaOccupancyMaxActiveClusters > 0 and fails otherwise
-//     (the wrapper raises); it never degrades. Each block also sums its
-//     rows' dg over time in registers and writes db_part[n][4H].
+//  1. lstm_bwd_cluster_kernel, the cluster recurrence of
+//     lstm_bwd_cluster.cuh that kernel 2 (bilstm_bwd.cu) runs too: one
+//     non-portable thread-block cluster of CS blocks per 16 batch rows
+//     (16 blocks of UB = 32 units at H = 512), each block's 4 UB columns
+//     of U (128 KB) in shared memory for the whole sequence, copied by the
+//     kernel straight from U, each step's partial product dg U_b^T on
+//     tensor cores (mma.sync), the partials summed by their owners through
+//     distributed shared memory after one cluster barrier. Why a
+//     non-portable cluster of 16 and not a cooperative launch: the exchange
+//     stays in the cluster's shared memory with one hardware cluster
+//     barrier a step, where a grid barrier would round-trip through L2 and
+//     need every block resident; a portable cluster of 8 would need 256 KB
+//     of U a block at H = 512. The launch checks
+//     cudaOccupancyMaxActiveClusters > 0 and fails otherwise (the wrapper
+//     raises); it never degrades. Each block also sums its rows' dg over
+//     time in registers and writes db_part[n][4H].
 //  2. lstm_bwd_du_mma_kernel, dU = sum over rows r = (t, n) of
 //     h_prev[r]^T dx[r] on tensor cores (lstm_common::du_mma_tile, 64x64
 //     output tiles, rows ascending). h_prev is the saved h shifted by one
@@ -82,190 +66,30 @@
 // (lstm_ctc_ocr_torch/ops/rnn_cuda.py). The entry points launch on the given
 // stream, do not synchronise, and return a cudaError_t.
 
-#include <cooperative_groups.h>
-
+#include "lstm_bwd_cluster.cuh"
 #include "lstm_common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
-using lstm_common::cp_async16;
 using lstm_common::from_f32;
 using lstm_common::kTile;
-using lstm_common::smem_addr;
 using lstm_common::to_f32;
 
 constexpr int kMaxHidden = 512;   // H: threads per f32 recurrence block
-constexpr int kGroupRows = 16;    // batch rows per cluster: the mma M
-constexpr int kMaxCluster = 16;   // blocks per cluster (non-portable above 8)
-constexpr int kMaxUnits = 32;     // hidden units per cluster block
 
-// --- bf16: the cluster recurrence ------------------------------------------
+// --- bf16: the cluster recurrence (lstm_bwd_cluster.cuh) -------------------
 
-// Shared memory of one cluster block: U's columns [H][4 UB + 8] bf16, the
-// partial products [2][16][H + 8] f32, the A tile [16][4 UB + 8] bf16 (each
-// pad keeps ldmatrix or the accumulator stores free of bank conflicts).
-__host__ __device__ constexpr int cluster_pitch(int ub) { return 4 * ub + 8; }
-__host__ __device__ constexpr size_t cluster_smem(int hid, int ub) {
-  return (size_t)hid * cluster_pitch(ub) * 2 +
-         (size_t)2 * kGroupRows * (hid + 8) * 4 +
-         (size_t)kGroupRows * cluster_pitch(ub) * 2;
-}
-
-__global__ void __launch_bounds__(kGroupRows * kMaxUnits)
+__global__ void __launch_bounds__(lstm_bwd_cluster::kMaxThreads)
 lstm_bwd_cluster_kernel(const __nv_bfloat16* __restrict__ dout,
                         const __nv_bfloat16* __restrict__ gates,
                         const __nv_bfloat16* __restrict__ c_res,
-                        const __nv_bfloat16* __restrict__ u_pack,
+                        const __nv_bfloat16* __restrict__ u,
                         const int* __restrict__ lens,
                         __nv_bfloat16* __restrict__ dx,
                         float* __restrict__ db_part, int t_len, int n_rows,
                         int hid, int ub) {
-  using bf16 = __nv_bfloat16;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int cs = (int)cluster.num_blocks();
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int k_len = 4 * ub, ld = cluster_pitch(ub);
-  const int four_h = 4 * hid;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* u_s = reinterpret_cast<bf16*>(smem);                     // [H][ld]
-  const int p_ld = hid + 8;                      // partial products' pitch
-  float* p_s = reinterpret_cast<float*>(smem + (size_t)hid * ld * 2);
-  bf16* a_s =                                                   // [16][ld]
-      reinterpret_cast<bf16*>(p_s + 2 * kGroupRows * p_ld);
-
-  // this block's columns of U, once for the whole sequence
-  {
-    const bf16* src = u_pack + (size_t)rank * hid * k_len;
-    const int cpr = k_len / 8;                   // 16-byte chunks per row
-    for (int i = tid; i < hid * cpr; i += blockDim.x) {
-      const int n = i / cpr, c = (i % cpr) * 8;
-      cp_async16(smem_addr(u_s + n * ld + c), src + (size_t)n * k_len + c,
-                 true);
-    }
-    lstm_common::cp_async_commit();
-  }
-
-  // this thread's (row, unit)
-  const int r = tid / ub, j = tid % ub;
-  const int k = rank * ub + j;                   // hidden unit
-  const int n = blockIdx.y * kGroupRows + r;     // batch row
-  const bool owns = n < n_rows && k < hid;
-  const int len = owns ? lens[n] : 0;
-
-  float dh = 0.0f, dc = 0.0f;
-  float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  // step t's inputs, loaded one step ahead
-  float g_nx[4] = {0.0f, 0.0f, 0.0f, 0.0f}, c_nx = 0.0f, do_nx = 0.0f;
-  auto fetch = [&](int t) {
-    if (!owns || t < 0 || t >= len) return;
-    const long long row = (long long)t * n_rows + n;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      g_nx[q] = to_f32(gates[row * four_h + q * hid + k]);
-    c_nx = t > 0 ? to_f32(c_res[((long long)(t - 1) * n_rows + n) * hid + k])
-                 : 0.0f;
-    do_nx = to_f32(dout[row * hid + k]);
-  };
-  fetch(t_len - 1);
-
-  // the mma: warp w owns the n8 tiles 4w .. 4w+3 of the H outputs
-  const int mi = lane / 8, mj = lane % 8;
-  const int n_tiles = hid / 8;
-
-  for (int t = t_len - 1; t >= 0; --t) {
-    const int par = t & 1;
-    const bool live = owns && t < len;
-    const float gi = g_nx[0], gj = g_nx[1], gfo = g_nx[2], go = g_nx[3];
-    const float c_prev = c_nx, d_out = do_nx;
-    fetch(t - 1);
-
-    float dg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (live) {
-      const float tanh_c = tanhf(gfo * c_prev + gi * gj);
-      const float g_hnew = dh + d_out;
-      const float do_ = g_hnew * tanh_c;
-      const float dc_tot = dc + g_hnew * go * (1.0f - tanh_c * tanh_c);
-      dg[0] = dc_tot * gj * gi * (1.0f - gi);
-      dg[1] = dc_tot * gi * (1.0f - gj * gj);
-      dg[2] = dc_tot * c_prev * gfo * (1.0f - gfo);
-      dg[3] = do_ * go * (1.0f - go);
-      dc = dc_tot * gfo;
-    }
-    bf16* dx_row = dx + ((long long)t * n_rows + n) * four_h;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      db_acc[q] += dg[q];
-      const bf16 rq = from_f32<bf16>(dg[q]);
-      if (owns) dx_row[q * hid + k] = rq;
-      a_s[r * ld + q * ub + j] = rq;
-    }
-    lstm_common::cp_async_wait<0>();             // U has landed (first step)
-    __syncthreads();
-
-    // P[par] = a_s [16, 4 UB] x (this block's U columns)^T  ->  [16, H]
-    float* p_out = p_s + par * kGroupRows * p_ld;
-    if (warp * 4 < n_tiles) {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < kMaxUnits / 4; ++ks) {   // unrolled: fragment
-        const int kk = ks * 16;                      // loads overlap mmas
-        if (kk >= k_len) break;
-        uint32_t af[4], bq[2][4];
-        lstm_common::ldmatrix_x4(
-            af, smem_addr(a_s + (lane % 16) * ld + kk + (lane / 16) * 8));
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          // rows of U past H (a partial last pair) are clamped: their
-          // products are never stored
-          const int row = min((warp * 4 + 2 * p) * 8 + (mi / 2) * 8 + mj,
-                              hid - 1);
-          lstm_common::ldmatrix_x4(
-              bq[p], smem_addr(u_s + row * ld + kk + (mi % 2) * 8));
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          lstm_common::mma_bf16(acc[i], af, bq[i / 2][(i % 2) * 2],
-                                bq[i / 2][(i % 2) * 2 + 1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int nt = warp * 4 + i;
-        if (nt >= n_tiles) continue;
-        const int col = nt * 8 + (lane % 4) * 2;
-        *reinterpret_cast<float2*>(p_out + (lane / 4) * p_ld + col) =
-            make_float2(acc[i][0], acc[i][1]);
-        *reinterpret_cast<float2*>(p_out + (lane / 4 + 8) * p_ld + col) =
-            make_float2(acc[i][2], acc[i][3]);
-      }
-    }
-    cluster.sync();
-
-    // dh[r, k] = sum over the cluster's blocks, ascending, of P_b'[r][k]
-    if (owns) {
-      float sum = 0.0f;
-      for (int b = 0; b < cs; ++b) {
-        const float* remote = cluster.map_shared_rank(p_out, b);
-        sum += remote[r * p_ld + k];
-      }
-      dh = sum + (live ? 0.0f : dh);
-    }
-  }
-  // no block leaves while another may still read its partial products
-  cluster.sync();
-
-  if (owns) {
-    float* part = db_part + (long long)n * four_h;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) part[q * hid + k] = db_acc[q];
-  }
+  lstm_bwd_cluster::recurrence(dout, gates, c_res, u, lens, dx, db_part,
+                               t_len, n_rows, hid, ub, false);
 }
 
 __global__ void __launch_bounds__(lstm_common::kDuThreads)
@@ -383,112 +207,45 @@ int launch_db(const void* db_part, void* db, int n_rows, int hid,
   return (int)cudaGetLastError();
 }
 
-bool cluster_shape_ok(int hid, int ub) {
-  return ub > 0 && ub % 8 == 0 && ub <= kMaxUnits &&
-         (hid + ub - 1) / ub <= kMaxCluster &&
-         cluster_smem(hid, ub) <= 232448;    // a block's shared memory
-}
-
-// The launch configuration of the bf16 recurrence at (H, UB): clusters of
-// CS blocks along x, one cluster per 16 rows along y.
-void cluster_config(int hid, int ub, int n_groups, cudaStream_t stream,
-                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const int cs = (hid + ub - 1) / ub;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(cs, n_groups, 1);
-  cfg->blockDim = dim3(kGroupRows * ub, 1, 1);
-  cfg->dynamicSmemBytes = cluster_smem(hid, ub);
-  cfg->stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cs;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-}
-
-// Sets the recurrence's attributes for (H, UB) and returns how many of its
-// clusters the card holds at once, or -cudaError_t.
-int max_active_clusters(int hid, int ub) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cluster_config(hid, ub, 1, nullptr, &cfg, &attr);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)cfg.dynamicSmemBytes);
-  if (err == cudaSuccess && attr.val.clusterDim.x > 8)
-    err = cudaFuncSetAttribute(lstm_bwd_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-  int clusters = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, lstm_bwd_cluster_kernel,
-                                         &cfg);
-  return err == cudaSuccess ? clusters : -(int)err;
-}
-
-// The cluster launch of the bf16 recurrence; fails (never degrades) when
-// the card cannot hold one cluster of this shape.
-int launch_cluster(const void* dout, const void* gates, const void* cs_res,
-                   const void* u_pack, const void* lens, void* dx,
-                   void* db_part, int t_len, int n_rows, int hid, int ub,
-                   cudaStream_t stream) {
-  if (!cluster_shape_ok(hid, ub)) return (int)cudaErrorInvalidValue;
-  // the attributes and the occupancy check, once per shape
-  static int checked_hid = -1, checked_ub = -1;
-  if (checked_hid != hid || checked_ub != ub) {
-    const int clusters = max_active_clusters(hid, ub);
-    if (clusters < 0) return -clusters;
-    if (clusters == 0) return (int)cudaErrorInvalidConfiguration;
-    checked_hid = hid;
-    checked_ub = ub;
-  }
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cluster_config(hid, ub, (n_rows + kGroupRows - 1) / kGroupRows, stream,
-                 &cfg, &attr);
-  return (int)cudaLaunchKernelEx(
-      &cfg, lstm_bwd_cluster_kernel, static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const __nv_bfloat16*>(gates),
-      static_cast<const __nv_bfloat16*>(cs_res),
-      static_cast<const __nv_bfloat16*>(u_pack),
-      static_cast<const int*>(lens), static_cast<__nv_bfloat16*>(dx),
-      static_cast<float*>(db_part), t_len, n_rows, hid, ub);
-}
-
 }  // namespace
 
 // Dynamic shared memory of one bf16 cluster block at (H, UB), in bytes (for
 // reports).
 extern "C" int lstm_bwd_cluster_smem(int hid, int ub) {
-  return (int)cluster_smem(hid, ub);
+  return (int)lstm_bwd_cluster::smem_bytes(hid, ub);
 }
 
 // How many clusters of the bf16 recurrence at (H, UB) the card holds at
 // once (cudaOccupancyMaxActiveClusters; for reports), or -cudaError_t.
 extern "C" int lstm_bwd_max_clusters(int hid, int ub) {
-  if (!cluster_shape_ok(hid, ub)) return -(int)cudaErrorInvalidValue;
-  return max_active_clusters(hid, ub);
+  if (!lstm_bwd_cluster::shape_ok(hid, ub))
+    return -(int)cudaErrorInvalidValue;
+  return lstm_bwd_cluster::max_active_clusters(lstm_bwd_cluster_kernel, hid,
+                                               ub);
 }
 
-// dout, hs, cs: [T, N, H]; gates, dx (output): [T, N, 4H]; u_pack: U's
-// columns packed [CS][H][4 UB] (block b's gate columns q H + b UB + j, zero
-// past H; CS = ceil(H / UB)); lens: [N] int32; du (output): [H, 4H] f32; db
-// (output): [4H] f32; db_part: scratch [N, 4H] f32; ub: hidden units a
-// cluster block owns (a multiple of 8, CS <= 16). H a multiple of 8, <= 512.
-// Returns a cudaError_t (cudaErrorInvalidConfiguration when no cluster of
-// CS blocks fits on the card).
+// dout, hs, cs: [T, N, H]; gates, dx (output): [T, N, 4H]; u: U [H, 4H] as
+// it is; lens: [N] int32; du (output): [H, 4H] f32; db (output): [4H] f32;
+// db_part: scratch [N, 4H] f32; ub: hidden units a cluster block owns (a
+// multiple of 8, ceil(H / ub) <= 16). H a multiple of 8, <= 512. Returns a
+// cudaError_t (cudaErrorInvalidConfiguration when no cluster of ceil(H /
+// ub) blocks fits on the card).
 extern "C" int lstm_bwd_bf16(const void* dout, const void* gates,
-                             const void* hs, const void* cs,
-                             const void* u_pack, const void* lens, void* dx,
-                             void* du, void* db, void* db_part, int t_len,
-                             int n_rows, int hid, int ub, void* stream_ptr) {
-  if (t_len <= 0 || n_rows <= 0 || hid <= 0 || hid > kMaxHidden ||
-      hid % 8 != 0)
+                             const void* hs, const void* cs, const void* u,
+                             const void* lens, void* dx, void* du, void* db,
+                             void* db_part, int t_len, int n_rows, int hid,
+                             int ub, void* stream_ptr) {
+  using bf16 = __nv_bfloat16;
+  if (t_len <= 0 || n_rows <= 0 || hid > kMaxHidden)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  int err = launch_cluster(dout, gates, cs, u_pack, lens, dx, db_part, t_len,
-                           n_rows, hid, ub, stream);
+  static int checked[2] = {-1, -1};
+  int err = lstm_bwd_cluster::launch(
+      lstm_bwd_cluster_kernel, checked, hid, ub, n_rows, 1, stream,
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(gates),
+      static_cast<const bf16*>(cs), static_cast<const bf16*>(u),
+      static_cast<const int*>(lens), static_cast<bf16*>(dx),
+      static_cast<float*>(db_part), t_len, n_rows, hid, ub);
   if (err != cudaSuccess) return err;
   const int four_h = 4 * hid;
   lstm_bwd_du_mma_kernel<<<dim3((four_h + kTile - 1) / kTile,

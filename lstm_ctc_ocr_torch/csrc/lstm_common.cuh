@@ -1,11 +1,13 @@
 // Pieces shared by the port's kernels (lstm_fwd.cu, lstm_bwd.cu,
-// bilstm_bwd.cu, conv_bn.cu): conversions between the element type and f32,
-// the sigmoid, the tensor-core building blocks (cp.async 16-byte copies that
-// zero-fill, ldmatrix, mma.sync m16n8k16 bf16 -> f32), and the two
-// reductions every LSTM backward ends with: dU = h_prev^T dx as a
-// shared-memory tiled product (FP32 FMAs, or tensor cores for bf16) and db
-// as an ordered sum of per-row partials. All are deterministic: fixed
-// summation order, no atomics.
+// bilstm_fwd.cu, bilstm_bwd.cu, conv_bn.cu, ctc.cu): conversions between
+// the element type and f32, the sigmoid, the tensor-core building blocks
+// (cp.async 16-byte copies that zero-fill, ldmatrix, mma.sync m16n8k16
+// bf16 -> f32), the thread-block cluster launch of the bf16 recurrences
+// (lstm_fwd_cluster.cuh, lstm_bwd_cluster.cuh), and the two reductions
+// every LSTM backward ends with: dU = h_prev^T dx as a shared-memory tiled
+// product (FP32 FMAs, or tensor cores for bf16) and db as an ordered sum of
+// per-row partials. All are deterministic: fixed summation order, no
+// atomics.
 
 #pragma once
 
@@ -239,6 +241,69 @@ __device__ __forceinline__ void du_mma_tile(const __nv_bfloat16* __restrict__ a,
               make_float2(acc[i][j][half * 2], acc[i][j][half * 2 + 1]);
       }
     }
+}
+
+// --- thread-block cluster launches (the bf16 LSTM recurrences) -------------
+
+// The launch configuration of a cluster recurrence: clusters of `cs` blocks
+// of `threads` threads along x, one cluster per 16-row group along y,
+// `dirs` directions along z (a cluster never spans two), `smem` bytes of
+// dynamic shared memory a block.
+inline void cluster_config(int cs, int threads, size_t smem, int n_groups,
+                           int dirs, cudaStream_t stream,
+                           cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr) {
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cs, n_groups, dirs);
+  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// Sets `kernel`'s attributes for one cluster shape (its shared memory, and
+// the non-portable size above 8 blocks) and returns how many such clusters
+// the card holds at once, or -cudaError_t.
+template <typename Kernel>
+int cluster_max_active(Kernel kernel, int cs, int threads, size_t smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(cs, threads, smem, 1, 1, nullptr, &cfg, &attr);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cs > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
+// Checks once per (kernel, H, UB) -- the caller keeps `checked` -- that a
+// cluster of this shape fits the card, then launches `kernel` with `args`
+// on `n_groups` row groups and `dirs` directions. Fails, never degrades:
+// cudaErrorInvalidConfiguration when no cluster fits.
+template <typename Kernel, typename... Args>
+int cluster_launch(Kernel kernel, int (&checked)[2], int hid, int ub,
+                   int cs, int threads, size_t smem, int n_groups, int dirs,
+                   cudaStream_t stream, Args... args) {
+  if (checked[0] != hid || checked[1] != ub) {
+    const int clusters = cluster_max_active(kernel, cs, threads, smem);
+    if (clusters < 0) return -clusters;
+    if (clusters == 0) return (int)cudaErrorInvalidConfiguration;
+    checked[0] = hid;
+    checked[1] = ub;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(cs, threads, smem, n_groups, dirs, stream, &cfg, &attr);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 // db[m] = sum over n (ascending) of part[n][m]; part: [n_rows, four_h].

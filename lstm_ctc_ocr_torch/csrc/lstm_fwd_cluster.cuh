@@ -112,65 +112,29 @@ inline bool shape_ok(int hid, int ub) {
          smem_bytes(hid, ub) <= 232448;      // a block's shared memory
 }
 
-// The launch configuration at (H, UB): clusters of CS blocks along x, one
-// cluster per 16 rows along y, `dirs` directions along z.
-inline void config(int hid, int ub, int n_groups, int dirs,
-                   cudaStream_t stream, cudaLaunchConfig_t* cfg,
-                   cudaLaunchAttribute* attr) {
-  const int cs = (hid + ub - 1) / ub;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(cs, n_groups, dirs);
-  cfg->blockDim = dim3(kGroupRows * ub, 1, 1);
-  cfg->dynamicSmemBytes = smem_bytes(hid, ub);
-  cfg->stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cs;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-}
-
 // Sets `kernel`'s attributes for (H, UB) and returns how many of its
 // clusters the card holds at once, or -cudaError_t.
 template <typename Kernel>
 int max_active_clusters(Kernel kernel, int hid, int ub) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  config(hid, ub, 1, 1, nullptr, &cfg, &attr);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)cfg.dynamicSmemBytes);
-  if (err == cudaSuccess && attr.val.clusterDim.x > 8)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  int clusters = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  return err == cudaSuccess ? clusters : -(int)err;
+  return lstm_common::cluster_max_active(kernel, (hid + ub - 1) / ub,
+                                         kGroupRows * ub,
+                                         smem_bytes(hid, ub));
 }
 
-// Checks once per (kernel, H, UB) -- the caller keeps `checked` -- that a
-// cluster of this shape fits the card, then launches `kernel` with `args`
-// on `n_groups` row groups and `dirs` directions. Fails, never degrades:
-// cudaErrorInvalidValue for a shape the kernel does not take,
-// cudaErrorInvalidConfiguration when no cluster fits.
+// Launches `kernel` with `args` on the clusters of CS blocks for the
+// `n_rows` rows (one per 16) and `dirs` directions, after the check, once
+// per (kernel, H, UB) -- the caller keeps `checked` -- that such a cluster
+// fits the card. Fails, never degrades: cudaErrorInvalidValue for a shape
+// the kernel does not take, cudaErrorInvalidConfiguration when no cluster
+// fits.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, int (&checked)[2], int hid, int ub, int n_rows,
            int dirs, cudaStream_t stream, Args... args) {
   if (!shape_ok(hid, ub)) return (int)cudaErrorInvalidValue;
-  if (checked[0] != hid || checked[1] != ub) {
-    const int clusters = max_active_clusters(kernel, hid, ub);
-    if (clusters < 0) return -clusters;
-    if (clusters == 0) return (int)cudaErrorInvalidConfiguration;
-    checked[0] = hid;
-    checked[1] = ub;
-  }
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  config(hid, ub, (n_rows + kGroupRows - 1) / kGroupRows, dirs, stream, &cfg,
-         &attr);
-  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  return lstm_common::cluster_launch(
+      kernel, checked, hid, ub, (hid + ub - 1) / ub, kGroupRows * ub,
+      smem_bytes(hid, ub), (n_rows + kGroupRows - 1) / kGroupRows, dirs,
+      stream, args...);
 }
 
 // One direction's recurrence, run by every block of a cluster (blockIdx.y

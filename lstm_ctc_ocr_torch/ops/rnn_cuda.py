@@ -17,8 +17,8 @@ the kernels, as they stayed outside the TPU kernels (large matmuls).
 ``bilstm_fwd`` / ``bilstm_bwd`` / ``lstm_fwd`` / ``lstm_bwd`` launch the
 kernel for CUDA tensors and run ``*_reference`` for CPU tensors; they never
 fall back from one to the other. Each wrapper's ``launches`` counts its
-launches (one per call). In bf16, ``bilstm_fwd``, ``lstm_fwd`` and
-``lstm_bwd`` run thread-block clusters that hold U in shared memory
+launches (one per call). In bf16 all four run thread-block clusters that
+hold U in shared memory and copy it there from U as it is
 (:func:`units_per_block`, :func:`cluster_report`); a shape for which no
 cluster fits the card raises, nothing degrades to another kernel.
 """
@@ -122,8 +122,8 @@ def _pack_u(u, vec):
 
 
 def units_per_block(h_dim):
-    """Hidden units each block of a bf16 cluster kernel owns (``bilstm_fwd``,
-    ``lstm_fwd``, ``lstm_bwd``): the mma's N of 8 at least, and few enough
+    """Hidden units each block of a bf16 cluster kernel owns (all four
+    wrappers of this module): the mma's N of 8 at least, and few enough
     blocks, ``ceil(H / units)``, for one cluster of at most 16:
     ``8 * ceil(H / 128)`` (32 at H = 512, 16 at H = 256, 8 up to H = 128).
     A block runs 16 rows x ``units`` threads."""
@@ -131,11 +131,12 @@ def units_per_block(h_dim):
 
 
 def cluster_report(name, h_dim, units):
-    """The bf16 cluster of kernel ``name`` (``bilstm_fwd``, ``lstm_fwd`` or
-    ``lstm_bwd``) at hidden size ``h_dim``: units a block, blocks a cluster,
-    threads a block, dynamic shared memory a block in bytes (the kernel's
-    own formula) and how many such clusters the card holds at once
-    (``cudaOccupancyMaxActiveClusters``; negative: a cudaError)."""
+    """The bf16 cluster of kernel ``name`` (``bilstm_fwd``, ``bilstm_bwd``,
+    ``lstm_fwd`` or ``lstm_bwd``) at hidden size ``h_dim``: units a block,
+    blocks a cluster, threads a block, dynamic shared memory a block in
+    bytes (the kernel's own formula) and how many such clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``; negative: a
+    cudaError)."""
     lib = _build.library(name)
     return {'units_per_block': units, 'blocks': -(-h_dim // units),
             'threads': 16 * units,
@@ -327,10 +328,11 @@ def lstm_bwd_reference(dout, gates, hs, cs, u, lens):
 
 def _bwd_entry(dtype):
     lib = _build.library('bilstm_bwd')
-    fn = getattr(lib, 'bilstm_bwd_bf16' if dtype == torch.bfloat16
-                 else 'bilstm_bwd_f32')
+    bf16 = dtype == torch.bfloat16
+    fn = getattr(lib, 'bilstm_bwd_bf16' if bf16 else 'bilstm_bwd_f32')
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 18
+                       + [ctypes.c_int] * (4 if bf16 else 3)
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -341,7 +343,10 @@ def bilstm_bwd(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
 
     Same contract as :func:`bilstm_bwd_reference`. CPU tensors run the
     plain version; CUDA tensors launch ``csrc/bilstm_bwd.cu`` (the
-    recurrence, the dU product and the db sum, one entry point) or raise.
+    recurrence, the dU product and the db sum, one entry point) or raise:
+    bf16 runs the cluster recurrence of both directions (U in shared
+    memory, tensor-core products, dU on tensor cores), f32 one block per
+    row and direction.
     """
     if gf.device.type == 'cpu':
         return bilstm_bwd_reference(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub,
@@ -374,9 +379,12 @@ def bilstm_bwd(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
         raise ValueError('lens: expected [{}] int32 on {}'.format(n, gf.device))
     dof, dob, gf, gb, hf, hb, cf, cb, lens = (
         x.contiguous() for x in (dof, dob, gf, gb, hf, hb, cf, cb, lens))
-    # U^T in the forward's packing: row k of U becomes 16-byte pieces that
-    # neighbouring threads read side by side
-    utf, utb = _pack_u(uf.t(), vec), _pack_u(ub.t(), vec)
+    if dtype == torch.bfloat16:   # the kernel gathers its slices of U
+        geometry = (units_per_block(h_dim),)
+        upf, upb = uf.contiguous(), ub.contiguous()
+    else:   # U^T in 16-byte pieces that neighbouring threads read together
+        geometry = ()
+        upf, upb = _pack_u(uf.t(), vec), _pack_u(ub.t(), vec)
     dev = gf.device
     dxf = torch.empty(wide, dtype=dtype, device=dev)
     dxb = torch.empty(wide, dtype=dtype, device=dev)
@@ -387,13 +395,13 @@ def bilstm_bwd(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
     if t_len and n:
         db_part = torch.empty(2, n, four_h, dtype=torch.float32, device=dev)
         err = _bwd_entry(dtype)(
-            *(x.data_ptr() for x in (dof, dob, gf, gb, hf, hb, cf, cb, utf,
-                                     utb, lens, dxf, dxb, duf, dub, dbf, dbb,
+            *(x.data_ptr() for x in (dof, dob, gf, gb, hf, hb, cf, cb, upf,
+                                     upb, lens, dxf, dxb, duf, dub, dbf, dbb,
                                      db_part)),
-            t_len, n, h_dim, torch.cuda.current_stream(dev).cuda_stream)
+            t_len, n, h_dim, *geometry,
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError('bilstm_bwd kernel launch failed: cudaError {}'
-                               .format(err))
+            raise _launch_failed('bilstm_bwd', err, h_dim, *geometry)
         bilstm_bwd.launches += 1
     else:
         for x in (duf, dub, dbf, dbb):
@@ -490,12 +498,12 @@ lstm_fwd.launches = 0
 
 
 def pack_u_slices(u, ub):
-    """[H, 4H] -> [CS, H, 4 * ub] with CS = ceil(H / ub): block ``b`` of the
-    bf16 backward's cluster loads ``packed[b]``, whose row ``n`` holds U's
-    columns ``q * H + b * ub + j`` of its units (gate ``q``, unit ``j``) as
-    ``packed[b, n, q * ub + j]``, zero where ``b * ub + j >= H``. The bf16
-    forward kernels' clusters copy the same image into shared memory
-    straight from U."""
+    """[H, 4H] -> [CS, H, 4 * ub] with CS = ceil(H / ub): the image that
+    block ``b`` of every bf16 cluster kernel copies into shared memory
+    straight from U, ``packed[b]``, whose row ``n`` holds U's columns
+    ``q * H + b * ub + j`` of its units (gate ``q``, unit ``j``) as
+    ``packed[b, n, q * ub + j]``, zero where ``b * ub + j >= H``. No
+    wrapper calls it; the tests hold the kernels' copy loops to it."""
     h_dim = u.shape[0]
     cs = -(-h_dim // ub)
     gates = u.reshape(h_dim, 4, h_dim)
@@ -524,9 +532,9 @@ def lstm_bwd(dout, gates, hs, cs, u, lens):
     dtype, dev = gates.dtype, gates.device
     dout, gates, hs, cs, lens = (x.contiguous()
                                  for x in (dout, gates, hs, cs, lens))
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:    # the kernel gathers its slices of U
         geometry = (units_per_block(h_dim),)
-        u_arg = pack_u_slices(u, geometry[0])
+        u_arg = u.contiguous()
     else:
         geometry = ()
         u_arg = _pack_u(u.t(), vec)    # U^T in the forward's packing

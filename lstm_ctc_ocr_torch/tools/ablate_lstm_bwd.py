@@ -1,10 +1,12 @@
-"""Where a step of the bf16 LSTM backward's cluster recurrence goes.
+"""Where a step of the bf16 LSTM backward kernels' cluster recurrence goes.
 
-Builds copies of ``csrc/lstm_bwd.cu`` with parts of the recurrence's step
-taken out and times each copy's ``lstm_bwd_cluster_kernel`` on the device,
-at the stacked head's H = 512, batch 64, T = 23 and T = 111:
+Builds copies of ``csrc/lstm_bwd.cu`` (kernel 6, H = 512) and
+``csrc/bilstm_bwd.cu`` (kernel 2, H = 256, both directions) with parts of
+the step of their shared recurrence (``csrc/lstm_bwd_cluster.cuh``) taken
+out, and times each copy's cluster kernel on the device at batch 64,
+T = 23 and T = 111:
 
-* ``full``: the kernel as it is;
+* ``full``: the kernels as they are;
 * ``local_reads``: each block adds its own partial products (the same loads
   from its own shared memory) instead of the cluster's;
 * ``no_cluster_barrier``: the step's cluster barrier becomes a block
@@ -38,6 +40,7 @@ import torch
 from ..engine.test import resolve_device
 from ..ops import _build, rnn_cuda
 
+HEADER = 'lstm_bwd_cluster.cuh'
 _BARRIER = '    cluster.sync();\n\n    // dh[r, k]'
 _REMOTE = 'cluster.map_shared_rank(p_out, b);'
 _PRODUCT = 'if (warp * 4 < n_tiles) {'
@@ -52,9 +55,12 @@ ABLATIONS['dg_only'] = (ABLATIONS['local_reads']
                         + ABLATIONS['no_cluster_barrier']
                         + ABLATIONS['no_product'])
 
+# wrapper (in rnn_cuda) -> (hidden size, its cluster kernel)
+KERNELS = {'lstm_bwd': (512, 'lstm_bwd_cluster_kernel'),
+           'bilstm_bwd': (256, 'bilstm_bwd_cluster_kernel')}
 
-def build_variants(source='lstm_bwd', edited='lstm_bwd.cu',
-                   ablations=None):
+
+def build_variants(source='lstm_bwd', edited=HEADER, ablations=None):
     """Compile ``csrc/<source>.cu`` once per variant, with the variant's
     edits applied to ``csrc/<edited>`` (the source or a header it
     includes), one nvcc each, all at once: name -> .so."""
@@ -89,21 +95,30 @@ def build_variants(source='lstm_bwd', edited='lstm_bwd.cu',
     return {name: so for name, (so, _) in procs.items()}
 
 
-def backward_args(t_len, n, h, device, seed=7):
-    """lstm_bwd's inputs at one shape: the forward kernel's residuals from
-    seeded inputs (lengths near T, as an eval bucket's) and a cotangent."""
+def backward_args(t_len, n, h, device, seed=7, name='lstm_bwd'):
+    """The inputs of wrapper ``name`` (``lstm_bwd`` or ``bilstm_bwd``) at one
+    shape: its forward kernel's residuals from seeded inputs (lengths near
+    T, as an eval bucket's) and cotangents."""
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=g) * scale).to(device,
                                                             torch.bfloat16)
-    u = rnd(h, 4 * h, scale=h ** -0.5)
     lens = torch.randint(max(1, t_len - 8), t_len + 1, (n,), generator=g)
     lens = lens.to(device, torch.int32)
-    _, gates, hs, cs = rnn_cuda.lstm_fwd(rnd(t_len, n, 4 * h), u,
-                                         rnd(4 * h, scale=0.1), lens,
-                                         save_residuals=True)
-    return rnd(t_len, n, h, scale=0.1), gates, hs, cs, u, lens
+    if name == 'lstm_bwd':
+        u = rnd(h, 4 * h, scale=h ** -0.5)
+        _, gates, hs, cs = rnn_cuda.lstm_fwd(rnd(t_len, n, 4 * h), u,
+                                             rnd(4 * h, scale=0.1), lens,
+                                             save_residuals=True)
+        return rnd(t_len, n, h, scale=0.1), gates, hs, cs, u, lens
+    uf, ub = rnd(h, 4 * h, scale=h ** -0.5), rnd(h, 4 * h, scale=h ** -0.5)
+    _, gf, hf, cf, _, gb, hb, cb = rnn_cuda.bilstm_fwd(
+        rnd(t_len, n, 4 * h), rnd(t_len, n, 4 * h), uf, ub,
+        rnd(4 * h, scale=0.1), rnd(4 * h, scale=0.1), lens,
+        save_residuals=True)
+    return (rnd(t_len, n, h, scale=0.1), rnd(t_len, n, h, scale=0.1), gf, hf,
+            cf, gb, hb, cb, uf, ub, lens)
 
 
 def recurrence_ms(args, passes=3, reps=20, fn=None,
@@ -141,20 +156,24 @@ def card_name():
 def main():
     resolve_device('cuda')
     card = card_name()
-    variants = build_variants()
+    builds = {name: build_variants(name) for name in KERNELS}
     try:
-        for t_len in (23, 111):
-            args = backward_args(t_len, 64, 512, 'cuda')
-            for name, so in variants.items():
-                _build._loaded['lstm_bwd'] = ctypes.CDLL(so)
-                ms = recurrence_ms(args)
-                print(json.dumps({
-                    'variant': name, 't': t_len, 'n': 64, 'h': 512,
-                    'recurrence_device_ms': ms,
-                    'us_per_step': 1e3 * ms / t_len if ms else None,
-                    'device': card}), flush=True)
+        for name, (h, kernel) in KERNELS.items():
+            for t_len in (23, 111):
+                args = backward_args(t_len, 64, h, 'cuda', name=name)
+                for variant, so in builds[name].items():
+                    _build._loaded[name] = ctypes.CDLL(so)
+                    ms = recurrence_ms(args, fn=getattr(rnn_cuda, name),
+                                       kernel=kernel)
+                    print(json.dumps({
+                        'kernel': name, 'variant': variant, 't': t_len,
+                        'n': 64, 'h': h, 'recurrence_device_ms': ms,
+                        'us_per_step': 1e3 * ms / t_len if ms else None,
+                        'device': card}), flush=True)
+                _build._loaded.pop(name, None)
     finally:
-        _build._loaded.pop('lstm_bwd', None)
+        for name in KERNELS:
+            _build._loaded.pop(name, None)
     return 0
 
 

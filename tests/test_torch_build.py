@@ -34,7 +34,7 @@ def test_repo_kernels_share_the_common_header():
     """Every kernel source that the redesign touches includes the shared
     header, so a change there rebuilds all of them."""
     names = _build.kernel_sources()
-    for name in ('bilstm_bwd', 'bilstm_fwd', 'conv_bn', 'lstm_bwd',
+    for name in ('bilstm_bwd', 'bilstm_fwd', 'conv_bn', 'ctc', 'lstm_bwd',
                  'lstm_fwd'):
         assert name in names
         with open('{}/{}.cu'.format(_build.SRC_DIR, name)) as f:
@@ -63,19 +63,54 @@ def test_forward_kernels_share_the_cluster_header(tmp_path, monkeypatch):
     assert all(_build._target(n) != t for n, t in before.items())
 
 
+def test_backward_kernels_share_the_cluster_header(tmp_path, monkeypatch):
+    """Both LSTM backward kernels run the recurrence of
+    ``lstm_bwd_cluster.cuh`` (``bilstm_bwd`` for its two directions), and a
+    change to that header renames both of their libraries and neither
+    forward's."""
+    for name in ('bilstm_bwd', 'lstm_bwd'):
+        with open('{}/{}.cu'.format(_build.SRC_DIR, name)) as f:
+            text = f.read()
+        assert '#include "lstm_bwd_cluster.cuh"' in text
+        assert 'lstm_bwd_cluster::recurrence(' in text
+        assert '#include "lstm_fwd_cluster.cuh"' not in text
+    src = tmp_path / 'csrc'
+    src.mkdir()
+    for fname in ('bilstm_bwd.cu', 'lstm_bwd.cu', 'lstm_common.cuh',
+                  'lstm_bwd_cluster.cuh'):
+        with open('{}/{}'.format(_build.SRC_DIR, fname)) as f:
+            (src / fname).write_text(f.read())
+    monkeypatch.setattr(_build, 'SRC_DIR', str(src))
+    before = {n: _build._target(n) for n in ('bilstm_bwd', 'lstm_bwd')}
+    with open(src / 'lstm_bwd_cluster.cuh', 'a') as f:
+        f.write('// edited\n')
+    assert all(_build._target(n) != t for n, t in before.items())
+
+
 def test_ablation_tool_matches_the_kernel_source():
-    """``tools/ablate_lstm_bwd`` edits the recurrence by text: each edit's
-    anchor is in ``csrc/lstm_bwd.cu`` exactly once, and the tool refuses
-    to run without a card."""
+    """``tools/ablate_lstm_bwd`` edits the backward recurrence by text: each
+    edit's anchor is in ``csrc/lstm_bwd_cluster.cuh`` exactly once, the
+    combined ablation applies cleanly, both backward kernels are timed,
+    and the tool refuses to run without a card."""
     import pytest
     import torch
     from lstm_ctc_ocr_torch.tools import ablate_lstm_bwd
-    with open('{}/lstm_bwd.cu'.format(_build.SRC_DIR)) as f:
+    assert ablate_lstm_bwd.HEADER == 'lstm_bwd_cluster.cuh'
+    with open('{}/{}'.format(_build.SRC_DIR, ablate_lstm_bwd.HEADER)) as f:
         source = f.read()
     for name, edits in ablate_lstm_bwd.ABLATIONS.items():
-        for old, _ in edits:
-            assert source.count(old) == 1, (name, old)
+        text = source
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert (text == source) == (name == 'full'), name
     assert len(ablate_lstm_bwd.ABLATIONS['dg_only']) == 3
+    assert ablate_lstm_bwd.KERNELS == {
+        'lstm_bwd': (512, 'lstm_bwd_cluster_kernel'),
+        'bilstm_bwd': (256, 'bilstm_bwd_cluster_kernel')}
+    for name, (_, kernel) in ablate_lstm_bwd.KERNELS.items():
+        with open('{}/{}.cu'.format(_build.SRC_DIR, name)) as f:
+            assert kernel + '(' in f.read()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             ablate_lstm_bwd.main()

@@ -161,8 +161,8 @@ def test_cluster_reports(cuda_device):
     """Each bf16 cluster kernel reports its shape at the main path's widths,
     at least one such cluster fits the card, and a failed launch's error
     names the shape."""
-    for name, h in (('bilstm_fwd', 256), ('lstm_fwd', 512),
-                    ('lstm_bwd', 512)):
+    for name, h in (('bilstm_fwd', 256), ('bilstm_bwd', 256),
+                    ('lstm_fwd', 512), ('lstm_bwd', 512)):
         units = rnn_cuda.units_per_block(h)
         rep = rnn_cuda.cluster_report(name, h, units)
         assert rep['blocks'] == 16 and rep['threads'] == 16 * units
@@ -235,6 +235,46 @@ def test_bilstm_bwd_kernel_matches_reference(cuda_device, dtype, t, n):
         scale = max(float(w.abs().max()), 1e-6)
         tol = 1e-4 * scale if dt == torch.float32 else 4 * scale / 256.0
         assert float((g.float() - w).abs().max()) <= tol, i
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('t,n,h', [(23, 37, 256), (111, 64, 256), (1, 5, 256),
+                                   (11, 1, 8), (6, 20, 136), (4, 17, 200)])
+def test_bilstm_bwd_cluster_edges_and_determinism(cuda_device, dtype, t, n,
+                                                  h):
+    """``bilstm_bwd`` at the edges of the bf16 cluster tiling, both
+    directions: rows that die at different t inside one 16-row group and a
+    row of length 0; T = 1 (both directions' carries are zero); a partial
+    last row group (N = 37, 5, 1, 20, 17); H from one block of 8 units to
+    16 blocks of 16, and H = 136 and 200, whose last cluster block owns
+    fewer units than the others. Two calls are bit-identical, and dead
+    steps give dx = 0."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(3 * t + n + h)
+
+    def mk(*shape, scale=1.0):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                * scale).to(cuda_device, dt)
+    lens = _ragged_lens(t, n, cuda_device)
+    uf, ub = mk(h, 4 * h, scale=h ** -0.5), mk(h, 4 * h, scale=h ** -0.5)
+    _, gf, hf, cf, _, gb, hb, cb = rnn_cuda.bilstm_fwd(
+        mk(t, n, 4 * h), mk(t, n, 4 * h), uf, ub, mk(4 * h, scale=0.1),
+        mk(4 * h, scale=0.1), lens, save_residuals=True)
+    args = (mk(t, n, h), mk(t, n, h), gf, hf, cf, gb, hb, cb, uf, ub, lens)
+    before = rnn_cuda.bilstm_bwd.launches
+    got = rnn_cuda.bilstm_bwd(*args)
+    again = rnn_cuda.bilstm_bwd(*args)
+    assert rnn_cuda.bilstm_bwd.launches == before + 2
+    want = rnn_cuda.bilstm_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for i, (g, a, w) in enumerate(zip(got, again, want)):
+        assert torch.equal(g, a), i
+        w = w.float()
+        scale = max(float(w.abs().max()), 1e-6)
+        tol = 1e-4 * scale if dt == torch.float32 else 4 * scale / 256.0
+        assert float((g.float() - w).abs().max()) <= tol, i
+    dead = torch.arange(t, device=cuda_device)[:, None] >= lens[None, :]
+    assert not got[0][dead].any() and not got[1][dead].any()
 
 
 def test_bilstm_gradients_through_kernels(cuda_device):
@@ -310,6 +350,42 @@ def test_ctc_kernels_match_reference(cuda_device, t, l):
     torch.testing.assert_close(logz, logz_r, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(alphas, alphas_r, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(grad, grad_r, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('t,l', [(40, 15), (40, 16), (80, 31), (80, 32)])
+def test_ctc_bwd_paths_on_both_sides_of_each_boundary(cuda_device, t, l):
+    """``ctc_bwd``'s warp path with one state a lane (S = 31), with two
+    (S = 33 and 63) and the block kernel past it (S = 65): each within 1e-5
+    of the plain version, two calls bit-identical, and the same bits from
+    copies of the inputs that start 4 bytes past a 16-byte boundary."""
+    rng = np.random.RandomState(7 * t + l)
+    logits, labels, label_lens, logit_lens = _ctc_case(rng, 37, t, l)
+    dev = cuda_device
+    logp = torch.log_softmax(torch.from_numpy(logits).to(dev), -1)
+    ext = ctc.extended_labels(torch.from_numpy(labels).to(dev))
+    tl = torch.from_numpy(logit_lens).to(dev)
+    skip, final, valid = (ctc._as_additive(m) for m in ctc._transition_masks(
+        ext, torch.from_numpy(label_lens).to(dev)))
+    g = ctc._gather_logp(logp, ext, tl).contiguous()
+    assert g.shape[2] == 2 * l + 1
+    logz, alphas = ctc.ctc_forward_reference(g, skip, valid, final)
+    before = ctc_cuda.ctc_backward.launches
+    grad = ctc_cuda.ctc_backward(g, skip, valid, final, alphas, logz, tl)
+    again = ctc_cuda.ctc_backward(g, skip, valid, final, alphas, logz, tl)
+    torch.cuda.synchronize()
+    assert ctc_cuda.ctc_backward.launches == before + 2
+    assert torch.equal(grad, again)
+    want = ctc.ctc_backward_reference(g, skip, valid, final, alphas, logz, tl)
+    assert float(logz[2]) <= ctc.NEG_INF / 2 and not grad[2].any()
+    torch.testing.assert_close(grad, want, rtol=1e-5, atol=1e-5)
+
+    def off16(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:].copy_(x.reshape(-1))
+        return buf[1:].view(x.shape)
+    shifted = [off16(x) for x in (g, skip, valid, final, alphas, logz, tl)]
+    assert all(x.data_ptr() % 16 == 4 for x in shifted)
+    assert torch.equal(ctc_cuda.ctc_backward(*shifted), grad)
 
 
 def test_ctc_loss_on_cuda_matches_cpu(cuda_device):
