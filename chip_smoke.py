@@ -30,26 +30,31 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``ctc_fwd`` and ``ctc_bwd`` (vs ``ctc_forward_reference`` /
    ``ctc_backward_reference``) at batch 64 with T=23, L=6 and T=111, L=24,
    and (checked, not timed) with L=15/16 and L=31/32 (both sides of each
-   path boundary of ``ctc_bwd``: one warp per example with one or two
+   path boundary of both kernels: one warp per example with one or two
    states a lane up to S=64, one block per example past it), L=64 and
-   L=511, the longest label one block of threads holds, each batch ragged
-   with an empty label, an infeasible example and a one-frame example: f32
-   <= 1e-5 on logZ, alphas and gradient, two ``ctc_bwd`` calls
-   bit-identical. ``conv_bn`` (``conv3x3_bn_relu`` vs its plain version and
-   vs the unfused ``ConvSingle`` layer, through ``tools/bench_conv_bn``'s
-   functions) at the conv4_1 and conv4_2 geometry, batch 64: f32 <= 2e-5
-   absolute and relative, bf16 <= 2e-2, two runs bit-identical. Then
+   L=511, the longest label one block of threads holds, L=0 alone, T=1,
+   T=15/16/17 and 31/32/33 (around one and two chunks of the warp kernels'
+   ring) and batch 1, each batch ragged with an empty label, an infeasible
+   example and a one-frame example where it is long enough: ``ctc_fwd``'s
+   logZ and alphas bit-identical to the plain version, the gradient f32
+   <= 1e-5, two calls of each bit-identical. ``conv_bn``
+   (``conv3x3_bn_relu`` vs its plain version and vs the unfused
+   ``ConvSingle`` layer, through ``tools/bench_conv_bn``'s functions) at
+   the conv4_1 and conv4_2 geometry, batch 64: f32 <= 2e-5 absolute and
+   relative, bf16 <= 2e-2, two runs bit-identical. Then
    CUDA-event timings (median of 50 after warm-up) of each kernel's
    wrapper call, and the kernel's own device time from ``torch.profiler``
    (null, and no failure, where the profiler's device tracing comes back
    empty), beside its plain
    version, its bound and a library yardstick: cuDNN's ``torch.nn.LSTM`` on
    a packed sequence (bidirectional or one direction; forward, and backward
-   alone), ``torch.nn.functional.ctc_loss`` forward+backward, and the
+   alone), ``torch.nn.functional.ctc_loss`` forward alone (for
+   ``ctc_fwd``) and forward+backward (for ``ctc_bwd``), and the
    unfused cuDNN conv + BN + ReLU layer (plain versions: median of 10).
    Yardsticks are timed here only; the port never calls them. For the
    redesigned kernels (``conv_bn``, ``lstm_bwd``, ``lstm_fwd``,
-   ``bilstm_fwd`` and ``bilstm_bwd``, each in bf16, and ``ctc_bwd``) the
+   ``bilstm_fwd`` and ``bilstm_bwd``, each in bf16, ``ctc_fwd`` and
+   ``ctc_bwd``) the
    phase also prints each device kernel's registers, shared memory and
    spills from the build's ptxas report and the TFLOP/s it reached on the
    device beside its bound, for the four cluster kernels the cluster's
@@ -300,27 +305,37 @@ def cudnn_backward_yardstick(c):
 
 
 def ctc_case(ctc, t_len, l_max, seed, n=64, c=64):
-    """A ragged CTC batch on the card with a repeated label, an empty label
-    (row 1), an infeasible example (row 2) and a one-frame example (row 3),
-    and the kernels' inputs made from it."""
+    """A ragged CTC batch on the card with a full-length example (row 0,
+    its label repeating a character where L > 1), an empty label (row 1),
+    an infeasible example (row 2, where L > 1) and a one-frame example (row
+    3), as far as N reaches, and the kernels' inputs made from it."""
     rng = np.random.RandomState(seed)
     logits = (rng.randn(n, t_len, c) * 2).astype(np.float32)
     labels = rng.randint(1, c, (n, l_max)).astype(np.int32)
-    label_lens = rng.randint(max(1, l_max - 2), l_max + 1, n).astype(np.int32)
+    label_lens = rng.randint(min(max(1, l_max - 2), l_max), l_max + 1,
+                             n).astype(np.int32)
     logit_lens = rng.randint(max(1, t_len - 8), t_len + 1, n).astype(np.int32)
-    labels[0, 1] = labels[0, 0]
+    if l_max > 1:
+        labels[0, 1] = labels[0, 0]
     label_lens[0], logit_lens[0] = l_max, t_len
-    label_lens[1] = 0
-    label_lens[2], logit_lens[2] = l_max, l_max - 1
-    label_lens[3], logit_lens[3] = 1, 1
+    if n > 1:
+        label_lens[1] = 0
+    if n > 2 and l_max > 1:
+        label_lens[2], logit_lens[2] = l_max, l_max - 1
+    if n > 3:
+        label_lens[3], logit_lens[3] = min(1, l_max), 1
     for i in range(n):
         labels[i, label_lens[i]:] = 0
     case = {k: torch.from_numpy(v).cuda() for k, v in (
         ('logits', logits), ('labels', labels), ('label_lens', label_lens),
         ('logit_lens', logit_lens))}
     ext = ctc.extended_labels(case['labels'])
-    skip, final, valid = (ctc._as_additive(m) for m in
-                          ctc._transition_masks(ext, case['label_lens']))
+    # a label matrix of width 0 (L=0) gets a two-wide skip mask from
+    # _transition_masks (the JAX package's does the same); the one state's
+    # is its first column
+    skip, final, valid = (ctc._as_additive(m)[:, :ext.shape[1]].contiguous()
+                          for m in ctc._transition_masks(
+                              ext, case['label_lens']))
     logp = torch.log_softmax(case['logits'], dim=-1)
     case['g'] = ctc._gather_logp(logp, ext, case['logit_lens']).contiguous()
     case['masks'] = (skip, valid, final)
@@ -345,9 +360,11 @@ def ctc_bound_ms(case, backward):
 
 
 def ctc_library_yardstick(case):
-    """``torch.nn.functional.ctc_loss`` forward + backward on the case (the
+    """``torch.nn.functional.ctc_loss`` on the case: forward + backward (the
     one library call that computes what ``ctc_fwd`` and ``ctc_bwd`` compute
-    together); returns the callable and its per-example losses."""
+    together) and the forward alone under ``torch.no_grad()`` (the alpha
+    recursion and the loss, what ``ctc_fwd`` computes); returns the two
+    callables and the per-example losses."""
     lp = torch.log_softmax(case['logits'], dim=-1).transpose(0, 1) \
         .contiguous().requires_grad_()
     args = (case['labels'].long(), case['logit_lens'].long(),
@@ -358,11 +375,13 @@ def ctc_library_yardstick(case):
                                             reduction='sum',
                                             zero_infinity=True)
         return torch.autograd.grad(loss, lp)
-    with torch.no_grad():
-        losses = torch.nn.functional.ctc_loss(lp, *args, blank=0,
-                                              reduction='none',
-                                              zero_infinity=True)
-    return run, losses
+
+    def forward():
+        with torch.no_grad():
+            return torch.nn.functional.ctc_loss(lp, *args, blank=0,
+                                                reduction='none',
+                                                zero_infinity=True)
+    return run, forward, forward()
 
 
 def cudnn_lstm(x, lens, directions, forget_bias=1.0):
@@ -845,32 +864,46 @@ def bilstm_bwd_phase(rnn_cuda, build):
     return errs, timings
 
 
-# (label, T, L, timed): the main path (S=13, the warp backward with K=1),
-# longline (S=49, K=2), both sides of each of the backward's path
-# boundaries (S=31/33: K=1/2; S=63/65: K=2/the block kernel), and the block
-# kernel's widths up to its 1023 states
-CTC_CASES = [('N=64 T=23 L=6', 23, 6, True),
-             ('N=64 T=111 L=24', 111, 24, True),
-             ('N=64 T=50 L=15', 50, 15, False),
-             ('N=64 T=50 L=16', 50, 16, False),
-             ('N=64 T=100 L=31', 100, 31, False),
-             ('N=64 T=100 L=32', 100, 32, False),
-             ('N=64 T=160 L=64', 160, 64, False),
-             ('N=64 T=560 L=511', 560, 511, False)]
+# (label, T, L, N, timed): the main path (S=13, the warp kernels with K=1),
+# longline (S=49, K=2), both sides of each of the kernels' path boundaries
+# (S=31/33: K=1/2; S=63/65: K=2/the block kernels), the block kernels'
+# widths up to their 1023 states, and the warp kernels' edges: one state
+# (L=0 alone), T=1, T on both sides of one and two ring chunks (16 steps
+# each), one example
+CTC_CASES = [('N=64 T=23 L=6', 23, 6, 64, True),
+             ('N=64 T=111 L=24', 111, 24, 64, True),
+             ('N=64 T=50 L=15', 50, 15, 64, False),
+             ('N=64 T=50 L=16', 50, 16, 64, False),
+             ('N=64 T=100 L=31', 100, 31, 64, False),
+             ('N=64 T=100 L=32', 100, 32, 64, False),
+             ('N=64 T=160 L=64', 160, 64, 64, False),
+             ('N=64 T=560 L=511', 560, 511, 64, False),
+             ('N=64 T=23 L=0', 23, 0, 64, False),
+             ('N=64 T=1 L=6', 1, 6, 64, False),
+             ('N=64 T=15 L=6', 15, 6, 64, False),
+             ('N=64 T=16 L=6', 16, 6, 64, False),
+             ('N=64 T=17 L=6', 17, 6, 64, False),
+             ('N=64 T=31 L=15', 31, 15, 64, False),
+             ('N=64 T=32 L=24', 32, 24, 64, False),
+             ('N=64 T=33 L=24', 33, 24, 64, False),
+             ('N=1 T=23 L=6', 23, 6, 1, False),
+             ('N=1 T=111 L=24', 111, 24, 1, False)]
 
 
 def ctc_phase(ctc, ctc_cuda, build):
     """``ctc_fwd`` / ``ctc_bwd`` against their plain versions on every case
-    (``ctc_bwd`` also two calls bit-identical), then timings beside
-    ``torch.nn.functional.ctc_loss``."""
+    (``ctc_fwd`` bit-identical; two calls of each bit-identical), then
+    timings beside ``torch.nn.functional.ctc_loss``."""
     errs, timings = {}, {}
     timings['ptxas'] = ptxas_report(build, 'ctc', [
+        'ctc_fwd_warp_kernelILi1', 'ctc_fwd_warp_kernelILi2',
         'ctc_bwd_warp_kernelILi1', 'ctc_bwd_warp_kernelILi2',
         'ctc_bwd_kernel', 'ctc_fwd_kernel'])
-    for label, t_len, l_max, timed in CTC_CASES:
-        case = ctc_case(ctc, t_len, l_max, seed=t_len)
+    for label, t_len, l_max, n, timed in CTC_CASES:
+        case = ctc_case(ctc, t_len, l_max, seed=t_len, n=n)
         g, masks, lens = case['g'], case['masks'], case['logit_lens']
         logz, alphas = ctc_cuda.ctc_forward(g, *masks)
+        logz2, alphas2 = ctc_cuda.ctc_forward(g, *masks)
         grad = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
         again = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
         logz_r, alphas_r = ctc.ctc_forward_reference(g, *masks)
@@ -880,29 +913,38 @@ def ctc_phase(ctc, ctc_cuda, build):
         def close(a, b):
             return float((a - b).abs().max()), bool(
                 ((a - b).abs() <= 1e-5 + 1e-5 * b.abs()).all())
-        e_z, ok_z = close(logz, logz_r)
-        e_a, ok_a = close(alphas, alphas_r)
+        e_z, _ = close(logz, logz_r)
+        e_a, _ = close(alphas, alphas_r)
         e_g, ok_g = close(grad, grad_r)
-        special = (float(logz[2]) <= ctc.NEG_INF / 2 and not bool(grad[2].any())
-                   and bool(torch.isfinite(logz[1])))
-        same = torch.equal(grad, again)
+        fwd_equal = torch.equal(logz, logz_r) and torch.equal(alphas, alphas_r)
+        special = True
+        if n > 1:                                  # the empty label
+            special = bool(torch.isfinite(logz[1]))
+        if n > 2 and l_max > 1:                    # the infeasible example
+            special = special and float(logz[2]) <= ctc.NEG_INF / 2 \
+                and not bool(grad[2].any())
+        same = (torch.equal(grad, again) and torch.equal(logz, logz2)
+                and torch.equal(alphas, alphas2))
         print('ctc check {:16s} S={:4d} max|diff| logz {:.2e} alphas {:.2e} '
-              'grad {:.2e}; infeasible row: zero gradient, empty label '
-              'finite: {}; two ctc_bwd calls bit-identical: {}'.format(
-                  label, g.shape[2], e_z, e_a, e_g, special, same),
+              'grad {:.2e}; ctc_fwd bit-identical to its plain version: {}; '
+              'infeasible row: zero gradient, empty label finite: {}; two '
+              'calls of each bit-identical: {}'.format(
+                  label, g.shape[2], e_z, e_a, e_g, fwd_equal, special, same),
               flush=True)
-        check(ok_z and ok_a and ok_g and special and same,
-              'ctc {}: out of tolerance or calls differ'.format(label))
+        check(fwd_equal and ok_g and special and same,
+              'ctc {}: out of tolerance, not bit-identical or calls differ'
+              .format(label))
         errs[label] = {'ctc_fwd': max(e_z, e_a), 'ctc_bwd': e_g}
         if not timed:
             continue
 
-        lib, lib_losses = ctc_library_yardstick(case)
+        lib, lib_fwd, lib_losses = ctc_library_yardstick(case)
         feasible = logz > ctc.NEG_INF / 2
         row = {
             'fwd_ms': median_ms(lambda: ctc_cuda.ctc_forward(g, *masks)),
             'fwd_device_ms': device_ms(
-                lambda: ctc_cuda.ctc_forward(g, *masks), ['ctc_fwd_kernel']),
+                lambda: ctc_cuda.ctc_forward(g, *masks), ['ctc_fwd_']),
+            'fwd_host_ms': host_ms(lambda: ctc_cuda.ctc_forward(g, *masks)),
             'bwd_ms': median_ms(lambda: ctc_cuda.ctc_backward(
                 g, *masks, alphas, logz, lens)),
             'bwd_device_ms': device_ms(lambda: ctc_cuda.ctc_backward(
@@ -916,15 +958,18 @@ def ctc_phase(ctc, ctc_cuda, build):
                 lambda: ctc.ctc_backward_reference(g, *masks, alphas_r,
                                                    logz_r, lens), reps=10,
                 warmup=2),
+            'library_fwd_ms': median_ms(lib_fwd),
             'library_fwd_bwd_ms': median_ms(lib),
             'library_vs_kernel_max_abs_diff': float(
                 (lib_losses + logz)[feasible].abs().max()),
         }
         row['fwd_bound_ms'], row['fwd_bound_by'] = ctc_bound_ms(case, False)
         row['bwd_bound_ms'], row['bwd_bound_by'] = ctc_bound_ms(case, True)
-        row['bwd_device_tflops'] = achieved(
-            'ctc_bwd ' + label, 14 * g.numel(), row['bwd_device_ms'],
-            (row['bwd_bound_ms'], row['bwd_bound_by']))
+        for d in ('fwd', 'bwd'):
+            row[d + '_device_tflops'] = achieved(
+                'ctc_{} {}'.format(d, label), 14 * g.numel(),
+                row[d + '_device_ms'],
+                (row[d + '_bound_ms'], row[d + '_bound_by']))
         timings[label] = row
         print('ctc timing {:16s} {}'.format(label, json.dumps(row)),
               flush=True)
@@ -1590,10 +1635,17 @@ def main():
         'plain_ms': ctc_row['fwd_plain_ms'],
         'bound_ms': ctc_row['fwd_bound_ms'],
         'bound_by': ctc_row['fwd_bound_by'],
-        'library_ms': ctc_row['library_fwd_bwd_ms'],
-        'library': 'torch.nn.functional.ctc_loss forward+backward, which '
-                   'covers ctc_fwd and ctc_bwd together',
+        'library_ms': ctc_row['library_fwd_ms'],
+        'library': 'torch.nn.functional.ctc_loss forward alone under '
+                   'torch.no_grad(): the alpha recursion and the loss',
         'shape': 'f32 T=23 N=64 S=13',
+        'device_tflops': ctc_row['fwd_device_tflops'],
+        'host_ms': ctc_row['fwd_host_ms'],
+        'ptxas': ctc_timings['ptxas'],
+        't111': dict({k[4:]: ctc111[k] for k in (
+            'fwd_ms', 'fwd_device_ms', 'fwd_host_ms', 'fwd_plain_ms',
+            'fwd_bound_ms', 'fwd_device_tflops')},
+            library_ms=ctc111['library_fwd_ms']),
     }), dict(common, **ctc_launches('ctc_bwd'), **{
         'name': 'ctc_bwd',
         'source': 'lstm_ctc_ocr_torch/csrc/ctc.cu',

@@ -27,36 +27,39 @@
 // (or grad) once, a few KB. It is latency-bound, far above its byte bound.
 //
 // Design: the TPU kernel put 8 examples on sublanes and S (padded to 128)
-// on lanes and kept alpha in VMEM scratch across a fori_loop. Here one block
-// of S rounded up to a warp multiple (32..1024 threads) owns one example:
-// thread s keeps alpha[s] (beta[s]) in a register for the whole time loop,
-// and the s-1, s-2 (s+1, s+2) neighbours come from a double-buffered
-// shared-memory row with two NEG pad cells, one __syncthreads per step. The
-// next step's g is loaded before the current step's math so the load is off
-// the dependent chain. Threads past S carry NEG and write nothing. The
-// batch needs no padding. A block holds at most 1024 threads, so S <= 1023:
-// labels of up to 511 characters, where the TPU kernel's one 128-lane row
-// stopped at 63.
+// on lanes and kept alpha in VMEM scratch across a fori_loop. Here rows of
+// up to 64 states (labels of up to 31 characters: every tracked config;
+// the main path has S = 13, longline S = 49) run one warp per example, a
+// block of one warp: ctc_fwd_warp_kernel and ctc_bwd_warp_kernel (on an
+// H100, blocks of several warps -- examples -- ran each warp's chain
+// slower at S = 49, as the SM's warps contend for the steps' shared
+// memory reads, and no faster at S = 13). Lane l holds alpha (beta) for
+// the K consecutive states l K .. l K + K - 1 (K = 1 up to S = 32, 2 up
+// to 64) in registers; the s-1 and s-2 (s+1 and s+2) neighbours come from
+// the lane's own registers or from __shfl_up_sync (__shfl_down_sync), NEG
+// past the warp's ends, so the step chain has no shared-memory round trip
+// and no barrier. The example's rows reach shared memory ahead of the
+// chain -- g for the forward, g and alphas for the backward -- through a
+// ring of two stages of kChunk time steps each, filled with cp.async one
+// chunk ahead (16-byte copies, each chunk shifted in its stage so that
+// shared and global addresses agree mod 16, since a row of S floats is not
+// 16-byte aligned for odd S), so the chain reads only shared memory, and
+// any T fits in a bounded ring. alphas (grad) are stored straight to
+// global memory with a predicated store, off the chain; the backward
+// computes each step's gradient beside the next step's recursion. The
+// forward's logZ is a warp reduction over the lanes' final states. The
+// per-state arithmetic, its order and the masks are those of the block
+// kernels, so both forms give the same bits.
 //
-// The backward for S <= 64 (labels of up to 31 characters: every tracked
-// config; the main path has S = 13, longline S = 49) runs
-// ctc_bwd_warp_kernel instead: one warp per example, a block of one warp
-// (on an H100, blocks of several warps -- examples -- ran each warp's
-// chain slower at S = 49, as the SM's warps contend for the steps' shared
-// memory reads, and no faster at S = 13). Lane l holds beta for the K
-// consecutive states l K .. l K + K - 1
-// (K = 1 up to S = 32, 2 up to 64) in registers; the s+1 and s+2
-// neighbours come from the lane's own registers or from __shfl_down_sync,
-// NEG past the warp, so the step chain has no shared-memory round trip and
-// no barrier. The example's g and alphas rows reach shared memory ahead of
-// the chain: a ring of two stages of kChunk time steps each, filled with
-// cp.async one chunk ahead (16-byte copies, each chunk shifted in its stage
-// so that shared and global addresses agree mod 16, since a row of S floats
-// is not 16-byte aligned for odd S), so the chain reads only shared memory,
-// and any T fits in a bounded ring. grad is stored straight to global
-// memory, and each step's gradient is computed beside the next step's
-// recursion, off its chain. The per-state arithmetic, its order and the
-// masks are those of ctc_bwd_kernel, so both give the same bits.
+// Longer rows take ctc_fwd_kernel and ctc_bwd_kernel: one block of S
+// rounded up to a warp multiple (32..1024 threads) per example, thread s
+// keeping alpha[s] (beta[s]) in a register, the neighbours from a
+// double-buffered shared-memory row with two NEG pad cells, one
+// __syncthreads per step, the next step's g loaded before the current
+// step's math. Threads past S carry NEG and write nothing. A block holds
+// at most 1024 threads, so S <= 1023: labels of up to 511 characters,
+// where the TPU kernel's one 128-lane row stopped at 63. The batch needs
+// no padding in either form.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
@@ -73,7 +76,7 @@ namespace {
 constexpr float kNeg = -1e30f;
 constexpr int kMaxThreads = 1024;  // one thread per state, S <= 1023
 constexpr int kMaxStates = kMaxThreads - 1;   // labels up to 511 characters
-constexpr int kWarpMaxStates = 64;    // the warp backward: 32 lanes x K <= 2
+constexpr int kWarpMaxStates = 64;    // the warp kernels: 32 lanes x K <= 2
 constexpr int kChunk = 16;            // time steps a ring stage holds
 
 // Floats of one half (g or alphas) of a ring stage: kChunk rows of S, 3
@@ -241,6 +244,147 @@ __device__ __forceinline__ void store_if(float* p, float v, bool on) {
       "{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n"
       " @q st.global.f32 [%0], %1;\n}\n" ::"l"(p),
       "f"(v), "r"((unsigned)on));
+}
+
+// The forward for S <= 32 K: block n, one warp, owns example n, lane l
+// the states l K + k. Chunk c of the ascending walk holds the steps lo(c) =
+// c kChunk up to min(lo(c) + kChunk, T) - 1, staged as rows t - lo(c) of
+// stage c % 2 (kChunk x S floats of g, shifted by stage_copy by up to 3
+// floats). Chunks c and c+1 are in flight when chunk c starts; chunk c+2 is
+// issued into the same stage once every lane has finished reading chunk c.
+template <int K>
+__global__ void __launch_bounds__(32)
+ctc_fwd_warp_kernel(const float* __restrict__ g,
+                    const float* __restrict__ skip,
+                    const float* __restrict__ valid,
+                    const float* __restrict__ fin, float* __restrict__ logz,
+                    float* __restrict__ alphas, int t_len, int s_len) {
+  const int lane = threadIdx.x;
+  const int n = blockIdx.x;
+  const int stage = stage_floats(s_len);         // floats of g
+  extern __shared__ __align__(16) float mine[];  // [2][stage]
+  const long long base = (long long)n * t_len * s_len;
+  const float* gn = g + base;
+  const int n_chunks = (t_len + kChunk - 1) / kChunk;
+
+  auto issue = [&](int c) {                      // chunk c into stage c % 2
+    if (c < n_chunks) {
+      const int lo = c * kChunk;
+      const int count = (min(lo + kChunk, t_len) - lo) * s_len;
+      stage_copy(mine + (c & 1) * stage, gn + (long long)lo * s_len, count,
+                 lane);
+    }
+    cp_async_commit();                           // a group per chunk, even
+  };                                             // an empty one
+  auto rows_g = [&](int c) {                     // the rows of chunk c
+    return mine + (c & 1) * stage +
+           shift_of(gn + (long long)c * kChunk * s_len);
+  };
+  issue(0);
+  issue(1);
+
+  // per state: the s-2 -> s hop's additive mask skip[s], valid, final, and
+  // the column a row is read at (clamped below S, so that the read needs no
+  // branch: states past S take NEG in place of what they read)
+  bool act[K];
+  int col[K];
+  float sk[K], va[K], fi[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int s = lane * K + k;
+    act[k] = s < s_len;
+    col[k] = min(s, s_len - 1);
+    sk[k] = act[k] ? skip[(long long)n * s_len + s] : kNeg;
+    va[k] = act[k] ? valid[(long long)n * s_len + s] : kNeg;
+    fi[k] = act[k] ? fin[(long long)n * s_len + s] : kNeg;
+  }
+  // this lane's g of one step from its row in a stage
+  auto read = [&](const float* gs, int row, float (&gt)[K]) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float gv = gs[row + col[k]];
+      gt[k] = act[k] ? gv : kNeg;
+    }
+  };
+  // this lane's alphas of one step, stored at row (alphas' row of the step)
+  auto emit = [&](float* row, const float (&alpha)[K]) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) store_if(row + lane * K + k, alpha[k], act[k]);
+  };
+
+  // Step 0 is not clamped: states past 1 start at NEG + valid, which is
+  // -2e30 where valid is NEG, as in the plain version.
+  lstm_common::cp_async_wait<1>();               // this lane's part of chunk 0
+  __syncwarp();                                  // ... and every lane's
+  float alpha[K];
+  float* alpha_row = alphas + base;              // alphas' row of step t
+  {
+    float g0[K];
+    read(rows_g(0), 0, g0);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      alpha[k] = (lane * K + k <= 1 ? g0[k] : kNeg) + va[k];
+    emit(alpha_row, alpha);
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c > 0) {
+      lstm_common::cp_async_wait<1>();           // this lane's part of c
+      __syncwarp();                              // ... and every lane's
+    }
+    const int lo = c * kChunk;
+    const int hi = min(lo + kChunk, t_len);
+    const float* gs = rows_g(c);
+    for (int t = c == 0 ? 1 : lo; t < hi; ++t) {
+      float gt[K];
+      read(gs, (t - lo) * s_len, gt);
+      float pv[K];                               // the previous lane's
+#pragma unroll                                   // states, NEG below lane 0
+      for (int k = 0; k < K; ++k) {
+        pv[k] = __shfl_up_sync(0xffffffffu, alpha[k], 1);
+        if (lane == 0) pv[k] = kNeg;
+      }
+      float one[K], two[K];
+      if constexpr (K == 1) {
+        float pv2 = __shfl_up_sync(0xffffffffu, alpha[0], 2);
+        if (lane < 2) pv2 = kNeg;
+        one[0] = pv[0];
+        two[0] = pv2;
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          one[k] = k >= 1 ? alpha[k - 1] : pv[k - 1 + K];
+          two[k] = k >= 2 ? alpha[k - 2] : pv[k - 2 + K];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        alpha[k] =
+            fmaxf(gt[k] + lse3(alpha[k], one[k], two[k] + sk[k]) + va[k], kNeg);
+      alpha_row += s_len;
+      emit(alpha_row, alpha);
+    }
+    __syncwarp();                                // stage c % 2 is read
+    issue(c + 2);
+  }
+
+  // logZ over the final states: final is 0 on at most two states and NEG on
+  // the rest (and past S), whose terms exp(. - ms) are exactly 0, so the
+  // sum has the plain version's bits in any order
+  float x[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) x[k] = alpha[k] + fi[k];
+  float m = x[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k) m = fmaxf(m, x[k]);
+  for (int d = 16; d > 0; d >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
+  const float ms = fmaxf(m, kNeg);
+  float sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) sum += expf(x[k] - ms);
+  for (int d = 16; d > 0; d >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, d);
+  if (lane == 0) logz[n] = m > 0.5f * kNeg ? ms + logf(sum) : kNeg;
 }
 
 // The backward for S <= 32 K: block n, one warp, owns example n, lane l
@@ -412,6 +556,18 @@ ctc_bwd_warp_kernel(const float* __restrict__ g,
 int block_threads(int s_len) { return ((s_len + 31) / 32) * 32; }
 
 template <int K>
+int launch_fwd_warp(const void* g, const void* skip, const void* valid,
+                    const void* fin, void* logz, void* alphas, int n_rows,
+                    int t_len, int s_len, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 2 * stage_floats(s_len);
+  ctc_fwd_warp_kernel<K><<<n_rows, 32, smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(skip),
+      static_cast<const float*>(valid), static_cast<const float*>(fin),
+      static_cast<float*>(logz), static_cast<float*>(alphas), t_len, s_len);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
 int launch_bwd_warp(const void* g, const void* skip, const void* valid,
                     const void* fin, const void* alphas, const void* logz,
                     const void* lens, void* grad, int n_rows, int t_len,
@@ -428,12 +584,21 @@ int launch_bwd_warp(const void* g, const void* skip, const void* valid,
 }  // namespace
 
 // g, alphas: [N, T, S] f32; skip, valid, fin: [N, S] f32 additive masks;
-// logz: [N] f32. Returns a cudaError_t.
+// logz: [N] f32. S <= 32 and S <= 64 run the warp kernel (K = 1, 2),
+// longer rows the block kernel. Returns a cudaError_t.
 extern "C" int ctc_fwd(const void* g, const void* skip, const void* valid,
                        const void* fin, void* logz, void* alphas, int n_rows,
                        int t_len, int s_len, void* stream) {
   if (n_rows <= 0 || t_len <= 0 || s_len <= 0 || s_len > kMaxStates)
     return (int)cudaErrorInvalidValue;
+  if (s_len <= kWarpMaxStates) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return s_len <= 32
+               ? launch_fwd_warp<1>(g, skip, valid, fin, logz, alphas, n_rows,
+                                    t_len, s_len, st)
+               : launch_fwd_warp<2>(g, skip, valid, fin, logz, alphas, n_rows,
+                                    t_len, s_len, st);
+  }
   const int threads = block_threads(s_len);
   const size_t smem = sizeof(float) * 2 * (threads + 2);
   ctc_fwd_kernel<<<n_rows, threads, smem, static_cast<cudaStream_t>(stream)>>>(

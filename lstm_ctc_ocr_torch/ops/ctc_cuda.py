@@ -14,13 +14,12 @@ one to the other. ``ctc_forward.launches`` / ``ctc_backward.launches`` count
 kernel launches.
 
 :func:`ctc_loss` is the training loss: the gather and the scatter in
-tensor ops around the two recursions. The forward runs one thread per
-extended state in one block; the backward runs one warp per example up to
-64 states (labels of up to 31 characters) and the same block form past
-that. So they take labels of up to :data:`MAX_LABEL_LEN` characters (1023
-states); the JAX package's kernel stops at 63 and hands longer labels to
-its plain version. Past :data:`MAX_LABEL_LEN`, CUDA tensors raise
-``NotImplementedError``.
+tensor ops around the two recursions. Both run one warp per example up to
+64 extended states (labels of up to 31 characters) and one block per
+example, one thread per state, past that. So they take labels of up to
+:data:`MAX_LABEL_LEN` characters (1023 states); the JAX package's kernel
+stops at 63 and hands longer labels to its plain version. Past
+:data:`MAX_LABEL_LEN`, CUDA tensors raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -136,3 +136,26 @@ def test_forward_ablation_tool_matches_the_cluster_header():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             ablate_lstm_fwd.main()
+
+
+def test_ctc_forward_ablation_tool_matches_the_kernel_source():
+    """``tools/ablate_ctc_fwd`` edits the CTC forward's warp step by text:
+    each edit's anchor is in ``csrc/ctc.cu`` exactly once, the combined
+    ablation applies cleanly, the timed kernel is the warp forward, and the
+    tool refuses to run without a card."""
+    import pytest
+    import torch
+    from lstm_ctc_ocr_torch.tools import ablate_ctc_fwd
+    with open('{}/ctc.cu'.format(_build.SRC_DIR)) as f:
+        source = f.read()
+    for name, edits in ablate_ctc_fwd.ABLATIONS.items():
+        text = source
+        for old, new in edits:
+            assert text.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert (text == source) == (name == 'full'), name
+    assert len(ablate_ctc_fwd.ABLATIONS['skeleton']) == 4
+    assert 'ctc_fwd_warp_kernel(' in source
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            ablate_ctc_fwd.main()

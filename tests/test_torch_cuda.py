@@ -10,7 +10,8 @@ sum the recurrent product in different orders); bf16 <= 4 bf16 ulps of each
 output's magnitude, 4 * max|ref| / 256, as tests/test_rnn_pallas.py
 defines it. The BiLSTM backward's f32 bar is 1e-4 relative to each
 output's largest entry (dU sums T*N products). CTC: 1e-5 on loss, alphas
-and gradient (f32 throughout, same operation order). The unidirectional
+and gradient (f32 throughout, same operation order), and the forward
+bit-identical to its plain version at its path boundaries. The unidirectional
 LSTM kernels carry the BiLSTM kernels' bars at H = 512. The fused
 conv3x3+BN+ReLU kernel: 2e-5 absolute and relative in f32, 2e-2 in bf16
 (the bars of tests/test_conv_bn_pallas.py), and two runs bit-identical, as
@@ -352,12 +353,15 @@ def test_ctc_kernels_match_reference(cuda_device, t, l):
     torch.testing.assert_close(grad, grad_r, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize('t,l', [(40, 15), (40, 16), (80, 31), (80, 32)])
+@pytest.mark.parametrize('t,l', [(40, 15), (40, 16), (80, 31), (80, 32),
+                                 (1, 6), (17, 15), (33, 24)])
 def test_ctc_bwd_paths_on_both_sides_of_each_boundary(cuda_device, t, l):
-    """``ctc_bwd``'s warp path with one state a lane (S = 31), with two
-    (S = 33 and 63) and the block kernel past it (S = 65): each within 1e-5
-    of the plain version, two calls bit-identical, and the same bits from
-    copies of the inputs that start 4 bytes past a 16-byte boundary."""
+    """The CTC kernels' warp paths with one state a lane (S = 31), with two
+    (S = 33 and 63) and the block kernels past them (S = 65), at T = 1 and
+    odd T, on a batch of 37 and on its first example alone: ``ctc_fwd``
+    bit-identical to the plain version, ``ctc_bwd`` within 1e-5 of it, two
+    calls of each bit-identical, and the same bits from copies of the
+    inputs that start 4 bytes past a 16-byte boundary."""
     rng = np.random.RandomState(7 * t + l)
     logits, labels, label_lens, logit_lens = _ctc_case(rng, 37, t, l)
     dev = cuda_device
@@ -369,11 +373,16 @@ def test_ctc_bwd_paths_on_both_sides_of_each_boundary(cuda_device, t, l):
     g = ctc._gather_logp(logp, ext, tl).contiguous()
     assert g.shape[2] == 2 * l + 1
     logz, alphas = ctc.ctc_forward_reference(g, skip, valid, final)
-    before = ctc_cuda.ctc_backward.launches
+    f0, b0 = ctc_cuda.ctc_forward.launches, ctc_cuda.ctc_backward.launches
+    fwd = ctc_cuda.ctc_forward(g, skip, valid, final)
+    fwd_again = ctc_cuda.ctc_forward(g, skip, valid, final)
     grad = ctc_cuda.ctc_backward(g, skip, valid, final, alphas, logz, tl)
     again = ctc_cuda.ctc_backward(g, skip, valid, final, alphas, logz, tl)
     torch.cuda.synchronize()
-    assert ctc_cuda.ctc_backward.launches == before + 2
+    assert ctc_cuda.ctc_forward.launches == f0 + 2
+    assert ctc_cuda.ctc_backward.launches == b0 + 2
+    for got, twice, want in zip(fwd, fwd_again, (logz, alphas)):
+        assert torch.equal(got, want) and torch.equal(twice, got)
     assert torch.equal(grad, again)
     want = ctc.ctc_backward_reference(g, skip, valid, final, alphas, logz, tl)
     assert float(logz[2]) <= ctc.NEG_INF / 2 and not grad[2].any()
@@ -386,6 +395,17 @@ def test_ctc_bwd_paths_on_both_sides_of_each_boundary(cuda_device, t, l):
     shifted = [off16(x) for x in (g, skip, valid, final, alphas, logz, tl)]
     assert all(x.data_ptr() % 16 == 4 for x in shifted)
     assert torch.equal(ctc_cuda.ctc_backward(*shifted), grad)
+    for got, want in zip(ctc_cuda.ctc_forward(*shifted[:4]), (logz, alphas)):
+        assert torch.equal(got, want)
+
+    # N = 1: the first example alone (full length, the longest label)
+    one = [x[:1].contiguous() for x in (g, skip, valid, final)]
+    for got, want in zip(ctc_cuda.ctc_forward(*one), (logz, alphas)):
+        assert torch.equal(got, want[:1])
+    torch.testing.assert_close(
+        ctc_cuda.ctc_backward(*one, alphas[:1].contiguous(),
+                              logz[:1].contiguous(), tl[:1].contiguous()),
+        grad[:1], rtol=1e-5, atol=1e-5)
 
 
 def test_ctc_loss_on_cuda_matches_cpu(cuda_device):

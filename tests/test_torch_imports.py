@@ -35,7 +35,8 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.ops.conv_bn_cuda', 'lstm_ctc_ocr_torch.ops.ctc',
     'lstm_ctc_ocr_torch.ops.ctc_cuda', 'lstm_ctc_ocr_torch.ops.decoder',
     'lstm_ctc_ocr_torch.ops.rnn', 'lstm_ctc_ocr_torch.ops.rnn_cuda',
-    'lstm_ctc_ocr_torch.tools', 'lstm_ctc_ocr_torch.tools.ablate_lstm_bwd',
+    'lstm_ctc_ocr_torch.tools', 'lstm_ctc_ocr_torch.tools.ablate_ctc_fwd',
+    'lstm_ctc_ocr_torch.tools.ablate_lstm_bwd',
     'lstm_ctc_ocr_torch.tools.ablate_lstm_fwd',
     'lstm_ctc_ocr_torch.tools.bench_conv_bn',
     'lstm_ctc_ocr_torch.utils', 'lstm_ctc_ocr_torch.utils.metrics',
