@@ -69,9 +69,27 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    accuracy must be within 2 images of the release's recorded accuracy
    (checkpoints/README.md), and ``bilstm_fwd``'s launch count must grow by
    exactly the number of decode calls.
-4. Train phase, the training path, at the full width of
+4. Synthetic-stream phase, the default feed of ``lstm/lstm.yml``
+   (``DATA_BACKEND: synth``, ``RENDERER: native``; the GPU machine has no
+   Pillow): (a) the native renderer (``native/synth.cpp``, built with g++,
+   and the committed glyph atlas) regenerates all 500
+   ``data/val_digit4_native`` PNGs, which the JAX package wrote, with the
+   same labels from ``gen_rand`` and the same seeds — 500/500 bit-identical,
+   labels and pixels; (b) host images/s of ``get_batch`` at batch 64, inline
+   and with ``effective_workers(TRAIN.NUM_WORKERS)`` fork workers started
+   in this process, which holds a CUDA context, beside ``os.cpu_count()``;
+   (c) 60 steps of ``lstm/lstm.yml`` at full width (batch 64, bf16, Adam)
+   from that stream through ``train_net`` — every loss finite, the mean of
+   the last 10 below that of the first 10, ``bilstm_fwd``, ``bilstm_bwd``,
+   ``ctc_fwd`` and ``ctc_bwd`` each launched once a step and ``bilstm_fwd``
+   also once per validation decode on the synthetic validation batch — then
+   steps/s over warm steps, CUDA-synchronised; (d) five steps through the
+   training CLI with ``DATA_BACKEND pool``, ``POOL_SIZE 512``: finite
+   losses, the four kernels once a step.
+5. Train phase, the training path, at the full width of
    ``lstm/lstm.yml`` (batch 64, bf16, Adam) on a records file written on
-   the spot from ``data/val``: (a) 60 steps from a fresh init through
+   the spot from ``data/val``, validating on the synthetic stream with the
+   native renderer: (a) 60 steps from a fresh init through
    ``train_net`` — every loss finite, the mean of the last 10 below that of
    the first 10, and each of the four kernels launched exactly once a step
    (``bilstm_fwd`` also once per validation decode); (b) 20 steps of
@@ -82,8 +100,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    with the kernels against the same step with the plain versions put in
    their place: each tensor within 1e-4 of its largest entry (or of 1e-3 of
    the largest gradient overall, for the tensors whose true gradient is
-   zero); then steps/s and images/s over warm steps, CUDA-synchronised.
-5. Stacked-LSTM phase: the model a user gets by overriding
+   zero); then steps/s and images/s over warm steps, CUDA-synchronised,
+   printed beside the synthetic feed's in the same run.
+6. Stacked-LSTM phase: the model a user gets by overriding
    ``LSTM_train.make_head`` with two stacked unidirectional LSTMs of 512
    units, at full width (conv stack 64-512, 64 classes, batch 64, bf16,
    Adam, the same records file): 60 steps from a seed through ``train_net``
@@ -94,18 +113,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    gradient comparison of 4(c) (zero-gradient tensors held to 1e-2 of the
    largest gradient overall), the rate and a profile with the device busy
    ms per step.
-6. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
+7. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
    warm train steps: device time by kernel and the device's busy share of
    the wall.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
-seven kernels; the last line is ``{"ok": true, "device": {...}}``. Per-image
-eval lines and the training runs' output go to ``chiprun_out/``.
+seven kernels (and the rates and the synthetic stream's numbers); the last
+line is ``{"ok": true, "device": {...}}``. Per-image eval lines and the
+training runs' output go to ``chiprun_out/``.
 """
 
 import contextlib
+import io
 import json
 import os
+import random
 import re
 import shutil
 import statistics
@@ -1128,9 +1150,11 @@ def profile_phase(test_mod, load_cfg, reps=5):
 
 
 def train_overrides(records_path, exp):
+    # the solver validates on the synthetic stream whatever the backend;
+    # the GPU machine has no Pillow, so it renders with the native renderer
     return ['DATA_BACKEND', 'records', 'RECORDS_PATH', records_path,
-            'DECODER', "'greedy'", 'TRAIN.DTYPE', "'bfloat16'",
-            'EXP_DIR', exp, 'LOG_DIR', exp]
+            'RENDERER', 'native', 'DECODER', "'greedy'",
+            'TRAIN.DTYPE', "'bfloat16'", 'EXP_DIR', exp, 'LOG_DIR', exp]
 
 
 def wrappers(rnn_cuda, ctc_cuda):
@@ -1209,8 +1233,8 @@ def compare_gradients(mods, net32, cfg32, rec_path, per_step, floor=1e-3):
 
 
 def measure_rate(mods, model, optimizer, cfg, card, what, log):
-    """steps/s over 40 warm steps with the records feed, CUDA-synchronised,
-    then a profile of five more."""
+    """steps/s over 40 warm steps with the feed of ``cfg.DATA_BACKEND``,
+    CUDA-synchronised, then a profile of five more."""
     train = mods['train']
     step = train.make_train_step(model, optimizer, cfg,
                                  train.compute_dtype(cfg))
@@ -1232,10 +1256,12 @@ def measure_rate(mods, model, optimizer, cfg, card, what, log):
     dt = time.perf_counter() - t0
     rate = {'steps_per_s': n_timed / dt, 'images_per_s': 64 * n_timed / dt,
             'ms_per_step': 1e3 * dt / n_timed}
-    print('{} rate (batch 64, bf16, Adam, records feed, {} warm steps, '
+    rate['feed'] = str(cfg.DATA_BACKEND)
+    print('{} rate (batch 64, bf16, Adam, {} feed, {} warm steps, '
           'CUDA-synchronised) on {}: {:.2f} steps/s, {:.1f} images/s, {:.3f} '
-          'ms/step'.format(what, n_timed, card, rate['steps_per_s'],
-                           rate['images_per_s'], rate['ms_per_step']),
+          'ms/step'.format(what, rate['feed'], n_timed, card,
+                           rate['steps_per_s'], rate['images_per_s'],
+                           rate['ms_per_step']),
           flush=True)
     rate['device_busy_ms_per_step'] = profile_report(
         '{} step (batch 64, bf16)'.format(what), one_step, reps=5)
@@ -1243,6 +1269,170 @@ def measure_rate(mods, model, optimizer, cfg, card, what, log):
         what, rate['device_busy_ms_per_step']), flush=True)
     stream.close()
     return rate
+
+
+def stream_rate(get_batch, cfg, workers, n_batches):
+    """Host images/s of ``get_batch`` at batch 64: the first batch (worker
+    start-up) untimed, then ``n_batches`` timed."""
+    stream = get_batch(cfg, num_workers=workers, seed=int(cfg.RNG_SEED),
+                       batch_size=64, bucketed=True)
+    try:
+        next(stream)
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            next(stream)
+        return 64 * n_batches / (time.perf_counter() - t0)
+    finally:
+        stream.close()
+
+
+def synth_phase(mods, card, log):
+    """The synthetic stream, the default feed of ``lstm/lstm.yml``: (a) the
+    native renderer against the JAX package's tracked output, (b) the
+    stream's host rate, (c) 60 steps of training from it through
+    ``train_net`` and its rate, (d) the pool backend through the training
+    CLI. Returns the launch counts of (c) and (d), the rates and counts."""
+    load_cfg, train, gen = mods['load_cfg'], mods['train'], mods['gen']
+    rnn_cuda, ctc_cuda = mods['rnn_cuda'], mods['ctc_cuda']
+    image, get_network = mods['image'], mods['get_network']
+    yml = os.path.join(REPO, 'lstm', 'lstm.yml')
+    out = {}
+    t_phase = time.perf_counter()
+
+    # (a) data/val_digit4_native was written by the JAX package's offline
+    # writer: image i from random.Random(i * 9176 + 11), its label from
+    # gen_rand, its pixels from the native renderer
+    cfg = load_cfg(os.path.join(REPO, 'lstm', 'digit4.yml'),
+                   ['RENDERER', 'native'])
+    val = os.path.join(REPO, 'data', 'val_digit4_native')
+    files = sorted(os.listdir(val))
+    t0 = time.perf_counter()
+    same = 0
+    for f in files:
+        idx, label = f[:-4].split('_')
+        rng = random.Random(int(idx) * 9176 + 11)
+        chars = gen.gen_rand(cfg, rng)
+        got = gen._renderer(cfg).generate_image(chars, rng=rng)
+        want = image.load_image(os.path.join(val, f))
+        same += chars == label and got.shape == want.shape \
+            and bool(np.array_equal(got, want))
+    out['val_digit4_native_identical'] = same
+    print('synthetic stream (a): the native renderer regenerates {}/{} of '
+          'data/val_digit4_native bit for bit, labels and pixels ({:.1f} s)'
+          .format(same, len(files), time.perf_counter() - t0), flush=True)
+    check(len(files) == 500 and same == 500,
+          '{}/{} data/val_digit4_native images bit-identical'.format(
+              same, len(files)))
+
+    # (b) the stream's host rate; the kernel phases have started CUDA, so
+    # the workers fork from a process that holds a CUDA context
+    cfg = load_cfg(yml, ['RENDERER', 'native'])
+    check(str(cfg.DATA_BACKEND) == 'synth' and str(cfg.MP_START) == 'fork',
+          'lstm.yml does not default to the forked synthetic stream')
+    workers = train.effective_workers(int(cfg.TRAIN.NUM_WORKERS))
+    out['cpu_count'] = os.cpu_count()
+    out['workers'] = workers
+    out['images_per_s_inline'] = stream_rate(gen.get_batch, cfg, 0, 10)
+    out['images_per_s_workers'] = stream_rate(gen.get_batch, cfg, workers, 60)
+    print('synthetic stream (b): host images/s of get_batch at batch 64, '
+          'lstm.yml, RENDERER native: {:.1f} inline, {:.1f} with {} fork '
+          'workers (CUDA initialised in the parent: {}); os.cpu_count() {}; '
+          'on {}'.format(out['images_per_s_inline'],
+                         out['images_per_s_workers'], workers,
+                         torch.cuda.is_initialized(), out['cpu_count'], card),
+          flush=True)
+
+    # (c) 60 steps of lstm.yml at full width from the synthetic stream
+    exp = 'chip_smoke_synth'
+    shutil.rmtree(os.path.join(REPO, 'output', exp), ignore_errors=True)
+    steps, val_step = 60, 50
+    cfg = load_cfg(yml, ['RENDERER', 'native', 'DECODER', "'greedy'",
+                         'TRAIN.DTYPE', "'bfloat16'", 'EXP_DIR', exp,
+                         'LOG_DIR', exp, 'VAL.VAL_STEP', str(val_step),
+                         'TRAIN.DISPLAY', '10'])
+    check(int(cfg.TRAIN.BATCH_SIZE) == 64 and int(cfg.TRAIN.NUM_HID) == 512
+          and str(cfg.TRAIN.SOLVER) == 'Adam'
+          and str(cfg.DATA_BACKEND) == 'synth',
+          'lstm.yml is not the full-width default model on the synthetic '
+          'stream')
+    net = get_network('LSTM_train', cfg, generator=torch.Generator()
+                      .manual_seed(int(cfg.RNG_SEED)))
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        model, optimizer, losses = train.train_net(
+            net, {'name': 'chip_smoke'}, None,
+            os.path.join(REPO, 'output', exp),
+            os.path.join(REPO, 'logs', exp), cfg, max_iters=steps + 1,
+            device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(rnn_cuda, ctc_cuda)
+    val_calls = sum(1 for it in range(1, steps + 1)
+                    if (it + 1) % val_step == 0)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print('synthetic stream (c): {} steps of lstm.yml from the synthetic '
+          'stream ({} fork workers) in {:.1f} s (start-up included), total '
+          'loss first 10 {:.4f} -> last 10 {:.4f}, launches {}, {} validation'
+          ' decode(s) on the synthetic validation batch'.format(
+              len(losses), workers, wall, first, last, json.dumps(counts),
+              val_calls), flush=True)
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          'expected {} finite losses, got {}'.format(steps, losses))
+    check(last < first, 'the loss did not fall: {} -> {}'.format(first, last))
+    want = {'bilstm_fwd': steps + val_calls, 'bilstm_bwd': steps,
+            'lstm_fwd': 0, 'lstm_bwd': 0, 'ctc_fwd': steps, 'ctc_bwd': steps}
+    check(counts == want, 'launches {} over {} steps, expected {}'.format(
+        counts, steps, want))
+    out['losses_first10_last10'] = [first, last]
+    out['rate'] = measure_rate(mods, model, optimizer, cfg, card,
+                               'synthetic-feed train', log)
+
+    # (d) the pool backend through the training CLI, its cache in a scratch
+    # working directory
+    exp = 'chip_smoke_pool'
+    shutil.rmtree(os.path.join(REPO, 'output', exp), ignore_errors=True)
+    cwd = os.path.join(REPO, 'chiprun_out', exp)
+    shutil.rmtree(cwd, ignore_errors=True)
+    os.makedirs(cwd)
+    pool_steps = 5
+    text = io.StringIO()
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(text):
+            rc = train.main(['--cfg', yml, '--iters', str(pool_steps + 1),
+                             '--set', 'DATA_BACKEND', 'pool', 'POOL_SIZE',
+                             '512', 'RENDERER', 'native', 'TRAIN.DTYPE',
+                             "'bfloat16'", 'TRAIN.DISPLAY', '1',
+                             'TRAIN.LOSS_MIN_SNAPSHOT', '0.0', 'EXP_DIR', exp,
+                             'LOG_DIR', exp])
+    finally:
+        os.chdir(here)
+    torch.cuda.synchronize()
+    pool_counts = launch_counts(rnn_cuda, ctc_cuda)
+    log.write(text.getvalue())
+    pool_losses = [float(line.split('total loss: ')[1].split(',')[0])
+                   for line in text.getvalue().splitlines()
+                   if 'total loss: ' in line]
+    print('synthetic stream (d): the training CLI with DATA_BACKEND pool, '
+          'POOL_SIZE 512: {} steps, losses {}, launches {}'.format(
+              len(pool_losses), [round(v, 4) for v in pool_losses],
+              json.dumps(pool_counts)), flush=True)
+    check(rc == 0 and len(pool_losses) == pool_steps
+          and bool(np.isfinite(pool_losses).all()),
+          'pool run: rc {}, losses {}'.format(rc, pool_losses))
+    want = {'bilstm_fwd': pool_steps, 'bilstm_bwd': pool_steps,
+            'lstm_fwd': 0, 'lstm_bwd': 0, 'ctc_fwd': pool_steps,
+            'ctc_bwd': pool_steps}
+    check(pool_counts == want, 'pool run launches {}, expected {}'.format(
+        pool_counts, want))
+    out['pool_losses'] = pool_losses
+    out['seconds'] = time.perf_counter() - t_phase
+    print('synthetic stream: phase took {:.1f} s'.format(out['seconds']),
+          flush=True)
+    return counts, pool_counts, out
 
 
 def train_phase(mods, card, log):
@@ -1500,7 +1690,7 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     from lstm_ctc_ocr_torch.config import load_cfg
-    from lstm_ctc_ocr_torch.data import records
+    from lstm_ctc_ocr_torch.data import gen, image, records
     from lstm_ctc_ocr_torch.engine import test as test_mod
     from lstm_ctc_ocr_torch.engine import train
     from lstm_ctc_ocr_torch.models import crnn, layers
@@ -1545,14 +1735,23 @@ def main():
     mods = {'load_cfg': load_cfg, 'train': train, 'test': test_mod,
             'rnn_cuda': rnn_cuda, 'ctc_cuda': ctc_cuda, 'ctc': ctc,
             'records': records, 'get_network': get_network, 'crnn': crnn,
-            'layers': layers}
+            'layers': layers, 'gen': gen, 'image': image}
     with open(os.path.join(out_dir, 'chip_smoke_train.log'), 'w') as log:
+        synth_launches, pool_launches, synth = synth_phase(mods, card, log)
         train_launches, rate, rec_path = train_phase(mods, card, log)
         stacked_launches, stacked_rate = stacked_phase(mods, card, rec_path,
                                                        log)
+    print('train rate on {}: synthetic feed {:.2f} steps/s ({} fork workers, '
+          'os.cpu_count() {}), records feed {:.2f} steps/s; device busy ms '
+          'per step {} and {}'.format(
+              card, synth['rate']['steps_per_s'], synth['workers'],
+              synth['cpu_count'], rate['steps_per_s'],
+              synth['rate']['device_busy_ms_per_step'],
+              rate['device_busy_ms_per_step']), flush=True)
     for name in ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd', 'ctc_bwd'):
-        check(train_launches[name] > 0,
-              '{} was not launched on the train path'.format(name))
+        check(train_launches[name] > 0 and synth_launches[name] > 0
+              and pool_launches[name] > 0,
+              '{} was not launched on every train path'.format(name))
     for name in ('lstm_fwd', 'lstm_bwd', 'ctc_fwd', 'ctc_bwd'):
         check(stacked_launches[name] > 0,
               '{} was not launched on the stacked-LSTM path'.format(name))
@@ -1567,16 +1766,22 @@ def main():
     common = {'route': 'cuda', 'card': card, 'train_steps': 60}
 
     def ctc_launches(name):
-        return {'launches': train_launches[name] + stacked_launches[name],
-                'launches_by_path': {'train': train_launches[name],
+        return {'launches': synth_launches[name] + pool_launches[name]
+                + train_launches[name] + stacked_launches[name],
+                'launches_by_path': {'synth_train': synth_launches[name],
+                                     'pool_train': pool_launches[name],
+                                     'train': train_launches[name],
                                      'stacked_lstm': stacked_launches[name]}}
     print(json.dumps({'kernels': [dict(common, **{
         'name': 'bilstm_fwd',
         'source': 'lstm_ctc_ocr_torch/csrc/bilstm_fwd.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:398',
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_fwd_kernel',
-        'launches': eval_launches + train_launches['bilstm_fwd'],
+        'launches': eval_launches + synth_launches['bilstm_fwd']
+        + pool_launches['bilstm_fwd'] + train_launches['bilstm_fwd'],
         'launches_by_path': {'eval': eval_launches,
+                             'synth_train': synth_launches['bilstm_fwd'],
+                             'pool_train': pool_launches['bilstm_fwd'],
                              'train': train_launches['bilstm_fwd']},
         'max_abs_err': errs[('bf16 N=64 T=23', False)],
         'ms': fwd['kernel_ms'],
@@ -1604,8 +1809,11 @@ def main():
         'source': 'lstm_ctc_ocr_torch/csrc/bilstm_bwd.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:522',
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_bwd_kernel',
-        'launches': train_launches['bilstm_bwd'],
-        'launches_by_path': {'train': train_launches['bilstm_bwd']},
+        'launches': synth_launches['bilstm_bwd']
+        + pool_launches['bilstm_bwd'] + train_launches['bilstm_bwd'],
+        'launches_by_path': {'synth_train': synth_launches['bilstm_bwd'],
+                             'pool_train': pool_launches['bilstm_bwd'],
+                             'train': train_launches['bilstm_bwd']},
         'max_abs_err': bwd_errs['bf16 N=64 T=23'],
         'ms': bwd['kernel_ms'],
         'device_ms': bwd['device_ms'],
@@ -1732,6 +1940,7 @@ def main():
         'device_tflops': conv_row['device_tflops'],
         'by_shape': conv_timings,
     })], 'train': rate, 'stacked_lstm_train': stacked_rate,
+        'synthetic_stream': synth,
         'seconds': time.perf_counter() - t_start}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -14,7 +14,7 @@ Two differences from the JAX package:
 * YAML files are read by :func:`load_yaml`, a reader for the subset the
   tracked configs use, because PyYAML is not a dependency of the port.
 
-Keys the port does not read yet (synthetic data backends, parallelism,
+Keys the port does not read yet (parallelism, the device-resident feed,
 profiling) are kept with their defaults so that every config file still
 merges.
 """
@@ -123,6 +123,43 @@ def default_cfg() -> AttrDict:
     c.PROFILE_START = 20
     c.PROFILE_STEPS = 10
     return c
+
+
+def resolve_font(cfg, font=None):
+    """Resolve ``cfg.FONT`` (or ``font``) to an existing .ttf through a
+    fallback chain, the JAX package's ``config.resolve_font``.
+
+    Order: the configured path as given -> relative to the repo root -> any
+    repo-local ``fonts/*.ttf`` (serif first) -> the system DejaVu paths ->
+    the first .ttf under /usr/share/fonts. Raises FileNotFoundError with the
+    chain tried.
+    """
+    import glob
+    font = font if font is not None else cfg.FONT
+    tried = []
+    for p in [str(font), osp.join(cfg.ROOT_DIR, str(font))]:
+        if osp.isfile(p):
+            return osp.abspath(p)
+        tried.append(p)
+    # the configured font is missing: say so before substituting, since the
+    # font changes accuracy and a silent swap makes results incomparable
+    print('WARNING: configured FONT {!r} not found; falling back to a '
+          'bundled/system font'.format(str(font)))
+    bundled = sorted(glob.glob(osp.join(cfg.ROOT_DIR, 'fonts', '*.ttf')))
+    serif = [p for p in bundled if 'Serif' in osp.basename(p)]
+    if serif or bundled:
+        return (serif + bundled)[0]
+    tried.append(osp.join(cfg.ROOT_DIR, 'fonts', '*.ttf'))
+    for p in ['/usr/share/fonts/truetype/dejavu/DejaVuSerif.ttf',
+              '/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf']:
+        if osp.isfile(p):
+            return p
+        tried.append(p)
+    system = sorted(glob.glob('/usr/share/fonts/**/*.ttf', recursive=True))
+    if system:
+        return system[0]
+    tried.append('/usr/share/fonts/**/*.ttf')
+    raise FileNotFoundError('no usable .ttf found; tried: ' + ', '.join(tried))
 
 
 def get_encode_decode_dict(cfg):

@@ -16,8 +16,10 @@ Counterpart of the JAX package's ``engine/train.py`` for one device:
   step's batch statistics, ``BN_MOMENTUM * old + (1 - BN_MOMENTUM) * new``,
   on buffers outside the optimizer;
 * :class:`SolverWrapper` keeps the cadence: display, periodic snapshot,
-  low-loss snapshot, validation on a cached batch, and the loss readback
-  one step late so that the host does not wait for the device every step.
+  low-loss snapshot, validation on a cached batch (the first batch of an
+  inline synthetic stream seeded ``RNG_SEED + 7``, whatever the training
+  backend, as in the JAX solver), and the loss readback one step late so
+  that the host does not wait for the device every step.
 
 The step runs four hand-written CUDA kernels on a CUDA device — the BiLSTM
 forward and backward, or with the stacked ``lstm`` head the unidirectional
@@ -25,21 +27,25 @@ LSTM forward and backward once per layer (``ops/rnn_cuda.py``), and the CTC
 forward and backward (``ops/ctc_cuda.py``) — and their plain versions on the
 CPU. The validation decode is greedy or beam, by ``DECODER``.
 
-Run::
+The training data comes from ``DATA_BACKEND``: ``synth`` (the default,
+freshly rendered captchas from worker processes, ``data/gen.py``), ``pool``
+(a pre-rendered pool, ``data/pool.py``) or ``records`` (a serialized
+dataset, ``data/records.py``). Run::
 
     python -m lstm_ctc_ocr_torch.engine.train --cfg lstm/lstm.yml --iters N \\
-        --set DATA_BACKEND records RECORDS_PATH <file> [--device cpu]
+        [--set RENDERER native ...] [--device cpu]
 
 The device is CUDA unless ``--device cpu`` is given; without CUDA it raises
 rather than fall back. Not ported yet, and raising ``NotImplementedError``
-by name: ``DATA_BACKEND`` synth and pool, ``TRAIN.STEPS_PER_DISPATCH`` > 1,
-``DATA_DEVICE: on``, ``PARALLEL`` over several devices, ``.npy`` pre-train
-dicts and ``PROFILE_DIR``.
+by name: ``TRAIN.STEPS_PER_DISPATCH`` > 1, ``DATA_DEVICE: on``,
+``PARALLEL`` over several devices, ``.npy`` pre-train dicts and
+``PROFILE_DIR``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import pprint
 import sys
 import time
@@ -49,6 +55,7 @@ import numpy as np
 import torch
 
 from ..config import get_log_dir, get_output_dir, load_cfg
+from ..data.gen import get_batch
 from ..data.records import RecordsDataset
 from ..models.factory import get_network
 from ..ops import ctc_cuda
@@ -186,24 +193,37 @@ def make_train_step(model, optimizer, cfg, dtype):
     return train_step
 
 
-def _records_dataset(cfg) -> RecordsDataset:
-    return RecordsDataset(str(cfg.RECORDS_PATH), cfg,
-                          cache_resized=bool(cfg.RECORDS_CACHE_RESIZED))
+def effective_workers(requested: int) -> int:
+    """Scale the worker count to the host: a 1-core host runs inline."""
+    cores = os.cpu_count() or 1
+    if cores <= 1:
+        return 0
+    return min(requested, max(cores - 1, 1))
 
 
 def make_train_stream(cfg, batch_size):
-    """The training batch stream of ``cfg.DATA_BACKEND``. Only 'records'
-    (a serialized dataset, ``data/records.py``) is ported."""
+    """The training batch stream of ``cfg.DATA_BACKEND``: 'synth' (fresh
+    captchas from ``effective_workers(TRAIN.NUM_WORKERS)`` worker processes),
+    'pool' (a pre-rendered pool with refresh) or 'records' (a serialized
+    dataset). Seeded by ``RNG_SEED``."""
     backend = str(cfg.DATA_BACKEND)
-    if backend != 'records':
-        raise NotImplementedError(
-            'DATA_BACKEND={!r}: only the records backend is ported (the '
-            'synthetic captcha stream and the pool need a renderer); set '
-            'DATA_BACKEND records and RECORDS_PATH'.format(backend))
-    ds = _records_dataset(cfg)
-    print('records backend: {} examples from {}'.format(
-        len(ds), cfg.RECORDS_PATH))
-    return ds.batch_iterator(batch_size, shuffle=True, seed=int(cfg.RNG_SEED))
+    seed = int(cfg.RNG_SEED)
+    if backend == 'records':
+        ds = RecordsDataset(str(cfg.RECORDS_PATH), cfg,
+                            cache_resized=bool(cfg.RECORDS_CACHE_RESIZED))
+        print('records backend: {} examples from {}'.format(
+            len(ds), cfg.RECORDS_PATH))
+        return ds.batch_iterator(batch_size, shuffle=True, seed=seed)
+    if backend == 'pool':
+        from ..data.pool import PoolSampler
+        return PoolSampler(cfg, int(cfg.POOL_SIZE), seed=seed) \
+            .batch_iterator(batch_size)
+    if backend != 'synth':
+        raise ValueError('DATA_BACKEND={!r}: expected synth, pool or records'
+                         .format(backend))
+    workers = effective_workers(int(cfg.TRAIN.NUM_WORKERS))
+    return get_batch(cfg, num_workers=workers, seed=seed,
+                     batch_size=batch_size, bucketed=True)
 
 
 def _check_ported(cfg, pre_train, device):
@@ -287,11 +307,13 @@ class SolverWrapper:
         def run_val(it):
             nonlocal val_batch
             if val_batch is None:
-                # stand-in for the synthetic validation stream, which is not
-                # ported: the first VAL.BATCH_SIZE records in file order
-                ds = _records_dataset(cfg)
-                val_batch = ds.batch(range(int(cfg.VAL.BATCH_SIZE)))
-                ds.close()
+                # the same batch is validated every time
+                val_gen = get_batch(cfg, num_workers=0,
+                                    seed=int(cfg.RNG_SEED) + 7,
+                                    batch_size=int(cfg.VAL.BATCH_SIZE),
+                                    bucketed=True)
+                val_batch = next(val_gen)
+                val_gen.close()
             vb = val_batch
             dec = decode_step(vb.image, vb.time_step)
             org = [vb.label[i, :vb.label_len[i]].tolist()

@@ -13,8 +13,17 @@ ptxas report (registers, shared memory, spills) is kept beside the library
 as ``lib<name>-<hash>.log``.
 :func:`build_all` starts one nvcc per source at once and waits for all.
 
+Host code (the captcha renderer, ``native/synth.cpp``) builds the same way
+with g++ (:func:`host_library`)::
+
+    g++ -O3 -shared -fPIC -ffp-contract=off -o build/lib<name>-<hash>.so <src>
+
+``-ffp-contract=off`` keeps ``a*b+c`` from becoming a fused multiply-add on
+hosts whose compiler contracts by default (GCC on aarch64), so the float
+path gives the same bits on every host.
+
 Nothing here runs when the module is imported, and nothing falls back: a
-missing nvcc or a failed build raises.
+missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ SRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(PKG_DIR, 'build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+HOST_FLAGS = ['-O3', '-shared', '-fPIC', '-ffp-contract=off']
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -103,4 +114,41 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(build_all([name])[name])
         _loaded[name] = lib
+    return lib
+
+
+def host_target(src: str) -> str:
+    """``build/lib<name>-<hash>.so`` of a host C++ source; ``<hash>`` covers
+    the source and :data:`HOST_FLAGS`."""
+    digest = hashlib.sha256(' '.join(HOST_FLAGS).encode())
+    with open(src, 'rb') as f:
+        digest.update(f.read())
+    name = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(BUILD_DIR, 'lib{}-{}.so'.format(
+        name, digest.hexdigest()[:16]))
+
+
+def host_library(src: str) -> ctypes.CDLL:
+    """The loaded shared library of the host C++ source ``src``, built with
+    g++ at first use. Processes that build at once each write their own
+    temporary file and rename it into place."""
+    so = host_target(src)
+    lib = _loaded.get(so)
+    if lib is not None:
+        return lib
+    if not os.path.isfile(so):
+        cxx = shutil.which('g++')
+        if cxx is None:
+            raise RuntimeError('g++ not found on PATH: {} is built from source '
+                               'at first use'.format(os.path.basename(src)))
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = '{}.tmp.{}'.format(so, os.getpid())
+        proc = subprocess.run([cxx] + HOST_FLAGS + ['-o', tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError('g++ failed for {} (exit {}):\n{}'.format(
+                src, proc.returncode, proc.stdout + proc.stderr))
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    _loaded[so] = lib
     return lib

@@ -1,5 +1,10 @@
 """The port's kernel build (``ops/_build.py``) without nvcc: which sources
-it finds and when a library's name, and so its build, changes."""
+it finds and when a library's name, and so its build, changes; and the
+host library build (g++) that the native captcha renderer uses."""
+
+import ctypes
+
+import pytest
 
 from lstm_ctc_ocr_torch.ops import _build
 
@@ -92,7 +97,6 @@ def test_ablation_tool_matches_the_kernel_source():
     edit's anchor is in ``csrc/lstm_bwd_cluster.cuh`` exactly once, the
     combined ablation applies cleanly, both backward kernels are timed,
     and the tool refuses to run without a card."""
-    import pytest
     import torch
     from lstm_ctc_ocr_torch.tools import ablate_lstm_bwd
     assert ablate_lstm_bwd.HEADER == 'lstm_bwd_cluster.cuh'
@@ -121,7 +125,6 @@ def test_forward_ablation_tool_matches_the_cluster_header():
     edit's anchor is in ``csrc/lstm_fwd_cluster.cuh`` exactly once, the
     combined ablation applies cleanly, and the tool refuses to run without
     a card."""
-    import pytest
     import torch
     from lstm_ctc_ocr_torch.tools import ablate_lstm_fwd
     with open('{}/{}'.format(_build.SRC_DIR, ablate_lstm_fwd.HEADER)) as f:
@@ -143,7 +146,6 @@ def test_ctc_forward_ablation_tool_matches_the_kernel_source():
     each edit's anchor is in ``csrc/ctc.cu`` exactly once, the combined
     ablation applies cleanly, the timed kernel is the warp forward, and the
     tool refuses to run without a card."""
-    import pytest
     import torch
     from lstm_ctc_ocr_torch.tools import ablate_ctc_fwd
     with open('{}/ctc.cu'.format(_build.SRC_DIR)) as f:
@@ -159,3 +161,47 @@ def test_ctc_forward_ablation_tool_matches_the_kernel_source():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='CUDA is not available'):
             ablate_ctc_fwd.main()
+
+
+def test_host_library_name_hashes_source_and_flags(tmp_path, monkeypatch):
+    """A host library is ``build/lib<stem>-<hash>.so`` with the hash over
+    its source and ``HOST_FLAGS`` (``-ffp-contract=off`` among them):
+    editing either renames it."""
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path / 'build'))
+    src = tmp_path / 'synth.cpp'
+    src.write_text('int f() { return 1; }\n')
+    first = _build.host_target(str(src))
+    assert first.startswith(str(tmp_path / 'build' / 'libsynth-'))
+    assert first.endswith('.so') and _build.host_target(str(src)) == first
+    assert '-ffp-contract=off' in _build.HOST_FLAGS
+    src.write_text('int f() { return 2; }\n')
+    second = _build.host_target(str(src))
+    assert second != first
+    monkeypatch.setattr(_build, 'HOST_FLAGS', _build.HOST_FLAGS + ['-g'])
+    assert _build.host_target(str(src)) not in (first, second)
+
+
+def test_host_library_builds_loads_and_raises(tmp_path, monkeypatch):
+    """g++ builds the library at first use and it loads; a failed build and
+    a missing compiler raise by name, nothing falls back."""
+    import shutil
+    if shutil.which('g++') is None:
+        pytest.skip('needs g++')
+    monkeypatch.setattr(_build, 'BUILD_DIR', str(tmp_path / 'build'))
+    src = tmp_path / 'answer.cpp'
+    src.write_text('extern "C" int answer() { return 42; }\n')
+    lib = _build.host_library(str(src))
+    lib.answer.restype = ctypes.c_int
+    assert lib.answer() == 42
+    assert _build.host_library(str(src)) is lib
+    assert sorted(p.name for p in (tmp_path / 'build').iterdir()) == [
+        _build.host_target(str(src)).rsplit('/', 1)[1]]
+    bad = tmp_path / 'bad.cpp'
+    bad.write_text('this is not C++\n')
+    with pytest.raises(RuntimeError, match='g[+][+] failed for'):
+        _build.host_library(str(bad))
+    other = tmp_path / 'other.cpp'
+    other.write_text('extern "C" int other() { return 1; }\n')
+    monkeypatch.setattr(_build.shutil, 'which', lambda name: None)
+    with pytest.raises(RuntimeError, match='g[+][+] not found'):
+        _build.host_library(str(other))

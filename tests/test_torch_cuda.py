@@ -16,7 +16,11 @@ LSTM kernels carry the BiLSTM kernels' bars at H = 512. The fused
 conv3x3+BN+ReLU kernel: 2e-5 absolute and relative in f32, 2e-2 in bf16
 (the bars of tests/test_conv_bn_pallas.py), and two runs bit-identical, as
 for the LSTM backward at the edges of its bf16 cluster tiling.
+The last two tests train from the synthetic stream, with worker processes
+forked after CUDA has started, and count the kernels' launches.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -661,3 +665,59 @@ def test_conv_bn_kernel_rejects_bad_inputs(cuda_device):
         conv_bn_cuda.conv3x3_bn_relu(x, k, v, v[:4], v)
     with pytest.raises(TypeError, match='bf16 or f32'):
         conv_bn_cuda.conv3x3_bn_relu(x.half(), k, v, v, v)
+
+
+def _launches():
+    return {'bilstm_fwd': rnn_cuda.bilstm_fwd.launches,
+            'bilstm_bwd': rnn_cuda.bilstm_bwd.launches,
+            'ctc_fwd': ctc_cuda.ctc_forward.launches,
+            'ctc_bwd': ctc_cuda.ctc_backward.launches}
+
+
+def test_synthetic_train_steps_launch_each_kernel_once(cuda_device,
+                                                       tmp_path):
+    """``train_net`` on the default synthetic stream (``RENDERER native``,
+    two workers forked after CUDA has started): each of the four kernels of
+    the BiLSTM step launches once a step, ``bilstm_fwd`` also once for the
+    validation decode on the synthetic validation batch."""
+    from lstm_ctc_ocr_torch.config import load_cfg
+    from lstm_ctc_ocr_torch.engine import train
+    from lstm_ctc_ocr_torch.models.factory import get_network
+    yml = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'lstm', 'lstm.yml')
+    cfg = load_cfg(yml, [
+        'RENDERER', 'native', 'TRAIN.BATCH_SIZE', '16', 'VAL.BATCH_SIZE',
+        '16', 'TRAIN.NUM_WORKERS', '2', 'VAL.VAL_STEP', '3',
+        'TRAIN.DISPLAY', '1'])
+    assert str(cfg.DATA_BACKEND) == 'synth'
+    net = get_network('LSTM_train', cfg,
+                      generator=torch.Generator().manual_seed(3))
+    before = _launches()
+    _, _, losses = train.train_net(net, {}, None, str(tmp_path / 'out'),
+                                   str(tmp_path / 'log'), cfg, max_iters=5,
+                                   device='cuda')
+    after = _launches()
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert {k: after[k] - before[k] for k in after} == {
+        'bilstm_fwd': 4 + 1, 'bilstm_bwd': 4, 'ctc_fwd': 4, 'ctc_bwd': 4}
+
+
+def test_fork_workers_stream_in_a_cuda_process(cuda_device):
+    """Worker processes forked from a process that holds a CUDA context
+    render batches (they never touch CUDA), and the parent's CUDA work goes
+    on after they stop."""
+    from lstm_ctc_ocr_torch.config import load_cfg
+    from lstm_ctc_ocr_torch.data import gen
+    x = torch.arange(8.0, device=cuda_device)
+    torch.cuda.synchronize()
+    cfg = load_cfg(None, ['RENDERER', 'native', 'MP_START', 'fork'])
+    stream = gen.get_batch(cfg, num_workers=2, seed=9, batch_size=8)
+    try:
+        batches = [next(stream) for _ in range(4)]
+    finally:
+        stream.close()
+    for b in batches:
+        img = torch.from_numpy(b.image).to(cuda_device)
+        assert img.shape[0] == 8 and int(img.max()) > 0
+    assert len({b.label.tobytes() for b in batches}) == 4
+    assert float((x * 2).sum()) == 56.0

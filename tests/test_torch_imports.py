@@ -24,13 +24,16 @@ def _modules():
 # every module of the port; a new module must be listed here
 EXPECTED = [
     'lstm_ctc_ocr_torch', 'lstm_ctc_ocr_torch.config',
-    'lstm_ctc_ocr_torch.data', 'lstm_ctc_ocr_torch.data.gen',
-    'lstm_ctc_ocr_torch.data.image', 'lstm_ctc_ocr_torch.data.records',
+    'lstm_ctc_ocr_torch.data', 'lstm_ctc_ocr_torch.data.captcha',
+    'lstm_ctc_ocr_torch.data.enqueuer', 'lstm_ctc_ocr_torch.data.gen',
+    'lstm_ctc_ocr_torch.data.image', 'lstm_ctc_ocr_torch.data.pool',
+    'lstm_ctc_ocr_torch.data.records', 'lstm_ctc_ocr_torch.data.scene',
     'lstm_ctc_ocr_torch.engine', 'lstm_ctc_ocr_torch.engine.checkpoint',
     'lstm_ctc_ocr_torch.engine.summary', 'lstm_ctc_ocr_torch.engine.test',
     'lstm_ctc_ocr_torch.engine.train', 'lstm_ctc_ocr_torch.models',
     'lstm_ctc_ocr_torch.models.crnn', 'lstm_ctc_ocr_torch.models.factory',
-    'lstm_ctc_ocr_torch.models.layers', 'lstm_ctc_ocr_torch.ops',
+    'lstm_ctc_ocr_torch.models.layers', 'lstm_ctc_ocr_torch.native',
+    'lstm_ctc_ocr_torch.native.synth', 'lstm_ctc_ocr_torch.ops',
     'lstm_ctc_ocr_torch.ops._build', 'lstm_ctc_ocr_torch.ops.beam',
     'lstm_ctc_ocr_torch.ops.conv_bn_cuda', 'lstm_ctc_ocr_torch.ops.ctc',
     'lstm_ctc_ocr_torch.ops.ctc_cuda', 'lstm_ctc_ocr_torch.ops.decoder',
@@ -57,6 +60,27 @@ def test_importing_every_module_loads_no_jax():
             'assert not bad, bad\n'
             'print("ok", len({!r}))\n').format(_modules(), FORBIDDEN,
                                               _modules())
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('ok')
+
+
+def test_data_path_imports_neither_torch_nor_pil():
+    """The synthetic stream's modules import no torch (worker processes
+    forked from a process that holds a CUDA context must never touch it)
+    and no Pillow (the native renderer runs without it)."""
+    mods = ['lstm_ctc_ocr_torch.data.' + m for m in (
+        'captcha', 'enqueuer', 'gen', 'image', 'pool', 'records', 'scene')]
+    mods.append('lstm_ctc_ocr_torch.native.synth')
+    code = ('import importlib, sys\n'
+            'for m in {!r}:\n'
+            '    importlib.import_module(m)\n'
+            'bad = sorted(k for k in sys.modules\n'
+            '             if k.split(".")[0] in ("torch", "PIL"))\n'
+            'assert not bad, bad\n'
+            'print("ok")\n').format(mods)
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
