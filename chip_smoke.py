@@ -88,8 +88,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    losses, the four kernels once a step.
 5. Train phase, the training path, at the full width of
    ``lstm/lstm.yml`` (batch 64, bf16, Adam) on a records file written on
-   the spot from ``data/val``, validating on the synthetic stream with the
-   native renderer: (a) 60 steps from a fresh init through
+   the spot from ``data/val`` (which ``DATA_DEVICE: auto`` holds on the
+   device), validating on the synthetic stream with the native renderer: (a) 60 steps from a fresh init through
    ``train_net`` — every loss finite, the mean of the last 10 below that of
    the first 10, and each of the four kernels launched exactly once a step
    (``bilstm_fwd`` also once per validation decode); (b) 20 steps of
@@ -113,12 +113,32 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    gradient comparison of 4(c) (zero-gradient tensors held to 1e-2 of the
    largest gradient overall), the rate and a profile with the device busy
    ms per step.
-7. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
+7. Dispatch phase: the device-resident dataset (``DATA_DEVICE``,
+   ``data/device_store.py``) and 8 steps a dispatch
+   (``TRAIN.STEPS_PER_DISPATCH``), one CUDA graph per bucket, at full width
+   (``lstm/lstm.yml``, batch 64, bf16, Adam) on the records file: (a) from
+   one saved state (parameters, moments, BN buffers, count), 8 graphed
+   steps against 8 eager steps, run twice, for the gather chunk on the
+   records store and the host-batch chunk on the records file's host feed:
+   losses and state bit for bit, or, where two eager runs differ, within
+   their difference, which is printed; (b) steps/s, images/s, device busy
+   ms per step and the device's idle share (``torch.profiler``), and a
+   graph replay's device time by CUDA events, for the store eager (K=1)
+   and graphed, a 2,048-image pool feed (``POOL_REFRESH 2``) graphed, the
+   synthetic stream (7 fork workers; a group breaks where the bucket
+   changes) and the stacked-LSTM model on the store, beside the host-fed
+   records rate of phase 5, each at its bucket; (c) ``train_net`` with
+   ``DATA_DEVICE on`` and ``STEPS_PER_DISPATCH 8``, 60 steps: the loss
+   falls, snapshots at 20, 40 and 60, the four kernels once a step (graph
+   replays counted by their captures' launches), ``bilstm_fwd`` also once
+   per validation decode.
+8. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
    warm train steps: device time by kernel and the device's busy share of
    the wall.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
-seven kernels (and the rates and the synthetic stream's numbers); the last
+seven kernels (and the rates, the synthetic stream's and the dispatch
+phase's numbers); the last
 line is ``{"ok": true, "device": {...}}``. Per-image eval lines and the
 training runs' output go to ``chiprun_out/``.
 """
@@ -1539,21 +1559,31 @@ def train_phase(mods, card, log):
     return counts, rate, rec_path
 
 
+STACKED_LAYERS = 2
+
+
+def stacked_model(mods, cfg):
+    """The CRNN with two stacked unidirectional LSTMs of 512 units as its
+    head: what a user writes, a ``make_head`` override. Seeded."""
+    crnn, layers = mods['crnn'], mods['layers']
+
+    class StackedLSTM(crnn.LSTM_train):
+        def make_head(self, num_hid, nclasses, generator):
+            return layers.LSTM(512, num_hid, STACKED_LAYERS, nclasses,
+                               generator)
+    return StackedLSTM(
+        nchannels=int(cfg.NCHANNELS), num_hid=int(cfg.TRAIN.NUM_HID),
+        nclasses=int(cfg.NCLASSES),
+        generator=torch.Generator().manual_seed(int(cfg.RNG_SEED)))
+
+
 def stacked_phase(mods, card, rec_path, log):
     """The stacked unidirectional-LSTM model at full width through the same
     entry points; returns the kernels' launch counts over its 60 training
     steps and its evaluation, and its training rate."""
     load_cfg, train, test_mod = mods['load_cfg'], mods['train'], mods['test']
     rnn_cuda, ctc_cuda = mods['rnn_cuda'], mods['ctc_cuda']
-    crnn, layers = mods['crnn'], mods['layers']
-    n_layers = 2
-
-    class StackedLSTM(crnn.LSTM_train):
-        """What a user writes: the CRNN with another head."""
-
-        def make_head(self, num_hid, nclasses, generator):
-            return layers.LSTM(512, num_hid, n_layers, nclasses, generator)
-
+    n_layers = STACKED_LAYERS
     yml = os.path.join(REPO, 'lstm', 'lstm.yml')
     exp = 'chip_smoke_stacked'
     out_dir = os.path.join(REPO, 'output', exp)
@@ -1567,10 +1597,7 @@ def stacked_phase(mods, card, rec_path, log):
           'lstm.yml is not the full-width default model')
 
     def make(cfg_):
-        return StackedLSTM(
-            nchannels=int(cfg_.NCHANNELS), num_hid=int(cfg_.TRAIN.NUM_HID),
-            nclasses=int(cfg_.NCLASSES),
-            generator=torch.Generator().manual_seed(int(cfg_.RNG_SEED)))
+        return stacked_model(mods, cfg_)
     net = make(cfg)
     check(tuple(net.logits.cells[1].u.shape) == (512, 2048),
           'the stacked head is not 2 x LSTM 512')
@@ -1643,11 +1670,327 @@ def stacked_phase(mods, card, rec_path, log):
     return counts, rate
 
 
-def profile_report(what, fn, reps):
-    """``torch.profiler`` over ``reps`` warm calls of ``fn``, each followed
-    to its end on the device: device time by kernel and the device's busy
-    share of the wall time. Returns the device busy ms per call (None when
-    the profiler saw no device events)."""
+def training_state(model, optimizer):
+    """Every tensor a train step updates in place: parameters, BN buffers,
+    the solver's moments and its device-side count."""
+    return (list(model.parameters()) + list(model.buffers())
+            + [t for slot in optimizer.moments.values()
+               for t in slot.values()] + [optimizer.count_t])
+
+
+def save_state(model, optimizer):
+    return ([t.detach().clone() for t in training_state(model, optimizer)],
+            optimizer.count)
+
+
+def restore_state(model, optimizer, saved):
+    """In place: a captured graph holds these tensors' storage."""
+    with torch.no_grad():
+        for t, s in zip(training_state(model, optimizer), saved[0]):
+            t.copy_(s)
+    optimizer.advance(saved[1] - optimizer.count)
+
+
+def state_difference(a, b):
+    """Largest |difference| over two saved states (losses first)."""
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(a, b))
+
+
+def graph_against_eager(model, optimizer, graph_group, eager_group):
+    """(a) of the dispatch phase: from one saved state, one graphed group
+    and two runs of the same steps eagerly; returns (graph vs eager, eager
+    vs eager), each the largest |difference| over the losses, parameters,
+    moments, BN buffers and count."""
+    saved = save_state(model, optimizer)
+    graph = [graph_group()] + save_state(model, optimizer)[0]
+    runs = []
+    for _ in range(2):
+        restore_state(model, optimizer, saved)
+        runs.append([eager_group()] + save_state(model, optimizer)[0])
+    torch.cuda.synchronize()
+    return state_difference(graph, runs[0]), state_difference(runs[0],
+                                                              runs[1])
+
+
+def group_rate(what, run_group, k, card, warm=2, n_timed=40, graph=True):
+    """steps/s and images/s over about ``n_timed`` warm steps (dispatches of
+    ``run_group``, which returns the steps it ran as an int, else ran
+    ``k``), CUDA-synchronised; then ``torch.profiler`` over three more
+    dispatches: the device's busy ms per step and its idle share of that
+    window's wall; and for a graph, one replay's device time on an idle
+    device by CUDA events."""
+    def one():
+        ran = run_group()
+        return ran if isinstance(ran, int) else k
+    for _ in range(warm):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 0
+    while steps < n_timed:
+        steps += one()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = {'steps_per_s': steps / dt, 'images_per_s': 64 * steps / dt,
+           'ms_per_step': 1e3 * dt / steps, 'steps_per_dispatch': k,
+           'timed_steps': steps}
+    ran = []
+    busy, wall = profile_report(what, lambda: ran.append(one()), reps=3,
+                                with_wall=True)
+    out['device_busy_ms_per_step'] = None if busy is None \
+        else 3 * busy / sum(ran)
+    out['device_idle_share'] = None if busy is None else 1 - busy / wall
+    if graph:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        one()
+        end.record()
+        torch.cuda.synchronize()
+        out['replay_device_ms_per_step'] = start.elapsed_time(end) / k
+    print('dispatch (b) {}: {:.2f} steps/s, {:.1f} images/s, {:.3f} ms/step, '
+          'device busy {} ms/step and idle {} of the profiled wall{}, on {}'
+          .format(what, out['steps_per_s'], out['images_per_s'],
+                  out['ms_per_step'], out['device_busy_ms_per_step'],
+                  out['device_idle_share'],
+                  '' if not graph else ' (one replay on an idle device by CUDA'
+                  ' events: {} ms/step)'.format(
+                      out['replay_device_ms_per_step']), card), flush=True)
+    return out
+
+
+def dispatch_phase(mods, card, rec_path, host_rate, log,
+                   dev=torch.device('cuda')):
+    """The device-resident dataset (``DATA_DEVICE``) and K-step dispatch
+    (``TRAIN.STEPS_PER_DISPATCH 8``, CUDA graphs) at full width: (a) bit
+    identity of graphed and eager steps, (b) rates, (c) ``train_net``.
+    Returns the launch counts of (c) and the phase's numbers."""
+    load_cfg, train, ds_mod = mods['load_cfg'], mods['train'], \
+        mods['device_store']
+    rnn_cuda, ctc_cuda, get_network = mods['rnn_cuda'], mods['ctc_cuda'], \
+        mods['get_network']
+    yml = os.path.join(REPO, 'lstm', 'lstm.yml')
+    k = 8
+    out = {'steps_per_dispatch': k}
+    t_phase = time.perf_counter()
+    exp = 'chip_smoke_dispatch'
+    base = train_overrides(rec_path, exp) + [
+        'TRAIN.STEPS_PER_DISPATCH', str(k), 'DATA_DEVICE', "'on'"]
+    cfg = load_cfg(yml, base)
+    n = int(cfg.TRAIN.BATCH_SIZE)
+    check(int(cfg.TRAIN.NUM_HID) == 512 and n == 64
+          and str(cfg.TRAIN.SOLVER) == 'Adam',
+          'lstm.yml is not the full-width default model')
+    dtype = train.compute_dtype(cfg)
+
+    def fresh(cfg_, make=None):
+        net = (make or (lambda c: get_network(
+            'LSTM_train', c, generator=torch.Generator().manual_seed(
+                int(c.RNG_SEED)))))(cfg_)
+        model = net.to(dev).train()
+        return model, train.make_optimizer(model, cfg_)
+
+    # (a) graph against eager, gather chunk on the records store
+    model, optimizer = fresh(cfg)
+    with contextlib.redirect_stdout(log):
+        feed = ds_mod.make_device_feed(cfg, dev)
+    store = feed.store
+    out['store_bucket'] = store.w_bucket
+    step1 = train.make_train_step_gather(model, optimizer, cfg, dtype)
+    # (b)'s eager store rate first, before any graph is captured
+    rates = {'records_host_eager': host_rate}
+    rates['store_eager'] = group_rate(
+        'records store, K=1 eager (bucket {})'.format(store.w_bucket),
+        lambda: step1(*store.arrays, feed.step_indices(n)), 1, card,
+        warm=8, graph=False)
+    chunk = train.make_train_chunk(model, optimizer, cfg, dtype, k,
+                                   gather=True)
+    chunk(*store.arrays, feed.chunk_indices(n, k))  # eager first, captured
+    idx = feed.chunk_indices(n, k)
+    gather_diff = graph_against_eager(
+        model, optimizer, lambda: chunk(*store.arrays, idx)[0],
+        lambda: torch.stack([step1(*store.arrays, idx[j])[0]
+                             for j in range(k)]))
+
+    # the host-batch chunk on the records file's host feed (DATA_DEVICE
+    # off): the first 16 batches of one bucket, in two groups of 8
+    cfg_off = load_cfg(yml, base[:-2] + ['DATA_DEVICE', "'off'"])
+    with contextlib.redirect_stdout(log):
+        stream = train.make_train_stream(cfg_off, n)
+    by_width = {}
+    for _ in range(64):
+        b = next(stream)
+        by_width.setdefault(b.image.shape[1], []).append(b)
+        if len(by_width[b.image.shape[1]]) == 2 * k:
+            break
+    stream.close()
+    width, batches = max(by_width.items(), key=lambda kv: len(kv[1]))
+    check(len(batches) == 2 * k, 'no {} host batches of one bucket in 64: {}'
+          .format(2 * k, {w: len(v) for w, v in by_width.items()}))
+    groups = [train.stack_batches(batches[:k]),
+              train.stack_batches(batches[k:])]
+    out['host_chunk_bucket'] = width
+    hchunk = train.make_train_chunk(model, optimizer, cfg, dtype, k)
+    hchunk(*groups[0])                            # eager first, captured
+    hstep = train.make_train_step(model, optimizer, cfg, dtype)
+    host_diff = graph_against_eager(
+        model, optimizer, lambda: hchunk(*groups[1])[0],
+        lambda: torch.stack([hstep(*(torch.from_numpy(a[j]).to(dev)
+                                     for a in groups[1]))[0]
+                             for j in range(k)]))
+    for what, (graph, eager) in (('gather', gather_diff),
+                                 ('host-batch', host_diff)):
+        print('dispatch (a) {} chunk, {} graphed steps against {} eager from '
+              'one saved state (losses, parameters, moments, BN buffers, '
+              'count): largest |graph - eager| {}, largest |eager - eager| {}'
+              '{}'.format(what, k, k, graph, eager,
+                          '' if eager == 0 else ': two eager runs differ, '
+                          'so the graph is held to their difference'),
+              flush=True)
+        check(graph <= eager, '{} chunk: graph differs from eager by {}, '
+              'two eager runs by {}'.format(what, graph, eager))
+    out['graph_vs_eager'] = {'gather': gather_diff[0], 'host': host_diff[0]}
+    out['eager_vs_eager'] = {'gather': gather_diff[1], 'host': host_diff[1]}
+
+    # (b) rates, one model state carried through (its numbers only)
+    rates['store_graph'] = group_rate(
+        'records store, K=8 graph (bucket {})'.format(store.w_bucket),
+        lambda: chunk(*store.arrays, feed.chunk_indices(n, k)), k, card)
+
+    cwd = os.path.join(REPO, 'chiprun_out', 'chip_smoke_pool')
+    os.makedirs(cwd, exist_ok=True)
+    here = os.getcwd()
+    os.chdir(cwd)                              # the pool's cache goes here
+    try:
+        pool_cfg = load_cfg(yml, base + ['DATA_BACKEND', 'pool', 'POOL_SIZE',
+                                         '2048', 'POOL_REFRESH', '2'])
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            pool_feed = ds_mod.make_device_feed(pool_cfg, dev)
+        out['pool_build_s'] = time.perf_counter() - t0
+    finally:
+        os.chdir(here)
+        shutil.rmtree(cwd, ignore_errors=True)
+    pool_chunk = train.make_train_chunk(model, optimizer, cfg, dtype, k,
+                                        gather=True)
+    tick_s = []
+
+    def pool_group():
+        pool_chunk(*pool_feed.store.arrays, pool_feed.chunk_indices(n, k))
+        t0 = time.perf_counter()
+        pool_feed.tick(k)                # renders, stages, flushes every 32
+        tick_s.append(time.perf_counter() - t0)
+    rates['pool_graph'] = group_rate(
+        'pool device feed (2,048 images, POOL_REFRESH 2, bucket {}), K=8 '
+        'graph'.format(pool_feed.store.w_bucket), pool_group, k, card)
+    rates['pool_graph']['host_refresh_ms_per_step'] = \
+        1e3 * float(np.median(tick_s)) / k
+
+    synth_cfg = load_cfg(yml, ['RENDERER', 'native', 'TRAIN.DTYPE',
+                               "'bfloat16'", 'TRAIN.STEPS_PER_DISPATCH',
+                               str(k)])
+    workers = train.effective_workers(int(synth_cfg.TRAIN.NUM_WORKERS))
+    stream = train.make_train_stream(synth_cfg, n)
+    bucket_groups = train.BucketGroups(stream)
+    in_graphs = [0, 0, 0]          # steps in graphs, steps, groups
+
+    def synth_group():
+        group = bucket_groups.take(k)
+        if len(group) == k:
+            schunk(*train.stack_batches(group))
+            in_graphs[0] += k
+        else:                                # a bucket change: eager steps
+            for b in group:
+                hstep(*(torch.from_numpy(a).to(dev) for a in
+                        (b.image, b.label, b.label_len, b.time_step)))
+        in_graphs[1] += len(group)
+        in_graphs[2] += 1
+        return len(group)
+    schunk = train.make_train_chunk(model, optimizer, synth_cfg, dtype, k)
+    try:
+        # a long warm-up, so that the buckets' captures fall before the
+        # timed window where the stream gives a full group of one bucket
+        for _ in range(24):
+            synth_group()
+        in_graphs[:] = [0, 0, 0]
+        rates['synth_graph'] = group_rate(
+            'synthetic stream ({} fork workers), K=8 graph per bucket'
+            .format(workers), synth_group, k, card, warm=0, n_timed=80,
+            graph=False)
+    finally:
+        stream.close()
+    rates['synth_graph']['share_of_steps_in_graphs'] = \
+        in_graphs[0] / in_graphs[1]
+    rates['synth_graph']['buckets_captured'] = len(schunk.graphs)
+    rates['synth_graph']['mean_same_bucket_run'] = in_graphs[1] / in_graphs[2]
+
+    stacked, stacked_opt = fresh(cfg, lambda c: stacked_model(mods, c))
+    schunk_lstm = train.make_train_chunk(stacked, stacked_opt, cfg, dtype, k,
+                                         gather=True)
+    rates['stacked_store_graph'] = group_rate(
+        'stacked-LSTM model, records store, K=8 graph (bucket {})'.format(
+            store.w_bucket),
+        lambda: schunk_lstm(*store.arrays, feed.chunk_indices(n, k)), k,
+        card)
+    out['rates'] = rates
+    del model, optimizer, stacked, stacked_opt, chunk, hchunk, pool_chunk
+    del schunk, schunk_lstm, pool_feed
+
+    # (c) train_net: device store, K=8, 60 steps, snapshots every 20
+    steps, val_step, snap = 60, 50, 20
+    shutil.rmtree(os.path.join(REPO, 'output', exp), ignore_errors=True)
+    cfg = load_cfg(yml, base + ['VAL.VAL_STEP', str(val_step),
+                                'TRAIN.DISPLAY', '10', 'TRAIN.SNAPSHOT_ITERS',
+                                str(snap)])
+    net = get_network('LSTM_train', cfg, generator=torch.Generator()
+                      .manual_seed(int(cfg.RNG_SEED)))
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        _, optimizer, losses = train.train_net(
+            net, {'name': 'chip_smoke'}, None,
+            os.path.join(REPO, 'output', exp),
+            os.path.join(REPO, 'logs', exp), cfg, max_iters=steps + 1,
+            device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(rnn_cuda, ctc_cuda)
+    val_calls = sum(1 for it in range(1, steps + 1)
+                    if (it + 1) % val_step == 0)
+    snaps = sorted(f for f in os.listdir(os.path.join(REPO, 'output', exp))
+                   if f.endswith('.ckpt.npz'))
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print('dispatch (c): train_net with DATA_DEVICE on, STEPS_PER_DISPATCH '
+          '{}: {} steps in {:.1f} s (start-up included), total loss first 10 '
+          '{:.4f} -> last 10 {:.4f}, snapshots {}, launches {}, {} validation '
+          'decode(s)'.format(k, len(losses), wall, first, last, snaps,
+                             json.dumps(counts), val_calls), flush=True)
+    check(len(losses) == steps and bool(np.isfinite(losses).all())
+          and optimizer.count == steps == int(optimizer.count_t),
+          'expected {} finite losses and count, got {} (count {})'.format(
+              steps, losses, optimizer.count))
+    check(last < first, 'the loss did not fall: {} -> {}'.format(first, last))
+    want_snaps = ['lstm_ctc_iter_{}.ckpt.npz'.format(s)
+                  for s in range(snap, steps + 1, snap)]
+    check(snaps == sorted(want_snaps), 'snapshots {}, expected {}'.format(
+        snaps, want_snaps))
+    want = {'bilstm_fwd': steps + val_calls, 'bilstm_bwd': steps,
+            'lstm_fwd': 0, 'lstm_bwd': 0, 'ctc_fwd': steps, 'ctc_bwd': steps}
+    check(counts == want, 'launches {} over {} steps, expected {}'.format(
+        counts, steps, want))
+    out['train_net'] = {'losses_first10_last10': [first, last],
+                        'snapshots': snaps, 'wall_s': wall}
+    out['seconds'] = time.perf_counter() - t_phase
+    print('dispatch: phase took {:.1f} s'.format(out['seconds']), flush=True)
+    return counts, out
+
+
+def profile_report(what, fn, reps, with_wall=False):
+    """``torch.profiler`` over ``reps`` warm calls of ``fn``, the last
+    followed to its end on the device: device time by kernel and the
+    device's busy share of the wall time. Returns the device busy ms per
+    call (None when the profiler saw no device events), and with
+    ``with_wall`` also the wall ms per call."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1667,7 +2010,7 @@ def profile_report(what, fn, reps):
         print('profile {}: wall {:.3f} ms; the profiler saw no device '
               'events, device time by kernel not measured'.format(
                   what, wall_ms), flush=True)
-        return None
+        return (None, wall_ms) if with_wall else None
     busy_ms = sum(ms for ms, _, _ in rows)
     launches = sum(n for _, n, _ in rows)
     print('profile {}: wall {:.3f} ms, device busy {:.3f} ms ({:.0%}), {} '
@@ -1680,7 +2023,7 @@ def profile_report(what, fn, reps):
         print('profile {:8.4f} ms {:5.1%} x{:<5.0f} {}'.format(
             ms, ms / busy_ms if busy_ms else 0.0, n, name[:84]),
             flush=True)
-    return busy_ms
+    return (busy_ms, wall_ms) if with_wall else busy_ms
 
 
 def main():
@@ -1690,7 +2033,7 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     from lstm_ctc_ocr_torch.config import load_cfg
-    from lstm_ctc_ocr_torch.data import gen, image, records
+    from lstm_ctc_ocr_torch.data import device_store, gen, image, records
     from lstm_ctc_ocr_torch.engine import test as test_mod
     from lstm_ctc_ocr_torch.engine import train
     from lstm_ctc_ocr_torch.models import crnn, layers
@@ -1735,12 +2078,15 @@ def main():
     mods = {'load_cfg': load_cfg, 'train': train, 'test': test_mod,
             'rnn_cuda': rnn_cuda, 'ctc_cuda': ctc_cuda, 'ctc': ctc,
             'records': records, 'get_network': get_network, 'crnn': crnn,
-            'layers': layers, 'gen': gen, 'image': image}
+            'layers': layers, 'gen': gen, 'image': image,
+            'device_store': device_store}
     with open(os.path.join(out_dir, 'chip_smoke_train.log'), 'w') as log:
         synth_launches, pool_launches, synth = synth_phase(mods, card, log)
         train_launches, rate, rec_path = train_phase(mods, card, log)
         stacked_launches, stacked_rate = stacked_phase(mods, card, rec_path,
                                                        log)
+        dispatch_launches, dispatch = dispatch_phase(mods, card, rec_path,
+                                                     rate, log)
     print('train rate on {}: synthetic feed {:.2f} steps/s ({} fork workers, '
           'os.cpu_count() {}), records feed {:.2f} steps/s; device busy ms '
           'per step {} and {}'.format(
@@ -1748,9 +2094,13 @@ def main():
               synth['cpu_count'], rate['steps_per_s'],
               synth['rate']['device_busy_ms_per_step'],
               rate['device_busy_ms_per_step']), flush=True)
+    print('dispatch rates on {} (steps/s; device busy ms per step): {}'
+          .format(card, json.dumps({
+              k: [round(v['steps_per_s'], 2), v['device_busy_ms_per_step']]
+              for k, v in dispatch['rates'].items()})), flush=True)
     for name in ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd', 'ctc_bwd'):
         check(train_launches[name] > 0 and synth_launches[name] > 0
-              and pool_launches[name] > 0,
+              and pool_launches[name] > 0 and dispatch_launches[name] > 0,
               '{} was not launched on every train path'.format(name))
     for name in ('lstm_fwd', 'lstm_bwd', 'ctc_fwd', 'ctc_bwd'):
         check(stacked_launches[name] > 0,
@@ -1767,22 +2117,28 @@ def main():
 
     def ctc_launches(name):
         return {'launches': synth_launches[name] + pool_launches[name]
-                + train_launches[name] + stacked_launches[name],
+                + train_launches[name] + stacked_launches[name]
+                + dispatch_launches[name],
                 'launches_by_path': {'synth_train': synth_launches[name],
                                      'pool_train': pool_launches[name],
                                      'train': train_launches[name],
-                                     'stacked_lstm': stacked_launches[name]}}
+                                     'stacked_lstm': stacked_launches[name],
+                                     'dispatch_train':
+                                         dispatch_launches[name]}}
     print(json.dumps({'kernels': [dict(common, **{
         'name': 'bilstm_fwd',
         'source': 'lstm_ctc_ocr_torch/csrc/bilstm_fwd.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:398',
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_fwd_kernel',
         'launches': eval_launches + synth_launches['bilstm_fwd']
-        + pool_launches['bilstm_fwd'] + train_launches['bilstm_fwd'],
+        + pool_launches['bilstm_fwd'] + train_launches['bilstm_fwd']
+        + dispatch_launches['bilstm_fwd'],
         'launches_by_path': {'eval': eval_launches,
                              'synth_train': synth_launches['bilstm_fwd'],
                              'pool_train': pool_launches['bilstm_fwd'],
-                             'train': train_launches['bilstm_fwd']},
+                             'train': train_launches['bilstm_fwd'],
+                             'dispatch_train':
+                                 dispatch_launches['bilstm_fwd']},
         'max_abs_err': errs[('bf16 N=64 T=23', False)],
         'ms': fwd['kernel_ms'],
         'device_ms': fwd['device_ms'],
@@ -1810,10 +2166,13 @@ def main():
         'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:522',
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_bwd_kernel',
         'launches': synth_launches['bilstm_bwd']
-        + pool_launches['bilstm_bwd'] + train_launches['bilstm_bwd'],
+        + pool_launches['bilstm_bwd'] + train_launches['bilstm_bwd']
+        + dispatch_launches['bilstm_bwd'],
         'launches_by_path': {'synth_train': synth_launches['bilstm_bwd'],
                              'pool_train': pool_launches['bilstm_bwd'],
-                             'train': train_launches['bilstm_bwd']},
+                             'train': train_launches['bilstm_bwd'],
+                             'dispatch_train':
+                                 dispatch_launches['bilstm_bwd']},
         'max_abs_err': bwd_errs['bf16 N=64 T=23'],
         'ms': bwd['kernel_ms'],
         'device_ms': bwd['device_ms'],
@@ -1940,7 +2299,7 @@ def main():
         'device_tflops': conv_row['device_tflops'],
         'by_shape': conv_timings,
     })], 'train': rate, 'stacked_lstm_train': stacked_rate,
-        'synthetic_stream': synth,
+        'synthetic_stream': synth, 'dispatch': dispatch,
         'seconds': time.perf_counter() - t_start}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -18,8 +18,17 @@ Counterpart of the JAX package's ``engine/train.py`` for one device:
 * :class:`SolverWrapper` keeps the cadence: display, periodic snapshot,
   low-loss snapshot, validation on a cached batch (the first batch of an
   inline synthetic stream seeded ``RNG_SEED + 7``, whatever the training
-  backend, as in the JAX solver), and the loss readback one step late so
-  that the host does not wait for the device every step.
+  backend, as in the JAX solver), and the loss readback one dispatch late
+  so that the host does not wait for the device every step;
+* ``TRAIN.STEPS_PER_DISPATCH`` = K > 1 runs K steps per dispatch
+  (:func:`make_train_chunk`), on a CUDA device as one CUDA graph per
+  bucket, the counterpart of the JAX package's ``lax.scan`` programs;
+  groups are clipped to the snapshot and validation boundaries and a
+  bucket change in the host stream, and short groups take the eager step;
+* ``DATA_DEVICE`` (``data/device_store.py``) keeps a pool or records
+  dataset on the device, where each step gathers its batch by row index
+  (:func:`make_train_step_gather`); ``auto`` takes it for those backends
+  and says why when it does not.
 
 The step runs four hand-written CUDA kernels on a CUDA device — the BiLSTM
 forward and backward, or with the stacked ``lstm`` head the unidirectional
@@ -37,8 +46,7 @@ dataset, ``data/records.py``). Run::
 
 The device is CUDA unless ``--device cpu`` is given; without CUDA it raises
 rather than fall back. Not ported yet, and raising ``NotImplementedError``
-by name: ``TRAIN.STEPS_PER_DISPATCH`` > 1, ``DATA_DEVICE: on``,
-``PARALLEL`` over several devices, ``.npy`` pre-train dicts and
+by name: ``PARALLEL`` over several devices, ``.npy`` pre-train dicts and
 ``PROFILE_DIR``.
 """
 
@@ -55,10 +63,11 @@ import numpy as np
 import torch
 
 from ..config import get_log_dir, get_output_dir, load_cfg
+from ..data.device_store import make_device_feed
 from ..data.gen import get_batch
 from ..data.records import RecordsDataset
 from ..models.factory import get_network
-from ..ops import ctc_cuda
+from ..ops import ctc_cuda, rnn_cuda
 from ..utils.metrics import accuracy_calculation
 from . import checkpoint
 from .summary import SummaryWriter
@@ -80,8 +89,12 @@ class Optimizer:
 
     ``moments`` maps each slot of the solver (``mu`` and ``nu`` for Adam,
     ``nu`` for RMS, ``trace`` for Momentum) to a dict of per-parameter f32
-    tensors; ``count`` is the number of updates made. Parameters are
-    updated in place. Nothing here reads a value back to the host.
+    tensors. The number of updates made lives on the parameters' device
+    (``count_t``, int32), and the learning rate and Adam's bias corrections
+    are computed from it there, in f32 as optax computes them, so that a
+    captured CUDA graph of the step advances them as eager steps do;
+    ``count`` is its host mirror, for snapshots and the display. Parameters
+    are updated in place. Nothing here reads a value back to the host.
     """
 
     _SLOTS = {'Adam': ('mu', 'nu'), 'RMS': ('nu',)}
@@ -91,10 +104,33 @@ class Optimizer:
         self.solver = str(cfg.TRAIN.SOLVER)
         self.names = list(named_params)
         self.params = [named_params[k] for k in self.names]
-        self.count = 0
+        dev = self.params[0].device if self.params else torch.device('cpu')
         self.moments = {
             slot: {k: torch.zeros_like(p) for k, p in named_params.items()}
             for slot in self._SLOTS.get(self.solver, ('trace',))}
+        self._count = 0
+        self.count_t = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def f32(v):
+            return torch.tensor(float(v), dtype=torch.float32, device=dev)
+        self._lr0 = f32(cfg.TRAIN.LEARNING_RATE)
+        self._gamma = f32(cfg.TRAIN.GAMMA)
+        self._betas = (f32(0.9), f32(0.999))
+
+    @property
+    def count(self) -> int:
+        """Updates made (host mirror of ``count_t``)."""
+        return self._count
+
+    @count.setter
+    def count(self, value):
+        self._count = int(value)
+        self.count_t.fill_(self._count)
+
+    def advance(self, steps: int) -> None:
+        """Move the host mirror on by ``steps`` updates that ran on the
+        device without this object's Python (a CUDA graph's replay)."""
+        self._count += int(steps)
 
     def _slot(self, slot):
         return [self.moments[slot][k] for k in self.names]
@@ -111,19 +147,25 @@ class Optimizer:
         grads = torch._foreach_div(grads, torch.where(keep, 1.0, norm))
         torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
 
-        lr = lr_schedule(self.cfg, self.count)
-        count = self.count + 1
+        # lr_schedule(count) on the device
+        epoch = torch.div(self.count_t, int(self.cfg.TRAIN.STEPSIZE),
+                          rounding_mode='floor')
+        lr = self._lr0 * torch.pow(self._gamma, epoch.float())
         if self.solver == 'Adam':
             b1, b2, eps = 0.9, 0.999, 1e-8
+            count = (self.count_t + 1).float()
             mu, nu = self._slot('mu'), self._slot('nu')
             torch._foreach_mul_(mu, b1)
             torch._foreach_add_(mu, grads, alpha=1.0 - b1)
             torch._foreach_mul_(nu, b2)
             torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
-            denom = torch._foreach_div(nu, 1.0 - b2 ** count)
+            # bias corrections 1 - b^count in f32 on the device
+            denom = torch._foreach_div(
+                nu, 1.0 - torch.pow(self._betas[1], count))
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, eps)
-            updates = torch._foreach_div(mu, 1.0 - b1 ** count)
+            updates = torch._foreach_div(
+                mu, 1.0 - torch.pow(self._betas[0], count))
             torch._foreach_div_(updates, denom)
         elif self.solver == 'RMS':
             decay, eps = 0.9, 1e-10
@@ -138,8 +180,10 @@ class Optimizer:
             torch._foreach_mul_(trace, float(self.cfg.TRAIN.MOMENTUM))
             torch._foreach_add_(trace, grads)
             updates = trace
-        torch._foreach_add_(self.params, updates, alpha=-lr)
-        self.count = count
+        # optax: params + (-lr * updates)
+        torch._foreach_sub_(self.params, torch._foreach_mul(updates, lr))
+        self.count_t.add_(1)
+        self._count += 1
 
 
 def make_optimizer(model, cfg) -> Optimizer:
@@ -193,6 +237,160 @@ def make_train_step(model, optimizer, cfg, dtype):
     return train_step
 
 
+def _gather(store_arrays, idx):
+    """The batch of rows ``idx`` [N] from the device-resident store's
+    ``(img, lab, lab_len, t_step)`` (the JAX ``jnp.take``)."""
+    return tuple(a.index_select(0, idx) for a in store_arrays)
+
+
+def make_train_step_gather(model, optimizer, cfg, dtype):
+    """``step(img, lab, lab_len, t_step, idx) -> (total, ctc)``: the train
+    step on the rows ``idx`` [N] int32 of the device-resident store
+    (``data/device_store.py``), gathered on the device. The same step as
+    :func:`make_train_step` by construction."""
+    train_step = make_train_step(model, optimizer, cfg, dtype)
+
+    def step(img, lab, lab_len, t_step, idx):
+        return train_step(*_gather((img, lab, lab_len, t_step), idx))
+    return step
+
+
+def _kernel_wrappers():
+    """The kernel wrappers a train step can reach, each counting its
+    launches in ``launches`` (a plain version put in a wrapper's place
+    counts nothing)."""
+    return [w for w in (rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd,
+                        rnn_cuda.lstm_fwd, rnn_cuda.lstm_bwd,
+                        ctc_cuda.ctc_forward, ctc_cuda.ctc_backward)
+            if hasattr(w, 'launches')]
+
+
+class _Graph:
+    """One captured K-step program: its static inputs and outputs, and the
+    kernel launches a replay makes (``(wrapper, count)``), which the
+    wrappers' Python counters do not see."""
+
+    def __init__(self, graph, inputs, outputs, launches):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.launches = launches
+
+    def replay(self):
+        self.graph.replay()
+        for wrapper, n in self.launches:
+            wrapper.launches += n
+
+
+def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False):
+    """K optimizer steps per dispatch (``TRAIN.STEPS_PER_DISPATCH``): the
+    counterpart of the JAX package's ``lax.scan`` chunk programs
+    (``make_train_chunk_step``, ``make_train_chunk_step_gather``), the same
+    step as :func:`make_train_step` repeated ``k`` times.
+
+    ``gather=False``: ``chunk(images, labels, label_lens, time_steps)``,
+    host arrays stacked on a leading axis of ``k`` same-bucket batches
+    (``[k, N, W, F]`` uint8 or f32, ``[k, N, L]``, ``[k, N]``, ``[k, N]``).
+    ``gather=True``: ``chunk(img, lab, lab_len, t_step, idxs)``, the
+    device-resident store's tensors and ``[k, N]`` int32 row indices on its
+    device. Either returns ``(totals, ctcs)``, ``[k]`` device tensors.
+
+    On a CUDA device the ``k`` steps run as one CUDA graph per input shape
+    and store (one per bucket) from static input buffers: each dispatch
+    copies its inputs in and replays. The first dispatch of a shape runs its
+    ``k`` steps eagerly on the capture's side stream (the warm-up that sets
+    up cuBLAS, cuDNN and the kernels' one-time attributes; they are real
+    steps and count as such), then captures them without running them. A
+    capture that fails raises; nothing falls back to eager steps. Replays
+    add the launches their capture recorded to the wrappers' counters and
+    ``k`` to ``optimizer.count``. On the CPU the ``k`` steps run eagerly.
+    """
+    train_step = make_train_step(model, optimizer, cfg, dtype)
+    k = int(k)
+
+    def body(inputs):
+        totals, ctcs = [], []
+        for j in range(k):
+            if gather:
+                batch = _gather(inputs[:4], inputs[4][j])
+            else:
+                batch = tuple(a[j] for a in inputs)
+            total, ctc = train_step(*batch)
+            totals.append(total)
+            ctcs.append(ctc)
+        return torch.stack(totals), torch.stack(ctcs)
+
+    graphs = {}
+    shared = {}                    # the side stream and the memory pool
+
+    def capture(dev, static, key):
+        side = shared.setdefault('stream', torch.cuda.Stream(dev))
+        pool = shared.setdefault('pool', torch.cuda.graph_pool_handle())
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            out = body(static)              # the real first k steps
+        torch.cuda.current_stream(dev).wait_stream(side)
+        # a capture records kernels without running them: the Python
+        # counters it moves are put back, and its replays add them
+        wrappers = _kernel_wrappers()
+        before = [w.launches for w in wrappers]
+        count = optimizer.count
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=side,
+                                  capture_error_mode='thread_local'):
+                outputs = body(static)
+        except RuntimeError as e:
+            raise RuntimeError(
+                'capturing the {}-step train program for inputs {} failed '
+                '(an op in the step synchronises with the host or copies '
+                'from it): {}'.format(k, key, e)) from e
+        finally:
+            launches = []
+            for w, n in zip(wrappers, before):
+                launches.append((w, w.launches - n))
+                w.launches = n
+            optimizer.advance(count - optimizer.count)
+        graphs[key] = _Graph(graph, static, outputs,
+                             [(w, n) for w, n in launches if n])
+        return out
+
+    def chunk(*args):
+        dev = next(model.parameters()).device
+        if dev.type != 'cuda':
+            return body(tuple(torch.as_tensor(a).to(dev) for a in args))
+        if gather:
+            store, idxs = args[:4], torch.as_tensor(args[4])
+            key = ('gather', tuple(idxs.shape)) + tuple(
+                (a.data_ptr(), tuple(a.shape), a.dtype) for a in store)
+        else:
+            arrays = [torch.as_tensor(a) for a in args]
+            key = ('batch',) + tuple((tuple(a.shape), a.dtype)
+                                     for a in arrays)
+        g = graphs.get(key)
+        if g is None:
+            if gather:
+                static = store + (torch.empty(idxs.shape, dtype=torch.int32,
+                                              device=dev),)
+            else:
+                static = tuple(torch.empty(a.shape, dtype=a.dtype,
+                                           device=dev) for a in arrays)
+        else:
+            static = g.inputs
+        if gather:
+            static[4].copy_(idxs, non_blocking=True)
+        else:
+            for dst, src in zip(static, arrays):
+                if src.device.type == 'cpu':
+                    src = src.pin_memory()
+                dst.copy_(src, non_blocking=True)
+        if g is None:
+            return capture(dev, static, key)
+        g.replay()
+        optimizer.advance(k)
+        return tuple(t.clone() for t in g.outputs)
+    chunk.graphs = graphs
+    return chunk
+
+
 def effective_workers(requested: int) -> int:
     """Scale the worker count to the host: a 1-core host runs inline."""
     cores = os.cpu_count() or 1
@@ -226,13 +424,36 @@ def make_train_stream(cfg, batch_size):
                      batch_size=batch_size, bucketed=True)
 
 
+class BucketGroups:
+    """Groups of consecutive same-bucket batches from a host stream, for the
+    K-step program: ``take(target)`` returns up to ``target`` batches in
+    stream order; a change of bucket ends a group early and the odd batch
+    carries over into the next group."""
+
+    def __init__(self, stream):
+        self.stream = stream
+        self._holdover = []          # at most one batch
+
+    def take(self, target):
+        group, self._holdover = self._holdover, []
+        while len(group) < target:
+            b = next(self.stream)
+            if group and b.image.shape[1] != group[0].image.shape[1]:
+                self._holdover = [b]
+                break
+            group.append(b)
+        return group
+
+
+def stack_batches(group):
+    """``(images, labels, label_lens, time_steps)`` of a same-bucket group,
+    stacked on a leading axis: the host-batch chunk's inputs."""
+    return tuple(np.stack([getattr(b, f) for b in group])
+                 for f in ('image', 'label', 'label_len', 'time_step'))
+
+
 def _check_ported(cfg, pre_train, device):
     """Raise by name for what is not ported yet."""
-    if max(1, int(cfg.TRAIN.STEPS_PER_DISPATCH)) > 1:
-        raise NotImplementedError('TRAIN.STEPS_PER_DISPATCH > 1 is not ported')
-    if str(cfg.DATA_DEVICE) == 'on':
-        raise NotImplementedError('DATA_DEVICE=on (the device-resident '
-                                  'dataset) is not ported')
     if str(cfg.PARALLEL) != 'off' and device.type == 'cuda' \
             and torch.cuda.device_count() > 1:
         raise NotImplementedError(
@@ -245,6 +466,26 @@ def _check_ported(cfg, pre_train, device):
     if str(cfg.PROFILE_DIR):
         raise NotImplementedError('PROFILE_DIR (utils/profiler.py) is not '
                                   'ported')
+
+
+def _start_readback(t):
+    """Start copying ``t`` to the host behind the work queued before it;
+    :func:`_finish_readback` waits for that copy alone (a plain ``.cpu()``
+    would also wait for every step submitted since)."""
+    if t.device.type != 'cuda':
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    return host, done
+
+
+def _finish_readback(pending):
+    host, done = pending
+    if done is not None:
+        done.synchronize()
+    return host.reshape(-1).tolist()
 
 
 class SolverWrapper:
@@ -293,9 +534,23 @@ class SolverWrapper:
                                  params_only=True)
             print('Loaded pre-trained weights from {}'.format(self.pre_train))
 
-        train_step = make_train_step(model, optimizer, cfg, dtype)
+        # the device-resident dataset (DATA_DEVICE): the pool or records
+        # rows live on the device and each step gathers its batch by row
+        # index; one device, so DATA_DEVICE_LAYOUT 'sharded' (which needs a
+        # mesh) is read as the JAX package reads it on one device
+        K = max(1, int(cfg.TRAIN.STEPS_PER_DISPATCH))
+        feed = make_device_feed(cfg, dev)
+        if feed is not None:
+            step1 = make_train_step_gather(model, optimizer, cfg, dtype)
+        else:
+            step1 = make_train_step(model, optimizer, cfg, dtype)
+        chunk = make_train_chunk(model, optimizer, cfg, dtype, K,
+                                 gather=feed is not None) if K > 1 else None
         decode_step = make_decode_step(model, cfg, dev)
-        train_gen = make_train_stream(cfg, n)
+        # with a device feed the host stream is redundant (the feed owns the
+        # backend's sampler and RNG streams)
+        train_gen = None if feed is not None else make_train_stream(cfg, n)
+        groups = BucketGroups(train_gen)
 
         def put(*arrays):
             return tuple(torch.from_numpy(a).to(dev, non_blocking=True)
@@ -323,61 +578,95 @@ class SolverWrapper:
             self.writer.add_scalar('val_accuracy', acc, it)
             print('accuracy: {:.5f}'.format(acc), flush=True)
 
-        # The loss of step N is read back after step N+1 is submitted: by
-        # then step N has finished on the device, so the readback does not
-        # stall it and the host prepares the next batch while the device
-        # runs. Snapshots and validation stay synchronous at their own
-        # cadence, so a checkpoint named iter_K holds exactly the
-        # post-step-K state; only the low-loss snapshot is decided one step
-        # late, and is named for the step whose parameters it contains.
-        pending = None                  # (it, total)
+        # A group is one dispatch: one step (K = 1, or a short group), or K
+        # consecutive same-bucket steps as one CUDA graph. The losses of
+        # group G are read back after group G+1 is submitted: by then G has
+        # finished on the device, so the readback does not stall it and the
+        # host prepares the next group while the device runs. Groups are
+        # clipped so that snapshot and validation boundaries fall on a
+        # group's end, where those stay synchronous: a checkpoint named
+        # iter_K holds exactly the post-step-K state. Only the low-loss
+        # snapshot is decided one group late, and is named for the step
+        # whose parameters it contains.
+        pending = None                  # (first_it, readback, group length)
 
-        def process_step(it, total, secs_per_iter, cur_end):
+        def process_group(first_it, readback, secs_per_iter, cur_end):
             nonlocal loss_min
-            loss_val = float(total)
-            self.losses.append(loss_val)
-            self.writer.add_scalar('loss', loss_val, it)
-            if it % cfg.TRAIN.DISPLAY == 0:
-                # the schedule count before step `it` is it - 1
-                print('iter: %d / %d, total loss: %.7f, lr: %.7f' %
-                      (it, max_iters, loss_val, lr_schedule(cfg, it - 1)),
-                      end=' ')
-                print('speed: {:.3f}s / iter'.format(secs_per_iter),
-                      flush=True)
-            if loss_val < loss_min:
-                print('loss: ', loss_val, end=' ')
-                loss_min = loss_val
+            vals = _finish_readback(readback)        # one readback a group
+            for j, loss_val in enumerate(vals):
+                it = first_it + j
+                self.losses.append(loss_val)
+                self.writer.add_scalar('loss', loss_val, it)
+                if it % cfg.TRAIN.DISPLAY == 0:
+                    # the schedule count before step `it` is it - 1
+                    print('iter: %d / %d, total loss: %.7f, lr: %.7f' %
+                          (it, max_iters, loss_val, lr_schedule(cfg, it - 1)),
+                          end=' ')
+                    print('speed: {:.3f}s / iter'.format(secs_per_iter),
+                          flush=True)
+            lo = min(vals)
+            if lo < loss_min:
+                print('loss: ', lo, end=' ')
+                loss_min = lo
+                # the parameters are post-step cur_end: within a group the
+                # trigger collapses to one snapshot
                 self.snapshot(cur_end + 1)
-                run_val(it)
+                run_val(first_it + int(np.argmin(vals)))
 
         try:
-            step_t0 = None
+            group_t0 = None
             it = restore_iter
             while it < max_iters:
-                # wall time between successive submissions is the s/iter: the
-                # step returns before the device finishes
+                # wall time between successive submissions is the s/iter:
+                # a dispatch returns before the device finishes
                 now = time.perf_counter()
-                secs_per_iter = now - step_t0 if step_t0 is not None else 0.0
-                step_t0 = now
-                b = next(train_gen)
-                total, _ = train_step(
-                    *put(b.image, b.label, b.label_len, b.time_step))
+                secs_per_iter = ((now - group_t0) / pending[2]
+                                 if group_t0 is not None else 0.0)
+                group_t0 = now
+                target = min(
+                    K, max_iters - it,
+                    cfg.TRAIN.SNAPSHOT_ITERS - it % cfg.TRAIN.SNAPSHOT_ITERS,
+                    cfg.VAL.VAL_STEP - it % cfg.VAL.VAL_STEP)
+                if feed is not None:
+                    # ship row indices, gather on the device
+                    m = target if chunk is not None and target == K else 1
+                    if m > 1:
+                        totals = chunk(*feed.store.arrays,
+                                       feed.chunk_indices(n, m))[0]
+                    else:
+                        totals = step1(*feed.store.arrays,
+                                       feed.step_indices(n))[0].reshape(1)
+                    feed.tick(m)
+                else:
+                    group = groups.take(K if target == K else 1)
+                    m = len(group)
+                    if chunk is not None and m == K:
+                        totals = chunk(*stack_batches(group))[0]
+                    else:
+                        totals = torch.stack([
+                            step1(*put(b.image, b.label, b.label_len,
+                                       b.time_step))[0] for b in group])
+                readback = _start_readback(totals)
                 if pending is not None:
-                    process_step(pending[0], pending[1], secs_per_iter,
-                                 cur_end=it)
-                pending = (it, total)
-                if (it + 1) % cfg.TRAIN.SNAPSHOT_ITERS == 0:
-                    self.snapshot(it + 1)
-                if (it + 1) % cfg.VAL.VAL_STEP == 0:
-                    run_val(it)
-                it += 1
+                    process_group(pending[0], pending[1], secs_per_iter,
+                                  cur_end=it + m - 1)
+                pending = (it, readback, m)
+                it_end = it + m - 1
+                if (it_end + 1) % cfg.TRAIN.SNAPSHOT_ITERS == 0:
+                    self.snapshot(it_end + 1)
+                if (it_end + 1) % cfg.VAL.VAL_STEP == 0:
+                    run_val(it_end)
+                it += m
             if pending is not None:
-                final_secs = time.perf_counter() - step_t0 \
-                    if step_t0 is not None else 0.0
-                process_step(pending[0], pending[1], final_secs,
-                             cur_end=pending[0])
+                final_secs = ((time.perf_counter() - group_t0) / pending[2]
+                              if group_t0 is not None else 0.0)
+                process_group(pending[0], pending[1], final_secs,
+                              cur_end=pending[0] + pending[2] - 1)
         finally:
-            train_gen.close()
+            if train_gen is not None:
+                train_gen.close()
+            if feed is not None:
+                feed.store.flush_refresh()
             self.writer.close()
         return model, optimizer
 

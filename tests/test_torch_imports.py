@@ -25,6 +25,7 @@ def _modules():
 EXPECTED = [
     'lstm_ctc_ocr_torch', 'lstm_ctc_ocr_torch.config',
     'lstm_ctc_ocr_torch.data', 'lstm_ctc_ocr_torch.data.captcha',
+    'lstm_ctc_ocr_torch.data.device_store',
     'lstm_ctc_ocr_torch.data.enqueuer', 'lstm_ctc_ocr_torch.data.gen',
     'lstm_ctc_ocr_torch.data.image', 'lstm_ctc_ocr_torch.data.pool',
     'lstm_ctc_ocr_torch.data.records', 'lstm_ctc_ocr_torch.data.scene',

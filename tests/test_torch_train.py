@@ -425,8 +425,6 @@ def test_solver_cadence_and_resume(tiny_records, tmp_path, capsys):
 
 
 @pytest.mark.parametrize('overrides,pre_train,match', [
-    (['TRAIN.STEPS_PER_DISPATCH', '4'], None, 'STEPS_PER_DISPATCH'),
-    (['DATA_DEVICE', 'on'], None, 'DATA_DEVICE'),
     (['PROFILE_DIR', 'prof'], None, 'PROFILE_DIR'),
     ([], 'weights.npy', 'npy'),
 ])
