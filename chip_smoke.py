@@ -113,7 +113,32 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    gradient comparison of 4(c) (zero-gradient tensors held to 1e-2 of the
    largest gradient overall), the rate and a profile with the device busy
    ms per step.
-7. Dispatch phase: the device-resident dataset (``DATA_DEVICE``,
+7. Serve phase: the serving export (``engine/serve.py``) and the release
+   tools, batch 64, bf16. (a) Every release of the eval phase exported
+   with ``export_decoder``, one ``torch.export`` program per bucket its val
+   set falls in — except ``longline``, exported at its most populous
+   bucket only (W=384, 131 of its 200 files), because each of its three
+   beam buckets takes about a minute of host time to export and load —
+   and the stacked-LSTM snapshot of phase 6 at ``data/val``'s buckets;
+   the seconds of each bucket's export and the artifacts' MB are printed.
+   (b) A fresh process that imports ``lstm_ctc_ocr_torch`` and nothing
+   else of the repo (no ``jax``, no ``lstm_ctc_ocr_tpu`` in its
+   ``sys.modules`` afterwards) loads each artifact directory and decodes
+   the same files in eval's order through ``ExportedDecoder``, so the
+   batches are eval's: every string identical to the eval phase's
+   prediction for that file (phase 6's ``test_net(model=...)`` for the
+   stacked model), the accuracy within the release's bar where the whole
+   val set is served, and ``bilstm_fwd`` launched exactly once a served
+   call (``lstm_fwd`` twice a call of the stacked model). (c) Greedy
+   ``lstm_ctc`` at W=96: the frozen program against the live decode, in
+   turns, images/s and p50 of a call, ids equal. (d)
+   ``tools/calibrate_bn.py`` (8 batches of 64, native renderer) into a
+   copy of the ``lstm_ctc`` release, params unchanged, then eval under
+   ``BN_EVAL: moving``: at least 484/500. (e) ``tools/release_ckpt.py
+   --verify-dir data/val`` on phase 5's fine-tuned snapshot, released into
+   a scratch root: the released file's accuracy. Nothing touches the
+   tracked ``checkpoints/``.
+8. Dispatch phase: the device-resident dataset (``DATA_DEVICE``,
    ``data/device_store.py``) and 8 steps a dispatch
    (``TRAIN.STEPS_PER_DISPATCH``), one CUDA graph per bucket, at full width
    (``lstm/lstm.yml``, batch 64, bf16, Adam) on the records file: (a) from
@@ -132,15 +157,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    falls, snapshots at 20, 40 and 60, the four kernels once a step (graph
    replays counted by their captures' launches), ``bilstm_fwd`` also once
    per validation decode.
-8. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
+9. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
    warm train steps: device time by kernel and the device's busy share of
    the wall.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
-seven kernels (and the rates, the synthetic stream's and the dispatch
-phase's numbers); the last
-line is ``{"ok": true, "device": {...}}``. Per-image eval lines and the
-training runs' output go to ``chiprun_out/``.
+seven kernels (and the rates, the synthetic stream's, the serve and the
+dispatch phase's numbers); the last
+line is ``{"ok": true, "device": {...}}``. Per-image eval lines, the
+training runs' and the serve phase's output go to ``chiprun_out/``.
 """
 
 import contextlib
@@ -1098,9 +1123,11 @@ def bilstm_fwd_phase(rnn_cuda, build):
 
 
 def eval_phase(rnn_cuda, test_mod, load_cfg, log):
-    """Evaluation of the tracked releases; returns the launch count."""
+    """Evaluation of the tracked releases; returns the launch count and
+    each release's predictions (label -> file name -> string)."""
     rnn_cuda.bilstm_fwd.launches = 0
     calls = 0
+    predictions = {}
     for label, yml, val_dir, bn_eval, decoder, total, least in EVALS:
         # the beam releases run their config's own decoder (beam, width 16)
         greedy = ['DECODER', "'greedy'"] if decoder == 'greedy' else []
@@ -1118,6 +1145,7 @@ def eval_phase(rnn_cuda, test_mod, load_cfg, log):
             echo=lambda s: log.write(s + '\n'))
         launched = rnn_cuda.bilstm_fwd.launches - before
         calls += r.decode_calls
+        predictions[label] = r.predictions
         print('eval {:18s} {}/{} correct, {:.1f} images/s steady-state, '
               '{:.1f} images/s overall, p50 {:.4f} ms/image, {} decode calls,'
               ' {} kernel launches'.format(
@@ -1134,7 +1162,7 @@ def eval_phase(rnn_cuda, test_mod, load_cfg, log):
     check(launches == calls and launches > 0,
           'bilstm_fwd launched {} times in {} decode calls'.format(
               launches, calls))
-    return launches
+    return launches, predictions
 
 
 def profile_phase(test_mod, load_cfg, reps=5):
@@ -1667,7 +1695,300 @@ def stacked_phase(mods, card, rec_path, log):
           'agree to {:.2e} of each tensor\'s largest entry ({} tensors)'
           .format(worst, n_tensors), flush=True)
     rate = measure_rate(mods, model, optimizer, cfg, card, 'stacked LSTM', log)
-    return counts, rate
+    return counts, rate, r.predictions
+
+
+# the served releases' export buckets: every bucket its val set falls in,
+# except longline, whose three beam buckets (T=79, 95, 111) would take
+# minutes of host time to export and load: its most populous bucket only
+SERVE_ONLY_BUCKET = {'longline/beam': 384}
+
+# runs in a fresh process that imports lstm_ctc_ocr_torch and nothing else
+# of the repo: loads each artifact directory, decodes its files in the given
+# (eval's) order and writes the strings, launch counts and modules seen
+SERVE_WORKER = r'''
+import json, os, sys, time
+import torch
+from lstm_ctc_ocr_torch.data.image import load_image
+from lstm_ctc_ocr_torch.engine.serve import ExportedDecoder
+from lstm_ctc_ocr_torch.ops import rnn_cuda
+
+with open(sys.argv[1]) as f:
+    spec = json.load(f)
+out = {'releases': {}}
+for entry in spec:
+    t0 = time.perf_counter()
+    dec = ExportedDecoder(entry['export_dir'], device='cuda')
+    load_s = time.perf_counter() - t0
+    images = [load_image(os.path.join(entry['val_dir'], f))
+              for f in entry['files']]
+    before = (rnn_cuda.bilstm_fwd.launches, rnn_cuda.lstm_fwd.launches)
+    t0 = time.perf_counter()
+    strings = dec.decode_images(images)
+    out['releases'][entry['label']] = {
+        'predictions': dict(zip(entry['files'], strings)),
+        'calls': dec.calls, 'load_s': load_s,
+        'decode_s': time.perf_counter() - t0,
+        'bilstm_fwd': rnn_cuda.bilstm_fwd.launches - before[0],
+        'lstm_fwd': rnn_cuda.lstm_fwd.launches - before[1]}
+out['foreign_modules'] = sorted(
+    k for k in sys.modules
+    if k.split('.')[0] in ('jax', 'jaxlib', 'lstm_ctc_ocr_tpu'))
+with open(sys.argv[2], 'w') as f:
+    json.dump(out, f)
+'''
+
+
+def files_by_bucket(mods, cfg, val_dir):
+    """Eval's grouping: bucket -> the labelled files of ``val_dir`` that
+    fall in it, in sorted order."""
+    files = [f for f in sorted(os.listdir(val_dir))
+             if mods['records'].parse_label_from_filename(f) is not None]
+    return mods['test'].files_by_bucket(cfg, val_dir, files)
+
+
+def serve_timing(mods, cfg, model, export_dir, card, n=30):
+    """Frozen program against the live decode, greedy ``lstm_ctc`` at
+    batch 64 on the first 64 W=96 images of ``data/val``, in turns (live,
+    frozen, frozen, live), ``n`` calls a turn after 3 warm calls each; a
+    call is host time from numpy in to ids back on the host."""
+    test_mod, serve = mods['test'], mods['serve']
+    val = os.path.join(REPO, 'data', 'val')
+    names = files_by_bucket(mods, cfg, val)[96][:64]
+    check(len(names) == 64, 'fewer than 64 W=96 images in data/val')
+    loaded = [test_mod.prepare_single(
+        mods['image'].load_image(os.path.join(val, f)), cfg) for f in names]
+    images = np.concatenate([x[0] for x in loaded])
+    steps = np.concatenate([x[1] for x in loaded])
+    live_step = test_mod.make_decode_step(model, cfg, 'cuda')
+
+    def live():
+        with test_mod.full_f32():
+            return live_step(images, steps)
+    frozen_dec = serve.ExportedDecoder(export_dir, device='cuda')
+
+    def frozen():
+        return frozen_dec.run(images, steps)
+    check(np.array_equal(live(), frozen()),
+          'frozen program and live decode differ at W=96')
+    times = {'live': [], 'frozen': []}
+    for _ in range(3):
+        live()
+        frozen()
+    for what in ('live', 'frozen', 'frozen', 'live'):
+        fn = live if what == 'live' else frozen
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times[what].append(time.perf_counter() - t0)
+    out = {}
+    for what, ts in times.items():
+        out[what] = {'images_per_s': 64 * len(ts) / sum(ts),
+                     'p50_ms_per_call': 1e3 * statistics.median(ts),
+                     'p50_ms_per_image': 1e3 * statistics.median(ts) / 64}
+    print('serve timing on {} (lstm_ctc greedy, batch 64, W=96, {} calls '
+          'each): live {:.1f} images/s, p50 {:.3f} ms a call; frozen {:.1f} '
+          'images/s, p50 {:.3f} ms a call ({:+.1%} images/s)'.format(
+              card, 2 * n, out['live']['images_per_s'],
+              out['live']['p50_ms_per_call'], out['frozen']['images_per_s'],
+              out['frozen']['p50_ms_per_call'],
+              out['frozen']['images_per_s'] / out['live']['images_per_s']
+              - 1), flush=True)
+    return out
+
+
+def serve_phase(mods, card, eval_predictions, stacked_predictions, log):
+    """The serving export and the release tools at full width (batch 64,
+    bf16): returns ``bilstm_fwd`` / ``lstm_fwd`` launches of the served
+    decode calls and the phase's numbers."""
+    load_cfg, test_mod, serve = mods['load_cfg'], mods['test'], mods['serve']
+    checkpoint = mods['checkpoint']
+    t_phase = time.perf_counter()
+    root = os.path.join(REPO, 'output', 'chip_smoke_serve')
+    shutil.rmtree(root, ignore_errors=True)
+    spec, wanted, exports = [], {}, {}
+
+    def export(label, model, cfg, val_dir, buckets):
+        groups = files_by_bucket(mods, cfg, val_dir)
+        files = sorted(f for b in buckets for f in groups[b])
+        out_dir = os.path.join(root, label.replace('/', '_'))
+        manifest = serve.export_decoder(model, cfg, out_dir, buckets=buckets,
+                                        batch=64, device='cuda')
+        mb = sum(os.path.getsize(os.path.join(out_dir, serve._artifact_name(
+            b))) for b in buckets) / 1e6
+        exports[label] = {'buckets': buckets, 'images': len(files),
+                          'export_s': manifest['export_seconds'], 'mb': mb,
+                          'calls': sum(-(-len(groups[b]) // 64)
+                                       for b in buckets)}
+        print('serve export {:18s} buckets {} ({} images): {} s a bucket, '
+              '{:.1f} MB on {}'.format(
+                  label, buckets, len(files), json.dumps(
+                      {k: round(v, 2) for k, v in
+                       manifest['export_seconds'].items()}), mb, card),
+              flush=True)
+        spec.append({'label': label, 'export_dir': out_dir,
+                     'val_dir': val_dir, 'files': files})
+        return out_dir
+
+    # 1. export the releases' buckets, and the stacked model's snapshot
+    for label, yml, val_dir, bn_eval, decoder, total, least in EVALS:
+        greedy = ['DECODER', "'greedy'"] if decoder == 'greedy' else []
+        cfg = load_cfg(os.path.join(REPO, yml),
+                       ['TEST.BATCH_SIZE', '64', 'BN_EVAL', repr(bn_eval),
+                        'TRAIN.DTYPE', "'bfloat16'"] + greedy)
+        model = mods['get_network']('LSTM_test', cfg)
+        checkpoint.load_into(model, checkpoint.latest_eval_checkpoint(
+            os.path.join(REPO, 'checkpoints', cfg.EXP_DIR))[0],
+            bn_eval == 'moving')
+        val = os.path.join(REPO, val_dir)
+        buckets = sorted(files_by_bucket(mods, cfg, val))
+        if label in SERVE_ONLY_BUCKET:
+            buckets = [SERVE_ONLY_BUCKET[label]]
+        out_dir = export(label, model, cfg, val, buckets)
+        wanted[label] = (eval_predictions[label], total, least, 'bilstm_fwd')
+        if label == 'lstm_ctc/batch':
+            timing_args = (cfg, model, out_dir)
+    yml = os.path.join(REPO, 'lstm', 'lstm.yml')
+    cfg = load_cfg(yml, ['TEST.BATCH_SIZE', '64', 'DECODER', "'greedy'",
+                         'TRAIN.DTYPE', "'bfloat16'", 'EXP_DIR',
+                         'chip_smoke_stacked'])
+    stacked = stacked_model(mods, cfg)
+    checkpoint.load_into(stacked, os.path.join(
+        REPO, 'output', 'chip_smoke_stacked',
+        'lstm_ctc_iter_60.ckpt.npz'), False)
+    val = os.path.join(REPO, 'data', 'val')
+    export('stacked_lstm', stacked, cfg, val,
+           sorted(files_by_bucket(mods, cfg, val)))
+    wanted['stacked_lstm'] = (stacked_predictions, 500, 0, 'lstm_fwd')
+    export_s = time.perf_counter() - t_phase
+
+    # 2. load and decode in a fresh process
+    spec_path = os.path.join(root, 'spec.json')
+    res_path = os.path.join(root, 'served.json')
+    with open(spec_path, 'w') as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-c', SERVE_WORKER, spec_path,
+                           res_path], cwd=REPO, capture_output=True,
+                          text=True, timeout=900,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    worker_s = time.perf_counter() - t0
+    log.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, 'serving process failed ({}):\n{}'.format(
+        proc.returncode, proc.stderr[-4000:]))
+    with open(res_path) as f:
+        served = json.load(f)
+    check(served['foreign_modules'] == [], 'the serving process imported '
+          '{}'.format(served['foreign_modules']))
+
+    # 3. the same strings as eval, file by file, and the kernels once a call
+    launches = {'bilstm_fwd': 0, 'lstm_fwd': 0}
+    for label, (want, total, least, kernel) in wanted.items():
+        got = served['releases'][label]
+        e = exports[label]
+        preds = got['predictions']
+        diff = [f for f in preds if preds[f] != want[f]]
+        correct = sum(mods['records'].parse_label_from_filename(f) == s
+                      for f, s in preds.items())
+        eval_correct = sum(mods['records'].parse_label_from_filename(f)
+                           == want[f] for f in preds)
+        per_call = STACKED_LAYERS if kernel == 'lstm_fwd' else 1
+        other = 'bilstm_fwd' if kernel == 'lstm_fwd' else 'lstm_fwd'
+        print('serve {:18s} {}/{} correct (eval on the same files {}), {} of '
+              '{} strings differ from eval, {} calls, launches {} {} / {} {}, '
+              'load {:.1f} s, decode {:.2f} s on {}'.format(
+                  label, correct, len(preds), eval_correct, len(diff),
+                  len(preds), got['calls'], kernel, got[kernel], other,
+                  got[other], got['load_s'], got['decode_s'], card),
+              flush=True)
+        check(not diff, '{}: served strings differ from eval for {}'.format(
+            label, diff[:10]))
+        check(len(preds) == e['images'] and got['calls'] == e['calls'],
+              '{}: {} images in {} calls, expected {} in {}'.format(
+                  label, len(preds), got['calls'], e['images'], e['calls']))
+        check(got[kernel] == per_call * got['calls'] and got[other] == 0,
+              '{}: launches {} {} / {} {} for {} calls'.format(
+                  label, kernel, got[kernel], other, got[other],
+                  got['calls']))
+        if len(preds) == total:
+            check(correct >= least, '{}: {}/{} correct, expected >= {}'
+                  .format(label, correct, total, least))
+        launches[kernel] += got[kernel]
+        e.update(correct=correct, served=len(preds), load_s=got['load_s'],
+                 decode_s=got['decode_s'])
+
+    # 4. frozen against live, greedy lstm_ctc at W=96
+    timing = serve_timing(mods, *timing_args, card)
+
+    # 5. calibrate a copy of the lstm_ctc release, evaluate it under moving
+    calib_root = os.path.join(root, 'calibrate')
+    rel = checkpoint.latest_eval_checkpoint(
+        os.path.join(REPO, 'checkpoints', 'lstm_ctc'))[0]
+    copy = os.path.join(calib_root, 'checkpoints', 'lstm_ctc',
+                        os.path.basename(rel))
+    os.makedirs(os.path.dirname(copy))
+    shutil.copy(rel, copy)
+    with contextlib.redirect_stdout(log):
+        rc = mods['calibrate_bn'].main(
+            ['--cfg', yml, '--ckpt', copy, '--device', 'cuda', '--batches',
+             '8', '--set', 'RENDERER', 'native'])
+    check(rc == 0, 'calibrate_bn returned {}'.format(rc))
+    before, after = (checkpoint.read_flat(p) for p in (rel, copy))
+    check(all(np.array_equal(before[k], after[k]) for k in before
+              if k.startswith('params/'))
+          and set(before) == set(after), 'calibration changed the params or '
+          'the keys of {}'.format(copy))
+    cfg = load_cfg(yml, ['TEST.BATCH_SIZE', '64', 'BN_EVAL', "'moving'",
+                         'DECODER', "'greedy'", 'TRAIN.DTYPE', "'bfloat16'"])
+    echoed = []
+    r = test_mod.test_net(cfg, val, os.path.join(calib_root, 'output',
+                                                 'lstm_ctc'),
+                          device='cuda', echo=echoed.append)
+    log.write('\n'.join(echoed) + '\n')
+    print('serve calibrate_bn: 8 batches of 64 (native renderer) into a copy '
+          'of the lstm_ctc release, BN_EVAL moving eval {}/{} (bar 484)'
+          .format(r.correct, r.total), flush=True)
+    check(any(copy in line for line in echoed if line.startswith('Restored')),
+          'the evaluation did not restore {}'.format(copy))
+    check(r.total == 500 and r.correct >= 484, 'calibrated release: {}/{} '
+          'correct, expected >= 484'.format(r.correct, r.total))
+    calibrated = r.correct
+
+    # 6. release phase 5's fine-tuned snapshot into a scratch root
+    rel_root = os.path.join(root, 'release')
+    snap_dir = os.path.join(rel_root, 'output', 'chip_smoke_finetune')
+    os.makedirs(snap_dir)
+    shutil.copy(os.path.join(REPO, 'output', 'chip_smoke_finetune',
+                             'lstm_ctc_iter_21.ckpt.npz'), snap_dir)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = mods['release_ckpt'].main(
+            ['--cfg', yml, '--verify-dir', val, '--device', 'cuda', '--set',
+             'ROOT_DIR', rel_root, 'EXP_DIR', 'chip_smoke_finetune',
+             'DECODER', "'greedy'", 'TRAIN.DTYPE', "'bfloat16'"])
+    log.write(out.getvalue())
+    m = re.search(r'released-weights accuracy: ([0-9.]+) \((\d+)/(\d+)',
+                  out.getvalue())
+    released = os.path.join(rel_root, 'checkpoints', 'chip_smoke_finetune',
+                            'lstm_ctc_iter_21.ckpt.npz')
+    check(rc == 0 and m is not None and os.path.isfile(released),
+          'release_ckpt: rc {}, no accuracy line or no {}'.format(
+              rc, released))
+    print('serve release_ckpt --verify-dir: phase 5\'s fine-tuned snapshot '
+          'released as f16 ({:.1f} MB), released-weights accuracy {} ({}/{}) '
+          'on data/val'.format(os.path.getsize(released) / 1e6, m.group(1),
+                               m.group(2), m.group(3)), flush=True)
+    for entry in spec:        # ~0.6 GB of programs; the JSON files stay
+        shutil.rmtree(entry['export_dir'])
+    seconds = time.perf_counter() - t_phase
+    print('serve: phase took {:.1f} s (exports {:.1f} s, serving process '
+          '{:.1f} s) on {}'.format(seconds, export_s, worker_s, card),
+          flush=True)
+    return launches, {'releases': exports, 'timing': timing,
+                      'calibrated_moving_correct': calibrated,
+                      'released_accuracy': float(m.group(1)),
+                      'export_s': export_s, 'worker_s': worker_s,
+                      'seconds': seconds, 'card': card}
 
 
 def training_state(model, optimizer):
@@ -2034,13 +2355,15 @@ def main():
     sys.path.insert(0, REPO)
     from lstm_ctc_ocr_torch.config import load_cfg
     from lstm_ctc_ocr_torch.data import device_store, gen, image, records
+    from lstm_ctc_ocr_torch.engine import checkpoint, serve
     from lstm_ctc_ocr_torch.engine import test as test_mod
     from lstm_ctc_ocr_torch.engine import train
     from lstm_ctc_ocr_torch.models import crnn, layers
     from lstm_ctc_ocr_torch.models.factory import get_network
     from lstm_ctc_ocr_torch.ops import (_build, conv_bn_cuda, ctc, ctc_cuda,
                                         rnn, rnn_cuda)
-    from lstm_ctc_ocr_torch.tools import bench_conv_bn
+    from lstm_ctc_ocr_torch.tools import (bench_conv_bn, calibrate_bn,
+                                         release_ckpt)
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -2073,18 +2396,25 @@ def main():
     out_dir = os.path.join(REPO, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'chip_smoke_eval.log'), 'w') as log:
-        eval_launches = eval_phase(rnn_cuda, test_mod, load_cfg, log)
+        eval_launches, eval_predictions = eval_phase(rnn_cuda, test_mod,
+                                                     load_cfg, log)
     profile_phase(test_mod, load_cfg)
     mods = {'load_cfg': load_cfg, 'train': train, 'test': test_mod,
             'rnn_cuda': rnn_cuda, 'ctc_cuda': ctc_cuda, 'ctc': ctc,
             'records': records, 'get_network': get_network, 'crnn': crnn,
             'layers': layers, 'gen': gen, 'image': image,
-            'device_store': device_store}
+            'device_store': device_store, 'serve': serve,
+            'checkpoint': checkpoint, 'calibrate_bn': calibrate_bn,
+            'release_ckpt': release_ckpt}
     with open(os.path.join(out_dir, 'chip_smoke_train.log'), 'w') as log:
         synth_launches, pool_launches, synth = synth_phase(mods, card, log)
         train_launches, rate, rec_path = train_phase(mods, card, log)
-        stacked_launches, stacked_rate = stacked_phase(mods, card, rec_path,
-                                                       log)
+        stacked_launches, stacked_rate, stacked_predictions = stacked_phase(
+            mods, card, rec_path, log)
+        with open(os.path.join(out_dir, 'chip_smoke_serve.log'),
+                  'w') as serve_log:
+            serve_launches, served = serve_phase(
+                mods, card, eval_predictions, stacked_predictions, serve_log)
         dispatch_launches, dispatch = dispatch_phase(mods, card, rec_path,
                                                      rate, log)
     print('train rate on {}: synthetic feed {:.2f} steps/s ({} fork workers, '
@@ -2105,6 +2435,9 @@ def main():
     for name in ('lstm_fwd', 'lstm_bwd', 'ctc_fwd', 'ctc_bwd'):
         check(stacked_launches[name] > 0,
               '{} was not launched on the stacked-LSTM path'.format(name))
+    for name in ('bilstm_fwd', 'lstm_fwd'):
+        check(serve_launches[name] > 0,
+              '{} was not launched on the serving path'.format(name))
 
     fwd, bwd = timings['bf16 N=64 T=23'], bwd_timings['bf16 N=64 T=23']
     fwd111, bwd111 = timings['bf16 N=64 T=111'], bwd_timings['bf16 N=64 T=111']
@@ -2132,8 +2465,9 @@ def main():
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_fwd_kernel',
         'launches': eval_launches + synth_launches['bilstm_fwd']
         + pool_launches['bilstm_fwd'] + train_launches['bilstm_fwd']
-        + dispatch_launches['bilstm_fwd'],
+        + dispatch_launches['bilstm_fwd'] + serve_launches['bilstm_fwd'],
         'launches_by_path': {'eval': eval_launches,
+                             'serve': serve_launches['bilstm_fwd'],
                              'synth_train': synth_launches['bilstm_fwd'],
                              'pool_train': pool_launches['bilstm_fwd'],
                              'train': train_launches['bilstm_fwd'],
@@ -2239,8 +2573,9 @@ def main():
         'source': 'lstm_ctc_ocr_torch/csrc/lstm_fwd.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:90',
         'tpu_kernel': 'ops/rnn_pallas.py:_fwd_kernel',
-        'launches': stacked_launches['lstm_fwd'],
-        'launches_by_path': {'stacked_lstm': stacked_launches['lstm_fwd']},
+        'launches': stacked_launches['lstm_fwd'] + serve_launches['lstm_fwd'],
+        'launches_by_path': {'stacked_lstm': stacked_launches['lstm_fwd'],
+                             'serve': serve_launches['lstm_fwd']},
         'max_abs_err': lstm_errs['bf16 N=64 T=23']['lstm_fwd'],
         'ms': uni['fwd_ms'],
         'device_ms': uni['fwd_device_ms'],
@@ -2299,7 +2634,7 @@ def main():
         'device_tflops': conv_row['device_tflops'],
         'by_shape': conv_timings,
     })], 'train': rate, 'stacked_lstm_train': stacked_rate,
-        'synthetic_stream': synth, 'dispatch': dispatch,
+        'synthetic_stream': synth, 'dispatch': dispatch, 'serve': served,
         'seconds': time.perf_counter() - t_start}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -237,7 +237,7 @@ def _family_checkpoints(cfg, output_dir: str):
     return out
 
 
-def _write_npz(fname: str, flat: Dict[str, np.ndarray], compressed=False):
+def write_npz(fname: str, flat: Dict[str, np.ndarray], compressed=False):
     tmp = fname + '.tmp'
     with open(tmp, 'wb') as f:
         (np.savez_compressed if compressed else np.savez)(f, **flat)
@@ -256,7 +256,7 @@ def save(model, optimizer, output_dir: str, step: int, cfg,
     fname = os.path.join(output_dir, snapshot_name(cfg, step))
     flat = flat_from_params(model.state_dict())
     flat.update(opt_state_to_flat(optimizer))
-    _write_npz(fname, flat)
+    write_npz(fname, flat)
     ckpts = sorted(_family_checkpoints(cfg, output_dir), key=lambda x: x[1])
     prunable = [c for c in ckpts
                 if not (keep_every and c[1] % keep_every == 0)]
@@ -308,5 +308,5 @@ def save_release(model, output_dir: str, step: int, cfg,
         else:
             out[k] = v
     fname = os.path.join(rel_dir, snapshot_name(cfg, step))
-    _write_npz(fname, out, compressed=True)
+    write_npz(fname, out, compressed=True)
     return fname

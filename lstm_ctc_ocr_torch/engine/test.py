@@ -105,25 +105,34 @@ def prepare_single(img: np.ndarray, cfg):
     return out[None], np.array([ts], np.int32)
 
 
-def make_decode_step(model, cfg, device):
-    """images [N, W, 32] f32 numpy, steps [N] int32 -> decoded ids [N, T]
-    int32 numpy; the copy back to the host waits for the device."""
+def decode_fn(model, cfg):
+    """The live decode as tensors: images [N, W, 32] f32 and steps [N]
+    int32 on the model's device -> decoded ids [N, T] int32 — the forward
+    in ``TRAIN.DTYPE`` with the ``BN_EVAL`` statistics, then greedy or beam
+    decode as ``DECODER`` says. Runs in the caller's grad mode."""
     dtype = _DTYPES[str(cfg.TRAIN.DTYPE)]
     moving = str(cfg.BN_EVAL) == 'moving'
     beam = str(cfg.DECODER) == 'beam'
     width, merge = int(cfg.BEAM_WIDTH), bool(cfg.BEAM_MERGE_REPEATED)
 
-    @torch.inference_mode()
-    def decode_step(images, steps):
-        x = torch.from_numpy(images).to(device)
-        lens = torch.from_numpy(steps).to(device)
+    def decode(x, lens):
         logits = model(x, lens, dtype=dtype, moving_bn=moving).transpose(0, 1)
         if beam:
-            ids = beam_decode(logits, lens, beam_width=width,
-                              merge_repeated=merge)
-        else:
-            ids = greedy_decode(logits, lens)
-        return ids.cpu().numpy()
+            return beam_decode(logits, lens, beam_width=width,
+                               merge_repeated=merge)
+        return greedy_decode(logits, lens)
+    return decode
+
+
+def make_decode_step(model, cfg, device):
+    """images [N, W, 32] f32 numpy, steps [N] int32 -> decoded ids [N, T]
+    int32 numpy; the copy back to the host waits for the device."""
+    decode = decode_fn(model, cfg)
+
+    @torch.inference_mode()
+    def decode_step(images, steps):
+        return decode(torch.from_numpy(images).to(device),
+                      torch.from_numpy(steps).to(device)).cpu().numpy()
     return decode_step
 
 
@@ -193,16 +202,23 @@ def test_net(cfg, test_dir: str, output_dir: str = None, device='cuda',
     return result
 
 
-def _test_batched(cfg, decode_step, decode_maps, test_dir, files, batch, echo):
-    """Images grouped by width bucket and decoded ``batch`` at a time; the
-    p50 is each batch's decode time over ``batch`` (the device computes the
-    padded rows too)."""
+def files_by_bucket(cfg, test_dir: str, files) -> Dict[int, List[str]]:
+    """Width bucket -> the ``files`` of ``test_dir`` that fall in it, in
+    their order: the batched eval's grouping, from the PNG headers."""
     by_bucket: Dict[int, List[str]] = {}
     for fname in files:
         w, h = png_size(os.path.join(test_dir, fname))
         if h != cfg.IMG_HEIGHT:
             w = int(cfg.IMG_HEIGHT / h * w)
         by_bucket.setdefault(pick_bucket(w, cfg.BUCKETS), []).append(fname)
+    return by_bucket
+
+
+def _test_batched(cfg, decode_step, decode_maps, test_dir, files, batch, echo):
+    """Images grouped by width bucket and decoded ``batch`` at a time; the
+    p50 is each batch's decode time over ``batch`` (the device computes the
+    padded rows too)."""
+    by_bucket = files_by_bucket(cfg, test_dir, files)
     latencies: List[float] = []
     chunk_times = []                        # (n_images, seconds, is_warm)
     predictions: Dict[str, str] = {}

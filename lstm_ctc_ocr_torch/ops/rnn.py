@@ -18,7 +18,10 @@ tensor, its plain version for a CPU tensor — inside a
 (counterpart of the JAX package's ``_bi_core`` custom VJP).
 :func:`lstm` is the unidirectional scan of the stacked ``lstm`` head, the
 counterpart of ``rnn_pallas.lstm_scan``: the projection, then
-``rnn_cuda.lstm_fwd`` with ``rnn_cuda.lstm_bwd`` as its gradient.
+``rnn_cuda.lstm_fwd`` with ``rnn_cuda.lstm_bwd`` as its gradient. Where no
+gradient is needed (decoding, and so ``torch.export``) both call the same
+kernels as the custom ops of ``ops/custom_ops.py`` instead, which save no
+residuals and which an exported program can hold.
 :func:`lstm_scan` is its plain twin (the JAX ``lax.scan`` version), and
 :func:`bilstm_scan_pair` (two scans and two reversal gathers, over either
 scan) is the portable formulation the tests hold the fused BiLSTM against.
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from . import rnn_cuda
+from . import custom_ops, rnn_cuda
 
 
 def _cell_step(h, c, x_proj, u, bias, forget_bias=1.0):
@@ -81,15 +84,17 @@ def bilstm_scan_pair(cells, x, lens, forget_bias=1.0, scan=lstm_scan):
     return torch.cat([out_fw, out_bw], dim=-1).transpose(0, 1)
 
 
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class _BiLSTMCore(torch.autograd.Function):
-    """``bilstm_fwd`` with ``bilstm_bwd`` as its gradient. The forward saves
-    the residuals only when some input needs a gradient."""
+    """``bilstm_fwd`` with ``bilstm_bwd`` as its gradient; :func:`bilstm`
+    applies it only where some input needs a gradient, so the forward
+    always saves the residuals."""
 
     @staticmethod
     def forward(ctx, xpf, xpb, uf, ub, bf, bb, lens, forget_bias):
-        if not any(ctx.needs_input_grad):
-            return rnn_cuda.bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens,
-                                       forget_bias)
         of, gf, hf, cf, ob, gb, hb, cb = rnn_cuda.bilstm_fwd(
             xpf, xpb, uf, ub, bf, bb, lens, forget_bias, save_residuals=True)
         ctx.save_for_backward(gf, hf, cf, gb, hb, cb, uf, ub, lens)
@@ -121,20 +126,22 @@ def bilstm(cells, x, lens, forget_bias=1.0):
     four_h = fw['u'].shape[1]
     w = torch.cat([fw['w'], bw['w']], dim=1)              # [D, 8H], one matmul
     xp = (x_tm.reshape(t_len * n, d) @ w).reshape(t_len, n, 2 * four_h)
-    of, ob = _BiLSTMCore.apply(xp[:, :, :four_h], xp[:, :, four_h:],
-                               fw['u'], bw['u'], fw['bias'], bw['bias'],
-                               lens, forget_bias)
+    weights = (fw['u'], bw['u'], fw['bias'], bw['bias'])
+    if _needs_grad(xp, *weights):
+        of, ob = _BiLSTMCore.apply(xp[:, :, :four_h], xp[:, :, four_h:],
+                                   *weights, lens, forget_bias)
+    else:
+        of, ob = custom_ops.bilstm_fwd(xp, *weights, lens, forget_bias)
     return torch.cat([of, ob], dim=-1).transpose(0, 1)
 
 
 class _LSTMCore(torch.autograd.Function):
-    """``lstm_fwd`` with ``lstm_bwd`` as its gradient. The forward saves the
-    residuals only when some input needs a gradient."""
+    """``lstm_fwd`` with ``lstm_bwd`` as its gradient; :func:`lstm` applies
+    it only where some input needs a gradient, so the forward always saves
+    the residuals."""
 
     @staticmethod
     def forward(ctx, x_proj, u, bias, lens, forget_bias):
-        if not any(ctx.needs_input_grad):
-            return rnn_cuda.lstm_fwd(x_proj, u, bias, lens, forget_bias)
         out, gates, hs, cs = rnn_cuda.lstm_fwd(x_proj, u, bias, lens,
                                                forget_bias,
                                                save_residuals=True)
@@ -156,4 +163,8 @@ def lstm(cell, x_tm, lens, forget_bias=1.0):
     contract as :func:`lstm_scan`; ``lens`` is [N] int32."""
     t_len, n, d = x_tm.shape
     x_proj = (x_tm.reshape(t_len * n, d) @ cell['w']).reshape(t_len, n, -1)
-    return _LSTMCore.apply(x_proj, cell['u'], cell['bias'], lens, forget_bias)
+    if _needs_grad(x_proj, cell['u'], cell['bias']):
+        return _LSTMCore.apply(x_proj, cell['u'], cell['bias'], lens,
+                               forget_bias)
+    return custom_ops.lstm_fwd(x_proj, cell['u'], cell['bias'], lens,
+                               forget_bias)

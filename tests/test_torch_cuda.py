@@ -16,8 +16,9 @@ LSTM kernels carry the BiLSTM kernels' bars at H = 512. The fused
 conv3x3+BN+ReLU kernel: 2e-5 absolute and relative in f32, 2e-2 in bf16
 (the bars of tests/test_conv_bn_pallas.py), and two runs bit-identical, as
 for the LSTM backward at the edges of its bf16 cluster tiling.
-The last two tests train from the synthetic stream, with worker processes
-forked after CUDA has started, and count the kernels' launches.
+Two tests train from the synthetic stream, with worker processes forked
+after CUDA has started, and count the kernels' launches; the last exports a
+decode program (``engine/serve.py``) and counts kernel 1's launch in it.
 """
 
 import os
@@ -721,3 +722,26 @@ def test_fork_workers_stream_in_a_cuda_process(cuda_device):
         assert img.shape[0] == 8 and int(img.max()) > 0
     assert len({b.label.tobytes() for b in batches}) == 4
     assert float((x * 2).sum()) == 56.0
+
+
+def test_cuda_program_launches_the_kernel(cuda_device, tmp_path):
+    """On the card the exported program launches kernel 1 once a call and
+    gives the live decode's ids."""
+    from lstm_ctc_ocr_torch.config import load_cfg
+    from lstm_ctc_ocr_torch.engine import serve
+    from lstm_ctc_ocr_torch.engine import test as test_mod
+    from lstm_ctc_ocr_torch.models.factory import get_network
+    cfg = load_cfg(None, ['TEST.BATCH_SIZE', '4', 'TRAIN.DTYPE',
+                          "'bfloat16'"])
+    model = get_network('LSTM_test', cfg,
+                        generator=torch.Generator().manual_seed(0))
+    serve.export_decoder(model, cfg, str(tmp_path), buckets=[96], batch=4)
+    dec = serve.ExportedDecoder(str(tmp_path))
+    img = np.random.RandomState(0).rand(4, 96, 32).astype(np.float32)
+    ts = np.array([23, 20, 9, 1], np.int32)
+    before = rnn_cuda.bilstm_fwd.launches
+    got = dec.run(img, ts)
+    assert rnn_cuda.bilstm_fwd.launches == before + 1
+    with test_mod.full_f32():
+        want = test_mod.make_decode_step(model, cfg, cuda_device)(img, ts)
+    np.testing.assert_array_equal(got, want)

@@ -30,6 +30,7 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.data.image', 'lstm_ctc_ocr_torch.data.pool',
     'lstm_ctc_ocr_torch.data.records', 'lstm_ctc_ocr_torch.data.scene',
     'lstm_ctc_ocr_torch.engine', 'lstm_ctc_ocr_torch.engine.checkpoint',
+    'lstm_ctc_ocr_torch.engine.serve',
     'lstm_ctc_ocr_torch.engine.summary', 'lstm_ctc_ocr_torch.engine.test',
     'lstm_ctc_ocr_torch.engine.train', 'lstm_ctc_ocr_torch.models',
     'lstm_ctc_ocr_torch.models.crnn', 'lstm_ctc_ocr_torch.models.factory',
@@ -37,12 +38,16 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.native.synth', 'lstm_ctc_ocr_torch.ops',
     'lstm_ctc_ocr_torch.ops._build', 'lstm_ctc_ocr_torch.ops.beam',
     'lstm_ctc_ocr_torch.ops.conv_bn_cuda', 'lstm_ctc_ocr_torch.ops.ctc',
-    'lstm_ctc_ocr_torch.ops.ctc_cuda', 'lstm_ctc_ocr_torch.ops.decoder',
+    'lstm_ctc_ocr_torch.ops.ctc_cuda', 'lstm_ctc_ocr_torch.ops.custom_ops',
+    'lstm_ctc_ocr_torch.ops.decoder',
     'lstm_ctc_ocr_torch.ops.rnn', 'lstm_ctc_ocr_torch.ops.rnn_cuda',
     'lstm_ctc_ocr_torch.tools', 'lstm_ctc_ocr_torch.tools.ablate_ctc_fwd',
     'lstm_ctc_ocr_torch.tools.ablate_lstm_bwd',
     'lstm_ctc_ocr_torch.tools.ablate_lstm_fwd',
     'lstm_ctc_ocr_torch.tools.bench_conv_bn',
+    'lstm_ctc_ocr_torch.tools.calibrate_bn',
+    'lstm_ctc_ocr_torch.tools.export_model',
+    'lstm_ctc_ocr_torch.tools.release_ckpt',
     'lstm_ctc_ocr_torch.utils', 'lstm_ctc_ocr_torch.utils.metrics',
     'lstm_ctc_ocr_torch.utils.timer',
 ]
