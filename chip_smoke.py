@@ -160,10 +160,35 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 9. Profiles: ``torch.profiler`` over a few warm decode calls and over a few
    warm train steps: device time by kernel and the device's busy share of
    the wall.
+10. Data-parallel phase (``parallel/mesh.py``; the card has one GPU, so a
+    group of one NCCL rank, and two gloo ranks sharing the card): (a)
+    ``train_net`` in a process of ``torch.distributed.run --nproc_per_node
+    1`` (``PARALLEL auto``, ``DATA_DEVICE on``, 8-step graphs, 60 steps of
+    ``lstm/lstm.yml`` at full width, batch 64, bf16, Adam, the records
+    file) against the same run with ``PARALLEL off`` in this process:
+    losses and final state bit for bit (or within two ``off`` runs'
+    difference, printed), the four kernels once a step and ``bilstm_fwd``
+    once per validation decode; in the same process, a mesh of that one
+    rank runs the store's 8-step graph with its NCCL collectives captured:
+    graph against eager, and steps/s, device busy ms a step and idle share
+    beside the same graph without collectives (in turns) and phase 8's; (b)
+    two processes over gloo on CUDA tensors, three f32 Momentum steps on
+    their 32 rows of each of three fixed batches of 64 against one rank on
+    the global batch: each step-1 gradient within 1e-5 of the largest or,
+    where the one-rank run on the CPU (plain versions, CPU convs) already
+    differs from the card's by more, within that difference (the conv2 to
+    conv3_2 biases: batch norm downstream all but cancels their gradient);
+    losses within 1e-5; the final state within the CPU tests' bar (rtol
+    2e-5, atol 2e-6) or the CPU run's distance from the card's; ranks
+    bit-identical; each rank's kernels counted; (c) the same two ranks run
+    ``test_net`` on
+    ``data/val`` (``lstm_ctc``, ``BN_EVAL batch``, batch 64 as 2 x 32):
+    the strings against the eval phase's, file by file (a file moved by
+    batch composition is printed; the release's bar holds).
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
-seven kernels (and the rates, the synthetic stream's, the serve and the
-dispatch phase's numbers); the last
+seven kernels (and the rates, the synthetic stream's, the serve, the
+dispatch and the data-parallel phase's numbers); the last
 line is ``{"ok": true, "device": {...}}``. Per-image eval lines, the
 training runs' and the serve phase's output go to ``chiprun_out/``.
 """
@@ -178,6 +203,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -2306,6 +2332,425 @@ def dispatch_phase(mods, card, rec_path, host_rate, log,
     return counts, out
 
 
+# ---- 10. data parallelism ---------------------------------------------------
+
+DP_STEPS, DP_K = 60, 8
+
+
+def dp_overrides(rec_path, exp, parallel):
+    """Phase 10 (a)'s run: lstm.yml at full width on the records store,
+    8-step graphs, 60 steps."""
+    return train_overrides(rec_path, exp) + [
+        'TRAIN.STEPS_PER_DISPATCH', str(DP_K), 'DATA_DEVICE', "'on'",
+        'VAL.VAL_STEP', '50', 'TRAIN.DISPLAY', '10', 'TRAIN.SNAPSHOT_ITERS',
+        '20', 'PARALLEL', repr(parallel)]
+
+
+def dp_f32_overrides():
+    """Phase 10 (b)'s steps: f32, Momentum at lr 1e-3 (linear in the
+    gradient, the CPU tests' solver), full width."""
+    return ['TRAIN.DTYPE', "'float32'", 'TRAIN.SOLVER', "'Momentum'",
+            'TRAIN.LEARNING_RATE', '0.001', 'TRAIN.GAMMA', '1.0',
+            'RENDERER', 'native']
+
+
+def dp_batches(mods, cfg, rec_path):
+    """Three fixed global batches of 64: the records file's rows 0-191."""
+    ds = mods['records'].RecordsDataset(rec_path, cfg)
+    out = [ds.batch(range(64 * j, 64 * (j + 1))) for j in range(3)]
+    ds.close()
+    return [(b.image, b.label, b.label_len, b.time_step) for b in out]
+
+
+def dp_train_net(mods, cfg, exp):
+    """``train_net`` of phase 10 (a) from the seed; returns its losses, its
+    final state on the host, the solver's count, the launches and the wall
+    seconds."""
+    train, get_network = mods['train'], mods['get_network']
+    shutil.rmtree(os.path.join(REPO, 'output', exp), ignore_errors=True)
+    net = get_network('LSTM_train', cfg, generator=torch.Generator()
+                      .manual_seed(int(cfg.RNG_SEED)))
+    launch_counts(mods['rnn_cuda'], mods['ctc_cuda'], reset=True)
+    t0 = time.perf_counter()
+    model, optimizer, losses = train.train_net(
+        net, {'name': 'chip_smoke'}, None, os.path.join(REPO, 'output', exp),
+        os.path.join(REPO, 'logs', exp), cfg, max_iters=DP_STEPS + 1,
+        device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {'losses': losses,
+            'state': [t.cpu() for t in save_state(model, optimizer)[0]],
+            'count': optimizer.count, 'wall_s': wall,
+            'launches': launch_counts(mods['rnn_cuda'], mods['ctc_cuda'])}
+
+
+def dp_worker_nccl(mods, args, card):
+    """Phase 10 (a) in a process of ``torch.distributed.run
+    --nproc_per_node 1``: ``train_net`` under the one-rank NCCL group, then
+    a mesh of that rank driving the K-step graph with its collectives
+    captured, against the same graph without them, in turns."""
+    import torch.distributed as dist
+    pmesh, train = mods['pmesh'], mods['train']
+    world = pmesh.init_distributed(device='cuda')
+    try:
+        check(world == 1 and dist.get_backend() == 'nccl',
+              'expected one NCCL rank, got {} ({})'.format(
+                  world, dist.get_backend()))
+        cfg = mods['load_cfg'](os.path.join(REPO, 'lstm', 'lstm.yml'),
+                               dp_overrides(args.records, 'chip_smoke_dp',
+                                            'auto'))
+        out = dp_train_net(mods, cfg, 'chip_smoke_dp')
+        out['world'], out['backend'] = world, dist.get_backend()
+
+        dev = torch.device('cuda', torch.cuda.current_device())
+        dtype = train.compute_dtype(cfg)
+        mesh = pmesh.make_mesh(dev)
+        feed = mods['device_store'].make_device_feed(cfg, dev, verbose=False)
+        store, n, k = feed.store, 64, DP_K
+        out['captured'], rates = {}, {'plain': [], 'mesh': []}
+        runs = {}
+        for tag, m in (('plain', None), ('mesh', mesh)):
+            model = mods['get_network']('LSTM_train', cfg).to(dev).train()
+            opt = train.make_optimizer(model, cfg)
+            chunk = train.make_train_chunk(model, opt, cfg, dtype, k,
+                                           gather=True, mesh=m)
+            step1 = train.make_train_step_gather(model, opt, cfg, dtype, m)
+            chunk(*store.arrays, feed.chunk_indices(n, k))   # captured
+            idx = feed.chunk_indices(n, k)
+            out['captured'][tag] = graph_against_eager(
+                model, opt, lambda: chunk(*store.arrays, idx)[0],
+                lambda: torch.stack([step1(*store.arrays, idx[j])[0]
+                                     for j in range(k)]))
+            runs[tag] = chunk
+        for tag in ('plain', 'mesh', 'mesh', 'plain'):
+            chunk = runs[tag]
+            rates[tag].append(group_rate(
+                'one NCCL rank, store K=8 graph, {}'.format(
+                    'collectives of a one-rank mesh captured' if tag == 'mesh'
+                    else 'no mesh'),
+                lambda: chunk(*store.arrays, feed.chunk_indices(n, k)), k,
+                card))
+        out['rates'] = rates
+        torch.save(out, args.out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_worker_gloo(mods, args):
+    """Phase 10 (b) and (c) at one of two gloo ranks on the one card: three
+    f32 DP steps on this rank's rows of fixed batches, then the DP eval."""
+    import torch.distributed as dist
+    pmesh, train = mods['pmesh'], mods['train']
+    dev = torch.device('cuda', 0)
+    pmesh.init_distributed(args.init, 2, args.rank, device=dev,
+                           backend='gloo')
+    try:
+        mesh = pmesh.make_mesh(dev)
+        yml = os.path.join(REPO, 'lstm', 'lstm.yml')
+        cfg = mods['load_cfg'](yml, dp_f32_overrides())
+        model = mods['get_network']('LSTM_train', cfg, generator=torch
+                                    .Generator().manual_seed(0)).to(dev)
+        opt = train.make_optimizer(model.train(), cfg)
+        step = pmesh.make_parallel_train_step(model, opt, cfg, None, mesh)
+        launch_counts(mods['rnn_cuda'], mods['ctc_cuda'], reset=True)
+        losses, first = [], None
+        for b in dp_batches(mods, cfg, args.records):
+            losses.append(float(step(*pmesh.shard_batch(mesh, *b))[0]))
+            if first is None:
+                first = [t.to('cpu', copy=True) for t in opt._slot('trace')]
+        out = {'mesh': (mesh.size, mesh.rank, mesh.backend),
+               'names': list(opt.names), 'losses': losses, 'first': first,
+               'state': [t.cpu() for t in save_state(model, opt)[0]],
+               'launches_b': launch_counts(mods['rnn_cuda'],
+                                           mods['ctc_cuda'])}
+        cfg = mods['load_cfg'](yml, ['TEST.BATCH_SIZE', '64', 'BN_EVAL',
+                                     "'batch'", 'TRAIN.DTYPE', "'bfloat16'",
+                                     'DECODER', "'greedy'"])
+        launch_counts(mods['rnn_cuda'], mods['ctc_cuda'], reset=True)
+        with open(args.out + '.eval.log', 'w') as log:
+            r = mods['test'].test_net(
+                cfg, os.path.join(REPO, 'data', 'val'),
+                os.path.join(REPO, 'checkpoints', cfg.EXP_DIR), device=dev,
+                echo=lambda line: log.write(line + '\n'))
+        out.update(predictions=r.predictions, correct=r.correct,
+                   decode_calls=r.decode_calls,
+                   images_per_s=r.steady_images_per_sec,
+                   launches_c=launch_counts(mods['rnn_cuda'],
+                                            mods['ctc_cuda']))
+        torch.save(out, args.out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_worker(argv, mods, card):
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument('mode', choices=('nccl', 'gloo'))
+    parser.add_argument('--records', required=True)
+    parser.add_argument('--out', required=True)
+    parser.add_argument('--rank', type=int, default=0)
+    parser.add_argument('--init', default=None)
+    args = parser.parse_args(argv)
+    if args.mode == 'nccl':
+        return dp_worker_nccl(mods, args, card)
+    return dp_worker_gloo(mods, args)
+
+
+def run_workers(cmds, log_paths, timeout):
+    """Start every command at once (cwd the repo, output to its log), wait
+    for all within ``timeout`` seconds, and kill any still running."""
+    logs = [open(p, 'w') for p in log_paths]
+    procs = [subprocess.Popen(cmd, cwd=REPO, stdout=log,
+                              stderr=subprocess.STDOUT)
+             for cmd, log in zip(cmds, logs)]
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    return [p.returncode for p in procs]
+
+
+def bar_ratio(got, want, rtol=2e-5, atol=2e-6):
+    """The largest |got - want| / (atol + rtol |want|) over two states:
+    at most 1 within the CPU tests' bar."""
+    return max(float(((g.double() - w.double()).abs()
+                      / (atol + rtol * w.double().abs())).max())
+               for g, w in zip(got, want))
+
+
+def dp_phase(mods, card, rec_path, dispatch, eval_predictions, log):
+    """(a) ``train_net`` under a one-rank NCCL group against PARALLEL off,
+    and the captured collectives; (b) two gloo ranks on the one card
+    against one rank on the global batch; (c) the DP eval against the eval
+    phase. Returns the launches by path and the phase's numbers."""
+    train, load_cfg = mods['train'], mods['load_cfg']
+    rnn_cuda, ctc_cuda = mods['rnn_cuda'], mods['ctc_cuda']
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(REPO, 'chiprun_out')
+    yml = os.path.join(REPO, 'lstm', 'lstm.yml')
+    me = os.path.join(REPO, 'chip_smoke.py')
+    a_out = os.path.join(out_dir, 'chip_smoke_dp_a.pt')
+    gloo_out = [os.path.join(out_dir, 'chip_smoke_dp_rank{}.pt'.format(r))
+                for r in range(2)]
+    rendezvous = os.path.join(out_dir, 'chip_smoke_dp_rendezvous')
+    for path in [a_out, rendezvous] + gloo_out:
+        if os.path.exists(path):
+            os.remove(path)
+    logs = [os.path.join(out_dir, 'chip_smoke_dp_{}.log'.format(w))
+            for w in ('a', 'rank0', 'rank1')]
+    # (a) alone on the card, since it measures rates; then (b) and (c)'s
+    # two ranks while this process computes the references
+    procs_t0 = time.perf_counter()
+    rcs = run_workers([[sys.executable, '-m', 'torch.distributed.run',
+                        '--standalone', '--nproc_per_node', '1', me,
+                        '--dp-worker', 'nccl', '--records', rec_path,
+                        '--out', a_out]], logs[:1], timeout=300)
+    waiter = threading.Thread(target=lambda: rcs.extend(run_workers(
+        [[sys.executable, me, '--dp-worker', 'gloo', '--records', rec_path,
+          '--out', gloo_out[r], '--rank', str(r), '--init',
+          'file://' + rendezvous] for r in range(2)], logs[1:],
+        timeout=300)))
+    waiter.start()
+
+    # (a)'s reference: the same run with PARALLEL off, in this process
+    cfg_off = load_cfg(yml, dp_overrides(rec_path, 'chip_smoke_dp_off',
+                                         'off'))
+    with contextlib.redirect_stdout(log):
+        ref = dp_train_net(mods, cfg_off, 'chip_smoke_dp_off')
+    # (b)'s reference: one rank's steps on the global batch on the card,
+    # and the same steps on the CPU (plain versions, CPU convs): a second
+    # correct computation, whose distance from the first says how far
+    # rounding alone moves each tensor
+    cfg32 = load_cfg(yml, dp_f32_overrides())
+    batches = dp_batches(mods, cfg32, rec_path)
+    one = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    for dev in ('cuda', 'cpu'):
+        model = mods['get_network']('LSTM_train', cfg32, generator=torch
+                                    .Generator().manual_seed(0)).to(dev)
+        opt = train.make_optimizer(model.train(), cfg32)
+        step = train.make_train_step(model, opt, cfg32, None)
+        losses, first = [], None
+        for b in batches:
+            losses.append(float(step(*(torch.from_numpy(a).to(dev)
+                                       for a in b))[0]))
+            if first is None:
+                first = [t.to('cpu', copy=True) for t in opt._slot('trace')]
+        one[dev] = (losses, first,
+                    [t.cpu() for t in save_state(model, opt)[0]])
+    torch.set_num_threads(threads)
+    waiter.join()
+    workers_s = time.perf_counter() - procs_t0
+    for path, rc in zip(logs, rcs):
+        if rc != 0:
+            with open(path) as f:
+                print(f.read()[-4000:], flush=True)
+    check(rcs == [0, 0, 0], 'DP workers exited {} (logs {})'.format(rcs, logs))
+    a = torch.load(a_out, weights_only=False)
+    ranks = [torch.load(p, weights_only=False) for p in gloo_out]
+    for path in [a_out] + gloo_out:          # states: too large to keep
+        os.remove(path)
+    out = {'workers_s': workers_s}
+
+    # (a) against PARALLEL off
+    diff = state_difference([torch.tensor(a['losses'])] + a['state'],
+                            [torch.tensor(ref['losses'])] + ref['state'])
+    eager = 0.0
+    if diff:
+        with contextlib.redirect_stdout(log):
+            ref2 = dp_train_net(mods, cfg_off, 'chip_smoke_dp_off')
+        eager = state_difference(
+            [torch.tensor(ref2['losses'])] + ref2['state'],
+            [torch.tensor(ref['losses'])] + ref['state'])
+    val_calls = sum(1 for it in range(1, DP_STEPS + 1) if (it + 1) % 50 == 0)
+    want = {'bilstm_fwd': DP_STEPS + val_calls, 'bilstm_bwd': DP_STEPS,
+            'lstm_fwd': 0, 'lstm_bwd': 0, 'ctc_fwd': DP_STEPS,
+            'ctc_bwd': DP_STEPS}
+    print('dp (a) train_net under torch.distributed.run --nproc_per_node 1 '
+          '(world {}, {}), PARALLEL auto, DATA_DEVICE on, K={}, {} steps in '
+          '{:.1f} s: losses {:.4f} -> {:.4f}; against PARALLEL off in this '
+          'process: largest |difference| over losses and final state {}{}; '
+          'launches {}'.format(
+              a['world'], a['backend'], DP_K, len(a['losses']), a['wall_s'],
+              a['losses'][0], a['losses'][-1], diff,
+              ' (bit for bit)' if diff == 0 else
+              ', two PARALLEL off runs differ by {}'.format(eager),
+              json.dumps(a['launches'])), flush=True)
+    check(len(a['losses']) == DP_STEPS and a['count'] == DP_STEPS,
+          'dp (a): {} losses, count {}'.format(len(a['losses']), a['count']))
+    check(diff <= eager, 'dp (a) differs from PARALLEL off by {} (two off '
+          'runs by {})'.format(diff, eager))
+    check(a['launches'] == want and ref['launches'] == want,
+          'dp (a) launches {} (PARALLEL off {}), expected {}'.format(
+              a['launches'], ref['launches'], want))
+    for tag, (graph, eager_k) in a['captured'].items():
+        print('dp (a) one NCCL rank, store K=8 graph ({}): {} graphed steps '
+              'against eager from one state, largest |graph - eager| {}, '
+              '|eager - eager| {}'.format(
+                  'collectives of a one-rank mesh captured' if tag == 'mesh'
+                  else 'no mesh', DP_K, graph, eager_k), flush=True)
+        check(graph <= eager_k, 'dp (a) {} graph differs from eager by {}'
+              .format(tag, graph))
+    rate = {tag: {key: statistics.mean(r[key] for r in runs)
+                  for key in ('steps_per_s', 'device_busy_ms_per_step',
+                              'device_idle_share')
+                  if all(r[key] is not None for r in runs)}
+            for tag, runs in a['rates'].items()}
+    store_graph = dispatch['rates']['store_graph']
+    print('dp (a) rates on {} (steps/s, device busy ms a step, idle share; '
+          'mean of two turns each): one NCCL rank with the collectives {}, '
+          'without {}; phase 8 store K=8 graph {:.2f} steps/s, {} ms, {}'
+          .format(card, json.dumps(rate['mesh']), json.dumps(rate['plain']),
+                  store_graph['steps_per_s'],
+                  store_graph['device_busy_ms_per_step'],
+                  store_graph['device_idle_share']), flush=True)
+    out['a'] = {'max_abs_diff_vs_parallel_off': diff,
+                'parallel_off_vs_off': eager, 'losses_first_last':
+                [a['losses'][0], a['losses'][-1]], 'wall_s': a['wall_s'],
+                'graph_vs_eager': a['captured'], 'rates': rate,
+                'rates_by_turn': a['rates']}
+
+    # (b) two gloo ranks against one rank on the global batch. Each step-1
+    # gradient within 1e-5 of the largest, or, for a tensor whose card and
+    # CPU one-rank gradients differ by more (the conv2-conv3_2 biases, a
+    # sum that batch norm downstream all but cancels), within that
+    # difference; the 3-step state within the CPU tests' bar, or within the
+    # card-to-CPU distance of the one-rank run where that is larger
+    losses1, first1, state1 = one['cuda']
+    names = ranks[0]['names']
+    g_max = max(float(t.abs().max()) for t in first1)
+    floor = [max(1e-5 * g_max, float((c - g).abs().max()))
+             for c, g in zip(one['cpu'][1], first1)]
+    control = bar_ratio(one['cpu'][2], state1)
+    out['b'] = {'cpu_vs_card_bar_ratio': control, 'cpu_vs_card_gradients': {
+        n: f / g_max for n, f in zip(names, floor) if f > 1e-5 * g_max}}
+    for r, res in enumerate(ranks):
+        check(res['mesh'] == (2, r, 'gloo'), 'dp (b) rank {} mesh {}'.format(
+            r, res['mesh']))
+        diffs = [float((g - w).abs().max())
+                 for g, w in zip(res['first'], first1)]
+        over = [(n, d / g_max, f / g_max)
+                for n, d, f in zip(names, diffs, floor) if d > f]
+        grad = max(diffs) / g_max
+        loss = max(abs(x - y) / abs(y) for x, y in zip(res['losses'],
+                                                         losses1))
+        ratio = bar_ratio(res['state'], state1)
+        same = all(torch.equal(x, y) for x, y in
+                   zip(res['state'], ranks[0]['state'])) \
+            and res['losses'] == ranks[0]['losses']
+        print('dp (b) rank {} of 2 (gloo, CUDA tensors, one card), 3 f32 '
+              'Momentum steps on its 32 rows of each batch of 64, against one '
+              'rank on the global batch: step-1 gradients within {:.2e} of '
+              'the largest ({} tensors past 1e-5, each within the card-to-CPU '
+              'difference of the one-rank gradient: {}), losses within {:.2e} '
+              'relative, final state at {:.3f} of the bar (rtol 2e-5, atol '
+              '2e-6; the one-rank run on the CPU against the card: {:.3f}), '
+              'bit-identical to rank 0: {}; launches {}'.format(
+                  r, grad, sum(d > 1e-5 * g_max for d in diffs),
+                  json.dumps({n: [round(d / g_max, 6), round(f / g_max, 6)]
+                              for n, d, f in zip(names, diffs, floor)
+                              if d > 1e-5 * g_max}),
+                  loss, ratio, control, same,
+                  json.dumps(res['launches_b'])), flush=True)
+        check(not over and loss <= 1e-5 and same,
+              'dp (b) rank {}: gradients past their bar {}, loss {}, same {}'
+              .format(r, over, loss, same))
+        check(ratio <= max(1.0, control),
+              'dp (b) rank {}: state at {} of the bar, the CPU one-rank run '
+              'at {}'.format(r, ratio, control))
+        check(all(res['launches_b'][k] == 3 for k in
+                  ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd', 'ctc_bwd')),
+              'dp (b) rank {} launches {}'.format(r, res['launches_b']))
+        out['b']['rank{}'.format(r)] = {'grad': grad, 'loss': loss,
+                                        'bar_ratio': ratio}
+
+    # (c) the DP eval against the eval phase's strings
+    want = eval_predictions['lstm_ctc/batch']
+    got = ranks[0]['predictions']
+    moved = sorted(f for f in want if got.get(f) != want[f])
+    for r, res in enumerate(ranks):
+        check(res['predictions'] == got, 'dp (c) rank {} predictions differ '
+              'from rank 0'.format(r))
+        check(res['launches_c']['bilstm_fwd'] == res['decode_calls'],
+              'dp (c) rank {}: {} launches for {} decode calls'.format(
+                  r, res['launches_c']['bilstm_fwd'], res['decode_calls']))
+    print('dp (c) eval at two gloo ranks (lstm_ctc, BN_EVAL batch, batch 64 '
+          'as 2 x 32, bf16) on data/val: {}/{} correct, {} decode calls a '
+          'rank, {:.1f} images/s steady; strings against the eval phase: {} '
+          'of {} identical{}'.format(
+              ranks[0]['correct'], len(got), ranks[0]['decode_calls'],
+              ranks[0]['images_per_s'], len(want) - len(moved), len(want),
+              '' if not moved else ', moved by batch composition: {}'.format(
+                  [(f, want[f], got.get(f)) for f in moved])), flush=True)
+    check(set(got) == set(want) and ranks[0]['correct'] >= EVALS[0][6],
+          'dp (c): {} files, {} correct'.format(len(got),
+                                                ranks[0]['correct']))
+    out['c'] = {'correct': ranks[0]['correct'], 'moved': moved,
+                'decode_calls': ranks[0]['decode_calls'],
+                'images_per_s': ranks[0]['images_per_s']}
+    out['seconds'] = time.perf_counter() - t_phase
+    print('dp: phase took {:.1f} s (workers {:.1f} s)'.format(
+        out['seconds'], workers_s), flush=True)
+    launches = {'dp_train_nccl': a['launches'],
+                'dp_reference': ref['launches']}
+    for r, res in enumerate(ranks):
+        launches['dp_steps_rank{}'.format(r)] = res['launches_b']
+        launches['dp_eval_rank{}'.format(r)] = res['launches_c']
+    return launches, out
+
+
 def profile_report(what, fn, reps, with_wall=False):
     """``torch.profiler`` over ``reps`` warm calls of ``fn``, the last
     followed to its end on the device: device time by kernel and the
@@ -2354,6 +2799,7 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     from lstm_ctc_ocr_torch.config import load_cfg
+    from lstm_ctc_ocr_torch.parallel import mesh as pmesh
     from lstm_ctc_ocr_torch.data import device_store, gen, image, records
     from lstm_ctc_ocr_torch.engine import checkpoint, serve
     from lstm_ctc_ocr_torch.engine import test as test_mod
@@ -2369,6 +2815,17 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    mods = {'load_cfg': load_cfg, 'train': train, 'test': test_mod,
+            'rnn_cuda': rnn_cuda, 'ctc_cuda': ctc_cuda, 'ctc': ctc,
+            'records': records, 'get_network': get_network, 'crnn': crnn,
+            'layers': layers, 'gen': gen, 'image': image,
+            'device_store': device_store, 'serve': serve,
+            'checkpoint': checkpoint, 'calibrate_bn': calibrate_bn,
+            'release_ckpt': release_ckpt, 'pmesh': pmesh}
+    if sys.argv[1:2] == ['--dp-worker']:        # a rank of phase 10
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return dp_worker(sys.argv[2:], mods, card)
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     print('torch {} CUDA {} device {} (count {})'.format(
@@ -2399,13 +2856,6 @@ def main():
         eval_launches, eval_predictions = eval_phase(rnn_cuda, test_mod,
                                                      load_cfg, log)
     profile_phase(test_mod, load_cfg)
-    mods = {'load_cfg': load_cfg, 'train': train, 'test': test_mod,
-            'rnn_cuda': rnn_cuda, 'ctc_cuda': ctc_cuda, 'ctc': ctc,
-            'records': records, 'get_network': get_network, 'crnn': crnn,
-            'layers': layers, 'gen': gen, 'image': image,
-            'device_store': device_store, 'serve': serve,
-            'checkpoint': checkpoint, 'calibrate_bn': calibrate_bn,
-            'release_ckpt': release_ckpt}
     with open(os.path.join(out_dir, 'chip_smoke_train.log'), 'w') as log:
         synth_launches, pool_launches, synth = synth_phase(mods, card, log)
         train_launches, rate, rec_path = train_phase(mods, card, log)
@@ -2417,6 +2867,8 @@ def main():
                 mods, card, eval_predictions, stacked_predictions, serve_log)
         dispatch_launches, dispatch = dispatch_phase(mods, card, rec_path,
                                                      rate, log)
+        dp_launches, dp = dp_phase(mods, card, rec_path, dispatch,
+                                   eval_predictions, log)
     print('train rate on {}: synthetic feed {:.2f} steps/s ({} fork workers, '
           'os.cpu_count() {}), records feed {:.2f} steps/s; device busy ms '
           'per step {} and {}'.format(
@@ -2430,8 +2882,18 @@ def main():
               for k, v in dispatch['rates'].items()})), flush=True)
     for name in ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd', 'ctc_bwd'):
         check(train_launches[name] > 0 and synth_launches[name] > 0
-              and pool_launches[name] > 0 and dispatch_launches[name] > 0,
+              and pool_launches[name] > 0 and dispatch_launches[name] > 0
+              and all(dp_launches[p][name] > 0 for p in dp_launches
+                      if not p.startswith('dp_eval')),
               '{} was not launched on every train path'.format(name))
+    check(all(dp_launches[p]['bilstm_fwd'] > 0 for p in dp_launches),
+          'bilstm_fwd was not launched on every DP path')
+
+    def dp_total(name):
+        return sum(v[name] for v in dp_launches.values())
+
+    def dp_paths(name):
+        return {p: v[name] for p, v in dp_launches.items()}
     for name in ('lstm_fwd', 'lstm_bwd', 'ctc_fwd', 'ctc_bwd'):
         check(stacked_launches[name] > 0,
               '{} was not launched on the stacked-LSTM path'.format(name))
@@ -2451,13 +2913,14 @@ def main():
     def ctc_launches(name):
         return {'launches': synth_launches[name] + pool_launches[name]
                 + train_launches[name] + stacked_launches[name]
-                + dispatch_launches[name],
-                'launches_by_path': {'synth_train': synth_launches[name],
-                                     'pool_train': pool_launches[name],
-                                     'train': train_launches[name],
-                                     'stacked_lstm': stacked_launches[name],
-                                     'dispatch_train':
-                                         dispatch_launches[name]}}
+                + dispatch_launches[name] + dp_total(name),
+                'launches_by_path': dict({
+                    'synth_train': synth_launches[name],
+                    'pool_train': pool_launches[name],
+                    'train': train_launches[name],
+                    'stacked_lstm': stacked_launches[name],
+                    'dispatch_train': dispatch_launches[name]},
+                    **dp_paths(name))}
     print(json.dumps({'kernels': [dict(common, **{
         'name': 'bilstm_fwd',
         'source': 'lstm_ctc_ocr_torch/csrc/bilstm_fwd.cu',
@@ -2465,14 +2928,15 @@ def main():
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_fwd_kernel',
         'launches': eval_launches + synth_launches['bilstm_fwd']
         + pool_launches['bilstm_fwd'] + train_launches['bilstm_fwd']
-        + dispatch_launches['bilstm_fwd'] + serve_launches['bilstm_fwd'],
-        'launches_by_path': {'eval': eval_launches,
-                             'serve': serve_launches['bilstm_fwd'],
-                             'synth_train': synth_launches['bilstm_fwd'],
-                             'pool_train': pool_launches['bilstm_fwd'],
-                             'train': train_launches['bilstm_fwd'],
-                             'dispatch_train':
-                                 dispatch_launches['bilstm_fwd']},
+        + dispatch_launches['bilstm_fwd'] + serve_launches['bilstm_fwd']
+        + dp_total('bilstm_fwd'),
+        'launches_by_path': dict({
+            'eval': eval_launches, 'serve': serve_launches['bilstm_fwd'],
+            'synth_train': synth_launches['bilstm_fwd'],
+            'pool_train': pool_launches['bilstm_fwd'],
+            'train': train_launches['bilstm_fwd'],
+            'dispatch_train': dispatch_launches['bilstm_fwd']},
+            **dp_paths('bilstm_fwd')),
         'max_abs_err': errs[('bf16 N=64 T=23', False)],
         'ms': fwd['kernel_ms'],
         'device_ms': fwd['device_ms'],
@@ -2501,12 +2965,13 @@ def main():
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_bwd_kernel',
         'launches': synth_launches['bilstm_bwd']
         + pool_launches['bilstm_bwd'] + train_launches['bilstm_bwd']
-        + dispatch_launches['bilstm_bwd'],
-        'launches_by_path': {'synth_train': synth_launches['bilstm_bwd'],
-                             'pool_train': pool_launches['bilstm_bwd'],
-                             'train': train_launches['bilstm_bwd'],
-                             'dispatch_train':
-                                 dispatch_launches['bilstm_bwd']},
+        + dispatch_launches['bilstm_bwd'] + dp_total('bilstm_bwd'),
+        'launches_by_path': dict({
+            'synth_train': synth_launches['bilstm_bwd'],
+            'pool_train': pool_launches['bilstm_bwd'],
+            'train': train_launches['bilstm_bwd'],
+            'dispatch_train': dispatch_launches['bilstm_bwd']},
+            **dp_paths('bilstm_bwd')),
         'max_abs_err': bwd_errs['bf16 N=64 T=23'],
         'ms': bwd['kernel_ms'],
         'device_ms': bwd['device_ms'],
@@ -2635,6 +3100,7 @@ def main():
         'by_shape': conv_timings,
     })], 'train': rate, 'stacked_lstm_train': stacked_rate,
         'synthetic_stream': synth, 'dispatch': dispatch, 'serve': served,
+        'data_parallel': dp,
         'seconds': time.perf_counter() - t_start}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

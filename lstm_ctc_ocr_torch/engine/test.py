@@ -11,13 +11,22 @@ by width bucket and decode fixed-size batches, padding a short chunk with
 copies of its last image — under ``BN_EVAL: batch`` those rows enter the
 batch-norm statistics, so the padding has to match the JAX package's.
 
-Run::
+Data parallel (the JAX eval's mesh, ``engine/test.py:150-176``): under a
+process group whose ranks divide ``TEST.BATCH_SIZE`` (and ``PARALLEL`` not
+``off``), each rank loads and decodes its rows of every batch with the
+batch-norm statistics of the whole batch, the decoded ids are all-gathered,
+and rank 0 prints what a single process prints.
 
-    python -m lstm_ctc_ocr_torch.engine.test --cfg lstm/lstm.yml \
-        --test_dir data/val --set TEST.BATCH_SIZE 64 [--device cpu]
+Run (the flags of the JAX package's ``lstm/test_net.py``, and ``test.sh``'s
+line; ``--set`` takes the rest of the line, so ``--device`` comes before
+it)::
+
+    python -m lstm_ctc_ocr_torch.engine.test --network=LSTM_test \
+        --cfg=./lstm/lstm.yml --restore=1 [--test_dir data/val] \
+        [--device cpu] [--set TEST.BATCH_SIZE 64 ...]
 
 The device is CUDA unless ``--device cpu`` is given; without CUDA it raises
-rather than fall back.
+rather than fall back. Under torchrun it runs a rank a process.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from ..data.records import parse_label_from_filename
 from ..models.factory import get_network
 from ..ops.beam import beam_decode
 from ..ops.decoder import greedy_decode
+from ..parallel import mesh as pmesh
 from ..utils.timer import Timer
 from . import checkpoint
 
@@ -105,18 +115,21 @@ def prepare_single(img: np.ndarray, cfg):
     return out[None], np.array([ts], np.int32)
 
 
-def decode_fn(model, cfg):
+def decode_fn(model, cfg, bn_group=None):
     """The live decode as tensors: images [N, W, 32] f32 and steps [N]
     int32 on the model's device -> decoded ids [N, T] int32 — the forward
     in ``TRAIN.DTYPE`` with the ``BN_EVAL`` statistics, then greedy or beam
-    decode as ``DECODER`` says. Runs in the caller's grad mode."""
+    decode as ``DECODER`` says. Runs in the caller's grad mode. With a
+    process group, ``BN_EVAL: batch`` takes the statistics of every rank's
+    rows."""
     dtype = _DTYPES[str(cfg.TRAIN.DTYPE)]
     moving = str(cfg.BN_EVAL) == 'moving'
     beam = str(cfg.DECODER) == 'beam'
     width, merge = int(cfg.BEAM_WIDTH), bool(cfg.BEAM_MERGE_REPEATED)
 
     def decode(x, lens):
-        logits = model(x, lens, dtype=dtype, moving_bn=moving).transpose(0, 1)
+        logits = model(x, lens, dtype=dtype, moving_bn=moving,
+                       bn_group=bn_group).transpose(0, 1)
         if beam:
             return beam_decode(logits, lens, beam_width=width,
                                merge_repeated=merge)
@@ -124,10 +137,12 @@ def decode_fn(model, cfg):
     return decode
 
 
-def make_decode_step(model, cfg, device):
+def make_decode_step(model, cfg, device, mesh=None):
     """images [N, W, 32] f32 numpy, steps [N] int32 -> decoded ids [N, T]
-    int32 numpy; the copy back to the host waits for the device."""
-    decode = decode_fn(model, cfg)
+    int32 numpy; the copy back to the host waits for the device. With a
+    ``mesh``: this rank's rows of a global batch, decoded with the batch
+    statistics of every rank's rows."""
+    decode = decode_fn(model, cfg, mesh.group if mesh is not None else None)
 
     @torch.inference_mode()
     def decode_step(images, steps):
@@ -136,39 +151,63 @@ def make_decode_step(model, cfg, device):
     return decode_step
 
 
+def _eval_mesh(cfg, device, batch):
+    """The DP mesh of a batched eval: every rank of the process group when
+    the ranks divide the batch and ``PARALLEL`` is not ``off``, else None
+    (each rank decodes every batch alone)."""
+    world = pmesh.world_size()
+    if batch > 1 and str(cfg.PARALLEL) != 'off' and world > 1 \
+            and batch % world == 0:
+        return pmesh.make_mesh(device)
+    return None
+
+
 @full_f32()
 def test_net(cfg, test_dir: str, output_dir: str = None, device='cuda',
-             echo: Callable[[str], None] = print, model=None) -> EvalResult:
+             echo: Callable[[str], None] = print, model=None,
+             restore: bool = True) -> EvalResult:
     """Evaluate the newest checkpoint of ``cfg.EXP_DIR`` on ``test_dir``.
 
-    ``echo`` receives the per-image and summary lines. ``model`` is the
-    network to restore into (a ``models/crnn.py`` subclass, say); the
-    default is the factory's ``LSTM_test``."""
+    ``echo`` receives the per-image and summary lines (rank 0's only, under
+    a process group). ``model`` is the network to restore into (a
+    ``models/crnn.py`` subclass, say); the default is the factory's
+    ``LSTM_test``, initialised from ``RNG_SEED``. ``restore=False``
+    evaluates that initialised network, as the JAX ``restore=0`` does."""
     dev = resolve_device(device)
-    if output_dir is None:
-        output_dir = get_output_dir(cfg)
-    found = checkpoint.latest_eval_checkpoint(output_dir)
-    if found is None:
-        raise RuntimeError('no checkpoint found in {} (nor released weights '
-                           'in {})'.format(output_dir,
-                                           checkpoint.release_dir(output_dir)))
-    path, step = found
+    if pmesh.world_size() > 1 and torch.distributed.get_rank() != 0:
+        def echo(_):
+            pass
     if model is None:
-        model = get_network('LSTM_test', cfg)
-    checkpoint.load_into(model, path, str(cfg.BN_EVAL) == 'moving')
+        model = get_network('LSTM_test', cfg, generator=torch.Generator()
+                            .manual_seed(int(cfg.RNG_SEED)))
+    if restore:
+        if output_dir is None:
+            output_dir = get_output_dir(cfg)
+        found = checkpoint.latest_eval_checkpoint(output_dir)
+        if found is None:
+            raise RuntimeError(
+                'no checkpoint found in {} (nor released weights in {})'
+                .format(output_dir, checkpoint.release_dir(output_dir)))
+        path, step = found
+        checkpoint.load_into(model, path, str(cfg.BN_EVAL) == 'moving')
+        echo('Restored {} (step {})'.format(path, step))
+    else:
+        echo('Evaluating the initialised network (no restore)')
     model = model.to(dev).eval()
-    echo('Restored {} (step {})'.format(path, step))
     _, decode_maps = get_encode_decode_dict(cfg)
     entries = sorted(os.listdir(test_dir))
     files = [f for f in entries if parse_label_from_filename(f) is not None]
     if len(files) < len(entries):
         echo('skipping {} non-dataset entries in {}'.format(
             len(entries) - len(files), test_dir))
-    decode_step = make_decode_step(model, cfg, dev)
     batch = int(cfg.TEST.BATCH_SIZE)
+    mesh = _eval_mesh(cfg, dev, batch)
+    if mesh is not None:
+        echo('eval DP over {} ranks ({})'.format(mesh.size, mesh.backend))
+    decode_step = make_decode_step(model, cfg, dev, mesh=mesh)
     if batch > 1:
         return _test_batched(cfg, decode_step, decode_maps, test_dir, files,
-                             batch, echo)
+                             batch, echo, mesh)
     timer = Timer()
     latencies: List[float] = []
     warm: List[float] = []                  # calls at an already-seen width
@@ -214,10 +253,12 @@ def files_by_bucket(cfg, test_dir: str, files) -> Dict[int, List[str]]:
     return by_bucket
 
 
-def _test_batched(cfg, decode_step, decode_maps, test_dir, files, batch, echo):
+def _test_batched(cfg, decode_step, decode_maps, test_dir, files, batch, echo,
+                  mesh=None):
     """Images grouped by width bucket and decoded ``batch`` at a time; the
     p50 is each batch's decode time over ``batch`` (the device computes the
-    padded rows too)."""
+    padded rows too). With a ``mesh`` each rank loads and decodes its rows
+    of the padded batch, and the ids are gathered back in batch order."""
     by_bucket = files_by_bucket(cfg, test_dir, files)
     latencies: List[float] = []
     chunk_times = []                        # (n_images, seconds, is_warm)
@@ -227,15 +268,21 @@ def _test_batched(cfg, decode_step, decode_maps, test_dir, files, batch, echo):
     for _, names in sorted(by_bucket.items()):
         for i in range(0, len(names), batch):
             chunk = names[i:i + batch]
-            loaded = [prepare_single(load_image(os.path.join(test_dir, f)),
-                                     cfg) for f in chunk]
-            pad = batch - len(loaded)
-            images = np.concatenate([x[0] for x in loaded]
-                                    + [loaded[-1][0]] * pad)
-            steps = np.concatenate([x[1] for x in loaded]
-                                   + [loaded[-1][1]] * pad)
+            # a short chunk is padded with copies of its last image
+            rows = chunk + [chunk[-1]] * (batch - len(chunk))
+            if mesh is not None:
+                rows = rows[pmesh.batch_sharded(mesh, batch)[0]]
+            loaded = {}                     # each file read once
+            for f in rows:
+                if f not in loaded:
+                    loaded[f] = prepare_single(
+                        load_image(os.path.join(test_dir, f)), cfg)
+            images = np.concatenate([loaded[f][0] for f in rows])
+            steps = np.concatenate([loaded[f][1] for f in rows])
             tb = time.perf_counter()
             dec = decode_step(images, steps)
+            if mesh is not None:
+                dec = pmesh.gather_rows(mesh, torch.from_numpy(dec)).numpy()
             secs = time.perf_counter() - tb
             chunk_times.append((len(chunk), secs, i > 0))
             latencies.extend([secs / batch] * len(chunk))
@@ -265,20 +312,54 @@ def _summary(r: EvalResult, echo, batch):
              r.images_per_sec, r.steady_images_per_sec, r.decode_calls))
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The flags of the JAX package's ``lstm/test_net.py`` (``test.sh``'s
+    line parses as it does there), and ``--device``."""
     parser = argparse.ArgumentParser(
         description='Evaluate a CRNN+CTC checkpoint with the PyTorch port')
-    parser.add_argument('--cfg', dest='cfg_file', default=None,
+    parser.add_argument('--gpu', dest='gpu_id', default=0, type=int,
+                        help='CUDA device index')
+    parser.add_argument('--cfg', dest='cfg_file', default=None, type=str,
                         help='YAML experiment config merged over the defaults')
-    parser.add_argument('--test_dir', default='./data/val/',
+    parser.add_argument('--network', dest='network_name',
+                        default='LSTM_test', type=str,
+                        help='model name to build (LSTM_test)')
+    parser.add_argument('--set', dest='set_cfgs', default=None,
+                        nargs=argparse.REMAINDER,
+                        help='dotted-path config overrides: KEY VALUE ... '
+                             '(takes the rest of the line: put --device and '
+                             'the other flags before it)')
+    parser.add_argument('--restore', dest='restore', default=1, type=int,
+                        help='1: load the latest checkpoint from the output '
+                             'dir (or the release); 0: evaluate the '
+                             'initialised network')
+    parser.add_argument('--test_dir', dest='test_dir', default='./data/val/',
+                        type=str,
                         help='directory of {idx}_{label}.png test images')
-    parser.add_argument('--set', dest='set_cfgs', default=[], nargs='+',
-                        help='dotted-path config overrides: KEY VALUE ...')
     parser.add_argument('--device', default='cuda',
-                        help="'cuda' (default) or 'cpu'")
-    args = parser.parse_args(argv)
-    cfg = load_cfg(args.cfg_file, args.set_cfgs)
-    result = test_net(cfg, args.test_dir, device=args.device)
+                        help="'cuda' (default) or 'cpu' (gloo between ranks)")
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    cfg = load_cfg(args.cfg_file, args.set_cfgs or [])
+    owned = not torch.distributed.is_initialized()
+    pmesh.init_distributed(device=args.device)
+    try:
+        device = args.device
+        if device == 'cuda':
+            device = 'cuda:{}'.format(
+                torch.cuda.current_device()
+                if torch.distributed.is_initialized() else args.gpu_id)
+        model = get_network(args.network_name, cfg,
+                            generator=torch.Generator().manual_seed(
+                                int(cfg.RNG_SEED)))
+        result = test_net(cfg, args.test_dir, device=device, model=model,
+                          restore=bool(args.restore))
+    finally:
+        if owned and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return 0 if result.total else 1
 
 

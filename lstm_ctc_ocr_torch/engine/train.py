@@ -1,7 +1,7 @@
 """Training: the train step, its solver, snapshot/restore and in-loop
 validation.
 
-Counterpart of the JAX package's ``engine/train.py`` for one device:
+Counterpart of the JAX package's ``engine/train.py``:
 
 * loss = mean CTC over the feasible examples + the L2 collection
   (:func:`make_loss_fn`); bf16 compute casts the f32 master parameters per
@@ -28,7 +28,16 @@ Counterpart of the JAX package's ``engine/train.py`` for one device:
 * ``DATA_DEVICE`` (``data/device_store.py``) keeps a pool or records
   dataset on the device, where each step gathers its batch by row index
   (:func:`make_train_step_gather`); ``auto`` takes it for those backends
-  and says why when it does not.
+  and says why when it does not;
+* data parallelism (``parallel/mesh.py``): one process per GPU, started by
+  torchrun or the JAX package's environment variables
+  (``parallel/mesh.py:init_distributed``). A rank plays one JAX process with
+  one device: ``TRAIN.BATCH_SIZE`` and ``VAL.BATCH_SIZE`` are global
+  batches, each rank feeds ``B / world`` rows from streams seeded ``100003 *
+  rank`` apart, ``DATA_DEVICE`` takes the sharded store (each rank its own
+  partition), and the step all-reduces the BN statistics, the CTC mean and
+  the gradients (:func:`make_loss_fn`, :func:`all_reduce_grads`); snapshots,
+  summaries and display lines come from rank 0.
 
 The step runs four hand-written CUDA kernels on a CUDA device — the BiLSTM
 forward and backward, or with the stacked ``lstm`` head the unidirectional
@@ -44,9 +53,13 @@ dataset, ``data/records.py``). Run::
     python -m lstm_ctc_ocr_torch.engine.train --cfg lstm/lstm.yml --iters N \\
         [--set RENDERER native ...] [--device cpu]
 
-The device is CUDA unless ``--device cpu`` is given; without CUDA it raises
-rather than fall back. Not ported yet, and raising ``NotImplementedError``
-by name: ``PARALLEL`` over several devices, ``.npy`` pre-train dicts and
+or, data parallel, one process per GPU::
+
+    torchrun --nproc_per_node N -m lstm_ctc_ocr_torch.engine.train ...
+
+The device is CUDA unless ``--device cpu`` is given (gloo between CPU
+ranks); without CUDA it raises rather than fall back. Not ported yet, and
+raising ``NotImplementedError`` by name: ``.npy`` pre-train dicts and
 ``PROFILE_DIR``.
 """
 
@@ -61,13 +74,15 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import get_log_dir, get_output_dir, load_cfg
-from ..data.device_store import make_device_feed
+from ..data.device_store import make_device_feed, make_sharded_device_feed
 from ..data.gen import get_batch
 from ..data.records import RecordsDataset
 from ..models.factory import get_network
 from ..ops import ctc_cuda, rnn_cuda
+from ..parallel import mesh as pmesh
 from ..utils.metrics import accuracy_calculation
 from . import checkpoint
 from .summary import SummaryWriter
@@ -194,40 +209,78 @@ def compute_dtype(cfg):
     return _DTYPES.get(str(cfg.TRAIN.DTYPE))
 
 
-def make_loss_fn(model, cfg, dtype):
+def make_loss_fn(model, cfg, dtype, mesh=None):
     """``loss_fn(image, label, label_len, time_step) -> (total, ctc,
     bn_batch)``: the mean CTC loss over the feasible examples plus the L2
-    collection, and the BN layers' batch statistics."""
+    collection, and the BN layers' batch statistics.
+
+    With a ``mesh`` (``parallel/mesh.py``) the batch is this rank's rows of
+    the global batch: the BN statistics are the global batch's, and the CTC
+    mean is over every rank's feasible examples, its value the same bits on
+    every rank, its gradient into this rank's losses ``1 / n_global``, so
+    that summing the ranks' gradients (:func:`all_reduce_grads`) gives the
+    global loss's. The L2 term takes its gradient on rank 0 only, since
+    every rank would add the same one; its value counts on every rank."""
     weight_decay = float(cfg.TRAIN.WEIGHT_DECAY)
+    group = mesh.group if mesh is not None else None
 
     def loss_fn(image, label, label_len, time_step):
         bn_batch = []      # bn=True convs deposit their batch mean/var here
-        logits = model(image, time_step, dtype=dtype, bn_collect=bn_batch)
+        logits = model(image, time_step, dtype=dtype, bn_collect=bn_batch,
+                       bn_group=group)
         losses = ctc_cuda.ctc_loss(logits.transpose(0, 1), label, label_len,
                                    time_step)
         # an infeasible alignment (input too short for the label) carries
         # the 1e30 sentinel and a zero gradient; average over the feasible
         # examples only so one degenerate sample cannot blow up the scalar
         feasible = losses < 1e29
-        n_ok = torch.clamp(feasible.sum(), min=1)
-        ctc = torch.where(feasible, losses, torch.zeros_like(losses)).sum() \
-            / n_ok
-        total = ctc + model.regularization_loss(weight_decay)
+        total_loss = torch.where(feasible, losses,
+                                 torch.zeros_like(losses)).sum()
+        n_ok = feasible.sum()
+        reg = model.regularization_loss(weight_decay)
+        if group is not None:
+            # one all-reduce of (sum, count); the global sum keeps its bits
+            # and takes the gradient of this rank's sum (x - x is 0 exactly)
+            both = torch.stack([total_loss.detach(), n_ok.float()])
+            dist.all_reduce(both, group=group)
+            total_loss = both[0] + (total_loss - total_loss.detach())
+            n_ok = both[1]
+            if mesh.rank != 0:
+                reg = reg.detach()
+        ctc = total_loss / torch.clamp(n_ok, min=1)
+        total = ctc + reg
         return total, ctc, bn_batch
     return loss_fn
 
 
-def make_train_step(model, optimizer, cfg, dtype):
+@torch.no_grad()
+def all_reduce_grads(params, mesh):
+    """Sum the parameters' ``.grad`` over the ranks in one flat buffer (one
+    all-reduce, not one a tensor); each ``.grad`` becomes its view of the
+    summed buffer."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.group)
+    for p, g in zip(params, flat.split([g.numel() for g in grads])):
+        p.grad = g.view_as(p)
+
+
+def make_train_step(model, optimizer, cfg, dtype, mesh=None):
     """``train_step(image, label, label_len, time_step) -> (total, ctc)``
     (device scalars): forward, backward, the solver's update, then the BN
-    moving-statistics update. Updates ``model`` and ``optimizer`` in place."""
-    loss_fn = make_loss_fn(model, cfg, dtype)
+    moving-statistics update. Updates ``model`` and ``optimizer`` in place.
+    With a ``mesh``: this rank's rows, the gradients summed over the ranks
+    before the solver's clip (:func:`make_loss_fn`)."""
+    loss_fn = make_loss_fn(model, cfg, dtype, mesh)
     momentum = float(cfg.BN_MOMENTUM)
 
     def train_step(image, label, label_len, time_step):
         model.zero_grad(set_to_none=True)
         total, ctc, bn_batch = loss_fn(image, label, label_len, time_step)
         total.backward()
+        if mesh is not None:
+            all_reduce_grads(optimizer.params, mesh)
         optimizer.step()
         with torch.no_grad():
             for layer, mean, var in bn_batch:
@@ -243,12 +296,14 @@ def _gather(store_arrays, idx):
     return tuple(a.index_select(0, idx) for a in store_arrays)
 
 
-def make_train_step_gather(model, optimizer, cfg, dtype):
+def make_train_step_gather(model, optimizer, cfg, dtype, mesh=None):
     """``step(img, lab, lab_len, t_step, idx) -> (total, ctc)``: the train
     step on the rows ``idx`` [N] int32 of the device-resident store
     (``data/device_store.py``), gathered on the device. The same step as
-    :func:`make_train_step` by construction."""
-    train_step = make_train_step(model, optimizer, cfg, dtype)
+    :func:`make_train_step` by construction; with a ``mesh``, ``idx`` is
+    this rank's rows of its store (the replicated store's global rows, or
+    the sharded store's local ids)."""
+    train_step = make_train_step(model, optimizer, cfg, dtype, mesh)
 
     def step(img, lab, lab_len, t_step, idx):
         return train_step(*_gather((img, lab, lab_len, t_step), idx))
@@ -280,7 +335,19 @@ class _Graph:
             wrapper.launches += n
 
 
-def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False):
+def check_graph_collectives(mesh, device):
+    """Raise where a CUDA graph cannot hold the step's collectives: NCCL
+    ones can be captured, gloo's run on the host and cannot."""
+    if mesh is not None and mesh.group is not None \
+            and torch.device(device).type == 'cuda' and mesh.backend != 'nccl':
+        raise ValueError(
+            'TRAIN.STEPS_PER_DISPATCH > 1 on CUDA under a {} group: a CUDA '
+            'graph cannot capture {} collectives; use NCCL, or '
+            'TRAIN.STEPS_PER_DISPATCH 1'.format(mesh.backend, mesh.backend))
+
+
+def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
+                     mesh=None):
     """K optimizer steps per dispatch (``TRAIN.STEPS_PER_DISPATCH``): the
     counterpart of the JAX package's ``lax.scan`` chunk programs
     (``make_train_chunk_step``, ``make_train_chunk_step_gather``), the same
@@ -302,8 +369,14 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False):
     capture that fails raises; nothing falls back to eager steps. Replays
     add the launches their capture recorded to the wrappers' counters and
     ``k`` to ``optimizer.count``. On the CPU the ``k`` steps run eagerly.
+
+    With a ``mesh`` the steps are :func:`make_train_step`'s with it, on
+    this rank's rows. A graph holds their NCCL collectives; the eager
+    warm-up runs them first, so the communicator exists before the
+    capture. A gloo group on CUDA raises (:func:`check_graph_collectives`).
     """
-    train_step = make_train_step(model, optimizer, cfg, dtype)
+    check_graph_collectives(mesh, next(model.parameters()).device)
+    train_step = make_train_step(model, optimizer, cfg, dtype, mesh)
     k = int(k)
 
     def body(inputs):
@@ -399,13 +472,14 @@ def effective_workers(requested: int) -> int:
     return min(requested, max(cores - 1, 1))
 
 
-def make_train_stream(cfg, batch_size):
+def make_train_stream(cfg, batch_size, rank=0):
     """The training batch stream of ``cfg.DATA_BACKEND``: 'synth' (fresh
     captchas from ``effective_workers(TRAIN.NUM_WORKERS)`` worker processes),
     'pool' (a pre-rendered pool with refresh) or 'records' (a serialized
-    dataset). Seeded by ``RNG_SEED``."""
+    dataset). Seeded ``RNG_SEED + 100003 * rank``: under data parallelism
+    each rank feeds its own rows, as each JAX host does."""
     backend = str(cfg.DATA_BACKEND)
-    seed = int(cfg.RNG_SEED)
+    seed = int(cfg.RNG_SEED) + 100003 * int(rank)
     if backend == 'records':
         ds = RecordsDataset(str(cfg.RECORDS_PATH), cfg,
                             cache_resized=bool(cfg.RECORDS_CACHE_RESIZED))
@@ -432,17 +506,22 @@ class BucketGroups:
 
     def __init__(self, stream):
         self.stream = stream
-        self._holdover = []          # at most one batch
+        self._holdover = []          # batches taken back, in stream order
 
     def take(self, target):
-        group, self._holdover = self._holdover, []
+        group = []
         while len(group) < target:
-            b = next(self.stream)
+            b = self._holdover.pop(0) if self._holdover else next(self.stream)
             if group and b.image.shape[1] != group[0].image.shape[1]:
-                self._holdover = [b]
+                self._holdover.insert(0, b)
                 break
             group.append(b)
         return group
+
+    def give_back(self, batches):
+        """Return the tail of a group taken: the next ``take`` starts with
+        it."""
+        self._holdover[:0] = list(batches)
 
 
 def stack_batches(group):
@@ -452,20 +531,65 @@ def stack_batches(group):
                  for f in ('image', 'label', 'label_len', 'time_step'))
 
 
-def _check_ported(cfg, pre_train, device):
+def _check_ported(cfg, pre_train):
     """Raise by name for what is not ported yet."""
-    if str(cfg.PARALLEL) != 'off' and device.type == 'cuda' \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            'PARALLEL={!r} with {} devices: data parallelism is not ported; '
-            'set PARALLEL off to train on one device'.format(
-                cfg.PARALLEL, torch.cuda.device_count()))
     if pre_train and str(pre_train).endswith('.npy'):
         raise NotImplementedError('.npy pre-train dicts are not ported; pass '
                                   'a .ckpt.npz checkpoint')
     if str(cfg.PROFILE_DIR):
         raise NotImplementedError('PROFILE_DIR (utils/profiler.py) is not '
                                   'ported')
+
+
+def select_mesh(cfg, device):
+    """The data-parallel mesh of a solver run, or None for the one-device
+    step (the JAX solver's ``_select_mesh``, a rank for a device).
+
+    Under a process group of several ranks: its mesh, or with ``PARALLEL
+    off`` a ``ValueError``. One process: None (the one-device step, as the
+    JAX solver takes at one device), but a ``ValueError`` where ``PARALLEL``
+    is not ``off`` and the host has several GPUs, since one process drives
+    one GPU: launch one process per GPU."""
+    world = pmesh.world_size()
+    if str(cfg.PARALLEL) == 'off':
+        if world > 1:
+            raise ValueError(
+                "PARALLEL 'off' under a process group of {} ranks: every rank "
+                'would train alone; launch one process, or set PARALLEL auto'
+                .format(world))
+        return None
+    if world > 1:
+        return pmesh.make_mesh(device)
+    if device.type == 'cuda' and torch.cuda.device_count() > 1:
+        raise ValueError(
+            'PARALLEL={!r} with {} GPUs in one process: the port drives one '
+            'GPU a process; launch one process per GPU (torchrun '
+            '--nproc_per_node {} -m lstm_ctc_ocr_torch.engine.train ...), or '
+            'set PARALLEL off to train on one'.format(
+                cfg.PARALLEL, torch.cuda.device_count(),
+                torch.cuda.device_count()))
+    return None
+
+
+def global_accuracy(local_acc: float, local_n: int, mesh=None) -> float:
+    """The exact-match accuracy over every rank's rows from each rank's
+    local score and row count (an all-gather of ``(acc * n, n)``); the
+    identity without a mesh or at one rank."""
+    if mesh is None or mesh.size == 1:
+        return local_acc
+    local = torch.tensor([local_acc * local_n, local_n], dtype=torch.float64)
+    counts = mesh.all_gather(local)
+    return float(counts[:, 0].sum() / counts[:, 1].sum())
+
+
+class _NoWriter:
+    """The summary writer of a rank other than 0: writes nothing."""
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
 
 
 def _start_readback(t):
@@ -500,11 +624,16 @@ class SolverWrapper:
         self.output_dir = output_dir
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.writer = SummaryWriter(logdir, flush_secs=5)
+        # under data parallelism rank 0 writes the summaries and snapshots
+        self.rank = dist.get_rank() if pmesh.world_size() > 1 else 0
+        self.writer = (SummaryWriter(logdir, flush_secs=5) if self.rank == 0
+                       else _NoWriter())
         self.optimizer = None
         self.losses = []
 
     def snapshot(self, step):
+        if self.rank != 0:
+            return
         # keep_every exempts the SNAPSHOT_ITERS cadence from pruning
         fname = checkpoint.save(self.net, self.optimizer, self.output_dir,
                                 step, self.cfg, max_to_keep=100,
@@ -514,9 +643,18 @@ class SolverWrapper:
     @full_f32()
     def train_model(self, max_iters, restore=False):
         cfg, dev = self.cfg, self.device
-        _check_ported(cfg, self.pre_train, dev)
+        _check_ported(cfg, self.pre_train)
+        mesh = select_mesh(cfg, dev)
+        world, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
+        lead = rank == 0                # prints the display lines
         dtype = compute_dtype(cfg)
-        n = int(cfg.TRAIN.BATCH_SIZE)
+        n, n_val = int(cfg.TRAIN.BATCH_SIZE), int(cfg.VAL.BATCH_SIZE)
+        # each rank feeds its share of the global batches
+        if n % world or n_val % world:
+            raise ValueError(
+                'TRAIN.BATCH_SIZE ({}) and VAL.BATCH_SIZE ({}) must both '
+                'divide over the {} ranks, so that every rank feeds an equal '
+                'share'.format(n, n_val, world))
         model = self.net.to(dev).train()
         self.optimizer = optimizer = make_optimizer(model, cfg)
 
@@ -533,23 +671,45 @@ class SolverWrapper:
             checkpoint.load_into(model, self.pre_train, need_bn_state=False,
                                  params_only=True)
             print('Loaded pre-trained weights from {}'.format(self.pre_train))
+        if mesh is not None:
+            # every rank starts from rank 0's weights, BN buffers, moments,
+            # update count and first step
+            first = torch.tensor([restore_iter], dtype=torch.int64,
+                                 device=dev)
+            pmesh.replicated(mesh, list(model.parameters())
+                             + list(model.buffers())
+                             + [t for slot in optimizer.moments.values()
+                                for t in slot.values()]
+                             + [optimizer.count_t, first])
+            optimizer.count = int(optimizer.count_t)
+            restore_iter = int(first)
+            if lead:
+                print('data parallel over {} ranks ({}): {} rows a rank a '
+                      'step'.format(world, mesh.backend, n // world))
 
         # the device-resident dataset (DATA_DEVICE): the pool or records
         # rows live on the device and each step gathers its batch by row
-        # index; one device, so DATA_DEVICE_LAYOUT 'sharded' (which needs a
-        # mesh) is read as the JAX package reads it on one device
+        # index. One process: the replicated store (DATA_DEVICE_LAYOUT
+        # 'sharded' needs a mesh, so it is read as the JAX package reads it
+        # on one device); several ranks: each holds its own partition, as
+        # each JAX host does
         K = max(1, int(cfg.TRAIN.STEPS_PER_DISPATCH))
-        feed = make_device_feed(cfg, dev)
-        if feed is not None:
-            step1 = make_train_step_gather(model, optimizer, cfg, dtype)
+        if mesh is None:
+            feed = make_device_feed(cfg, dev)
         else:
-            step1 = make_train_step(model, optimizer, cfg, dtype)
+            feed = make_sharded_device_feed(cfg, n, mesh, dev)
+        if feed is not None:
+            step1 = make_train_step_gather(model, optimizer, cfg, dtype, mesh)
+        else:
+            step1 = make_train_step(model, optimizer, cfg, dtype, mesh)
         chunk = make_train_chunk(model, optimizer, cfg, dtype, K,
-                                 gather=feed is not None) if K > 1 else None
-        decode_step = make_decode_step(model, cfg, dev)
+                                 gather=feed is not None,
+                                 mesh=mesh) if K > 1 else None
+        decode_step = make_decode_step(model, cfg, dev, mesh=mesh)
         # with a device feed the host stream is redundant (the feed owns the
         # backend's sampler and RNG streams)
-        train_gen = None if feed is not None else make_train_stream(cfg, n)
+        train_gen = None if feed is not None else \
+            make_train_stream(cfg, n // world, rank)
         groups = BucketGroups(train_gen)
 
         def put(*arrays):
@@ -562,21 +722,25 @@ class SolverWrapper:
         def run_val(it):
             nonlocal val_batch
             if val_batch is None:
-                # the same batch is validated every time
+                # the same batch is validated every time; each rank
+                # validates its own rows, seeded apart like its stream
                 val_gen = get_batch(cfg, num_workers=0,
-                                    seed=int(cfg.RNG_SEED) + 7,
-                                    batch_size=int(cfg.VAL.BATCH_SIZE),
-                                    bucketed=True)
+                                    seed=int(cfg.RNG_SEED) + 7
+                                    + 100003 * rank,
+                                    batch_size=n_val // world, bucketed=True)
                 val_batch = next(val_gen)
                 val_gen.close()
             vb = val_batch
             dec = decode_step(vb.image, vb.time_step)
             org = [vb.label[i, :vb.label_len[i]].tolist()
                    for i in range(vb.label.shape[0])]
-            acc = accuracy_calculation(org, dec.tolist(), ignore_value=0,
-                                       print_num=int(cfg.VAL.PRINT_NUM))
+            acc = accuracy_calculation(
+                org, dec.tolist(), ignore_value=0,
+                print_num=int(cfg.VAL.PRINT_NUM) if lead else 0)
+            acc = global_accuracy(acc, len(org), mesh)
             self.writer.add_scalar('val_accuracy', acc, it)
-            print('accuracy: {:.5f}'.format(acc), flush=True)
+            if lead:
+                print('accuracy: {:.5f}'.format(acc), flush=True)
 
         # A group is one dispatch: one step (K = 1, or a short group), or K
         # consecutive same-bucket steps as one CUDA graph. The losses of
@@ -597,7 +761,7 @@ class SolverWrapper:
                 it = first_it + j
                 self.losses.append(loss_val)
                 self.writer.add_scalar('loss', loss_val, it)
-                if it % cfg.TRAIN.DISPLAY == 0:
+                if lead and it % cfg.TRAIN.DISPLAY == 0:
                     # the schedule count before step `it` is it - 1
                     print('iter: %d / %d, total loss: %.7f, lr: %.7f' %
                           (it, max_iters, loss_val, lr_schedule(cfg, it - 1)),
@@ -606,7 +770,8 @@ class SolverWrapper:
                           flush=True)
             lo = min(vals)
             if lo < loss_min:
-                print('loss: ', lo, end=' ')
+                if lead:
+                    print('loss: ', lo, end=' ')
                 loss_min = lo
                 # the parameters are post-step cur_end: within a group the
                 # trigger collapses to one snapshot
@@ -640,6 +805,12 @@ class SolverWrapper:
                 else:
                     group = groups.take(K if target == K else 1)
                     m = len(group)
+                    if mesh is not None and K > 1:
+                        # a bucket change ends one rank's group early: every
+                        # rank runs the shortest, the rest waits its turn
+                        m = mesh.all_min(m)
+                        groups.give_back(group[m:])
+                        group = group[:m]
                     if chunk is not None and m == K:
                         totals = chunk(*stack_batches(group))[0]
                     else:
@@ -704,14 +875,28 @@ def main(argv=None):
                         help='1: resume from the latest checkpoint in the '
                              'output dir')
     parser.add_argument('--device', default='cuda',
-                        help="'cuda' (default) or 'cpu'")
+                        help="'cuda' (default) or 'cpu' (gloo between ranks)")
     args = parser.parse_args(argv)
     cfg = load_cfg(args.cfg_file, args.set_cfgs)
-    print('Effective config:')
-    pprint.pprint(cfg)
+    # a rank of torchrun (or of the JAX package's variables) joins its
+    # group here; one process alone goes on as before
+    owned = not dist.is_initialized()
+    pmesh.init_distributed(device=args.device)
+    try:
+        return _main(args, cfg)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _main(args, cfg):
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print('Effective config:')
+        pprint.pprint(cfg)
     device = args.device
     if device == 'cuda':
-        device = 'cuda:{}'.format(args.gpu_id)
+        device = 'cuda:{}'.format(torch.cuda.current_device()
+                                  if dist.is_initialized() else args.gpu_id)
     gen = torch.Generator()
     if args.randomize:
         gen.seed()

@@ -55,12 +55,14 @@ class LSTM_train(nn.Module):
         return BiLSTM(512, num_hid, nclasses, generator=generator)
 
     def forward(self, data, time_step_len, dtype=None, moving_bn=False,
-                bn_collect=None):
+                bn_collect=None, bn_group=None):
         """``data`` [N, W, H] (f32, or uint8 raw pixels divided by 255 here),
         ``time_step_len`` [N] int32 -> time-major f32 logits [T, N, C].
         ``dtype`` is the compute dtype (None: f32); ``moving_bn`` selects the
         moving BN statistics instead of the batch's; ``bn_collect`` (a list)
-        receives each BN layer's batch statistics (``layers.ConvSingle``)."""
+        receives each BN layer's batch statistics (``layers.ConvSingle``);
+        ``bn_group`` is the process group whose ranks' rows share them (data
+        parallelism, ``parallel/mesh.py``)."""
         if data.dtype == torch.uint8:
             data = data.float() / 255.0
         x = data.unsqueeze(1)                       # [N, 1, W, H]
@@ -68,8 +70,8 @@ class LSTM_train(nn.Module):
         x = max_pool(self.conv2(x, dtype), 2, 2)
         x = self.conv3_2(self.conv3_1(x, dtype), dtype)
         x = max_pool(x, 1, 2)
-        x = self.conv4_1(x, dtype, moving_bn, bn_collect)
-        x = self.conv4_2(x, dtype, moving_bn, bn_collect)
+        x = self.conv4_1(x, dtype, moving_bn, bn_collect, bn_group)
+        x = self.conv4_2(x, dtype, moving_bn, bn_collect, bn_group)
         x = max_pool(x, 1, 2)
         x = self.conv5(x, dtype)
         return self.logits(reshape_squeeze(x, 512), time_step_len, dtype)

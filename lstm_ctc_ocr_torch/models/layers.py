@@ -17,6 +17,13 @@ in the compute dtype, batch norm runs in f32 on the compute-dtype output
 and casts back before relu, pools run in the compute dtype, and the
 BiLSTM's and the stacked LSTM's projection runs in f32 on its
 (compute-dtype) outputs.
+
+Under data parallelism (``parallel/mesh.py``) the batch statistics are the
+global batch's, as XLA all-reduces ``jnp.mean`` / ``jnp.var`` over a
+sharded batch (``layers.py:98-99``): ``batch_moments`` with a process group
+sums each channel and the element count over the ranks, then the squared
+deviations from that global mean, both through the differentiable
+all-reduce, so the gradient flows through the global mean and variance.
 """
 
 from __future__ import annotations
@@ -42,6 +49,26 @@ def _cast(x, dtype):
     return x if dtype is None else x.to(dtype)
 
 
+def batch_moments(y32, group=None):
+    """Per-channel mean and biased variance ``[1, C, 1, 1]`` of ``y32``
+    ``[N, C, W, H]`` (f32) over (N, W, H). With a process ``group``: over
+    every rank's rows (their W may differ), by two all-reduces whose
+    backward all-reduces the gradient, so each rank's input receives the
+    gradient the global statistics pass back from every rank's rows."""
+    if group is None:
+        return (y32.mean(dim=(0, 2, 3), keepdim=True),
+                y32.var(dim=(0, 2, 3), unbiased=False, keepdim=True))
+    from ..parallel.mesh import all_reduce_sum as all_reduce
+    c = y32.shape[1]
+    count = y32.new_full((1,), y32.numel() // c)
+    sums = all_reduce(torch.cat([y32.sum(dim=(0, 2, 3)), count]),
+                      group=group)
+    n = sums[c]
+    mean = (sums[:c] / n).view(1, -1, 1, 1)
+    sq = all_reduce(torch.square(y32 - mean).sum(dim=(0, 2, 3)), group=group)
+    return mean, (sq / n).view(1, -1, 1, 1)
+
+
 class ConvSingle(nn.Module):
     """Conv + bias (+ training-mode batch norm) (+ relu), stride 1.
 
@@ -64,10 +91,12 @@ class ConvSingle(nn.Module):
             self.register_buffer('bn_mean', torch.zeros(c_o))
             self.register_buffer('bn_var', torch.ones(c_o))
 
-    def forward(self, x, dtype=None, moving_bn=False, bn_collect=None):
+    def forward(self, x, dtype=None, moving_bn=False, bn_collect=None,
+                bn_group=None):
         """``bn_collect``: a list the caller owns; a ``bn`` layer running on
         batch statistics appends ``(layer, mean [C], biased var [C])`` to
-        it, for the train step's moving-statistics update."""
+        it, for the train step's moving-statistics update. ``bn_group``: a
+        process group whose ranks' rows share the batch statistics."""
         x = _cast(x, dtype)
         y = F.conv2d(x, _cast(self.kernel, dtype), padding=self.padding)
         y = y + _cast(self.biases, dtype).view(1, -1, 1, 1)
@@ -80,8 +109,7 @@ class ConvSingle(nn.Module):
                 mean = self.bn_mean.view(1, -1, 1, 1)
                 var = self.bn_var.view(1, -1, 1, 1)
             else:
-                mean = y32.mean(dim=(0, 2, 3), keepdim=True)
-                var = y32.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+                mean, var = batch_moments(y32, bn_group)
                 if bn_collect is not None:
                     bn_collect.append((self, mean.detach().reshape(-1),
                                        var.detach().reshape(-1)))

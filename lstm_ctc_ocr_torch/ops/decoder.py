@@ -1,5 +1,5 @@
 """CTC best-path decoding (counterpart of the JAX package's
-``ops/decoder.py``; the beam decoder is not ported yet)."""
+``ops/decoder.py``; the prefix beam decoder is ``ops/beam.py``)."""
 
 from __future__ import annotations
 

@@ -41,6 +41,8 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.ops.ctc_cuda', 'lstm_ctc_ocr_torch.ops.custom_ops',
     'lstm_ctc_ocr_torch.ops.decoder',
     'lstm_ctc_ocr_torch.ops.rnn', 'lstm_ctc_ocr_torch.ops.rnn_cuda',
+    'lstm_ctc_ocr_torch.parallel', 'lstm_ctc_ocr_torch.parallel.dryrun',
+    'lstm_ctc_ocr_torch.parallel.mesh',
     'lstm_ctc_ocr_torch.tools', 'lstm_ctc_ocr_torch.tools.ablate_ctc_fwd',
     'lstm_ctc_ocr_torch.tools.ablate_lstm_bwd',
     'lstm_ctc_ocr_torch.tools.ablate_lstm_fwd',
