@@ -185,12 +185,32 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     ``data/val`` (``lstm_ctc``, ``BN_EVAL batch``, batch 64 as 2 x 32):
     the strings against the eval phase's, file by file (a file moved by
     batch composition is printed; the release's bar holds).
+11. Tools phase: the measurement tools of ``lstm_ctc_ocr_torch/tools``,
+    each run in this process through ``main(argv)`` with its output
+    captured and the kernel counters set to 0 just before it and read just
+    after, at its default shapes with short windows (``profile_step`` and
+    ``attrib_step`` at W=128 with the native renderer, ``attrib_step`` with
+    20 warm steps): every line parses and carries the JAX tool's keys;
+    ``bench_ctc`` launches kernels 3 and 4, ``bench_rnn`` kernels 1 and 2,
+    ``bench_decode`` (and ``--frozen``, through the served program's custom
+    op) kernel 1, ``profile_step`` and ``attrib_step`` kernels 1-4, each
+    exactly as often as its calls say (the default ``attrib_step`` variant
+    once a step); ``bench_fold_h``'s f32 gate (TF32 off) passes;
+    ``bench_data --renderers native`` gives the synth, pool and records
+    (phase 5's file) rates and no error line; ``train_net`` of
+    ``lstm/lstm.yml`` with ``PROFILE_DIR`` (``PROFILE_START 3
+    PROFILE_STEPS 3``) writes one trace naming ``bilstm_fwd_cluster_kernel``
+    and ``ctc_fwd_warp_kernel``, with the same losses, bit for bit, as the
+    run without it. Then ``attrib_step``'s default step beside phase 5's
+    eager step, and ``bench_decode``'s greedy W=96 full step beside the
+    eval phase's p50, and the phase's seconds.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 seven kernels (and the rates, the synthetic stream's, the serve, the
-dispatch and the data-parallel phase's numbers); the last
+dispatch, the data-parallel and the tools phase's numbers); the last
 line is ``{"ok": true, "device": {...}}``. Per-image eval lines, the
-training runs' and the serve phase's output go to ``chiprun_out/``.
+training runs', the serve phase's and the tools' output go to
+``chiprun_out/``.
 """
 
 import contextlib
@@ -1149,11 +1169,12 @@ def bilstm_fwd_phase(rnn_cuda, build):
 
 
 def eval_phase(rnn_cuda, test_mod, load_cfg, log):
-    """Evaluation of the tracked releases; returns the launch count and
-    each release's predictions (label -> file name -> string)."""
+    """Evaluation of the tracked releases; returns the launch count, each
+    release's predictions (label -> file name -> string) and its p50 ms an
+    image."""
     rnn_cuda.bilstm_fwd.launches = 0
     calls = 0
-    predictions = {}
+    predictions, p50_ms = {}, {}
     for label, yml, val_dir, bn_eval, decoder, total, least in EVALS:
         # the beam releases run their config's own decoder (beam, width 16)
         greedy = ['DECODER', "'greedy'"] if decoder == 'greedy' else []
@@ -1172,6 +1193,7 @@ def eval_phase(rnn_cuda, test_mod, load_cfg, log):
         launched = rnn_cuda.bilstm_fwd.launches - before
         calls += r.decode_calls
         predictions[label] = r.predictions
+        p50_ms[label] = 1e3 * r.p50
         print('eval {:18s} {}/{} correct, {:.1f} images/s steady-state, '
               '{:.1f} images/s overall, p50 {:.4f} ms/image, {} decode calls,'
               ' {} kernel launches'.format(
@@ -1188,7 +1210,7 @@ def eval_phase(rnn_cuda, test_mod, load_cfg, log):
     check(launches == calls and launches > 0,
           'bilstm_fwd launched {} times in {} decode calls'.format(
               launches, calls))
-    return launches, predictions
+    return launches, predictions, p50_ms
 
 
 def profile_phase(test_mod, load_cfg, reps=5):
@@ -2751,6 +2773,233 @@ def dp_phase(mods, card, rec_path, dispatch, eval_predictions, log):
     return launches, out
 
 
+# ---- 11. the measurement tools ----------------------------------------------
+
+# the JAX tools' JSON lines by their keys (tests/test_torch_tools.py cites
+# each by file and line)
+TOOL_KEYS = {
+    'bench_ctc': [{'impl', 'fwd_ms', 'fwd_bwd_ms'}, {'piece', 'ms'},
+                  {'device', 'shape'}],
+    'bench_rnn': [{'impl', 'fwd_ms', 'fwd_bwd_ms', 'shape', 'hidden',
+                   'dtype', 'device'}, {'speedup_fwd', 'speedup_fwd_bwd'}],
+    'bench_decode': [{'shape', 'width', 'batch', 'decoder', 'beam_width',
+                      'scope', 'p50_sec_per_batch', 'p50_ms_per_image',
+                      'images_per_sec'}, {'beam_over_greedy_full_step'}],
+    'bench_decode --frozen': [{'shape', 'width', 'batch', 'decoder',
+                               'variant', 'p50_sec_per_batch',
+                               'p50_ms_per_image', 'images_per_sec'}],
+    'profile_step': [{'piece', 'ms', 'gflops', 'tflops_achieved', 'mfu'},
+                     {'device', 'batch', 'width', 'lstm_impl', 'ctc_impl'}],
+    'attrib_step': [{'variant', 'ms_per_step'},
+                    {'delta_ctc_pallas_vs_scan_ms',
+                     'delta_ctc_pallas_vs_none_ms',
+                     'delta_lstm_pallas_vs_scan_ms', 'device'}],
+    'bench_fold_h': [{'check', 'rel_err', 'shape'},
+                     {'variant', 'batch', 'w', 'fwd_ms', 'fwd_bwd_ms'}],
+    'bench_data': [{'renderer', 'img_per_sec'},
+                   {'backend', 'batch', 'batches_per_sec', 'img_per_sec'}],
+}
+# windows x calls of the timed tools: short, the phase has ~120 s
+TOOL_WINDOWS, TOOL_CALLS = 3, 10
+
+
+def run_tool(mods, name, argv, log):
+    """One tool's ``main(argv)`` in this process, its standard output
+    captured into ``log``; the kernel counters set to 0 just before and read
+    just after. Returns its JSON lines and the launches. Every line must
+    parse and carry one of the JAX tool's key sets."""
+    tool = mods['tools'][name.split()[0]]
+    launch_counts(mods['rnn_cuda'], mods['ctc_cuda'], reset=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts(mods['rnn_cuda'], mods['ctc_cuda'])
+    text = buf.getvalue()
+    log.write('== {} {}\n{}'.format(name, ' '.join(argv), text))
+    check(rc == 0, '{} returned {}'.format(name, rc))
+    lines = [json.loads(t) for t in text.splitlines() if t.strip()]
+    for line in lines:
+        check(set(line) in TOOL_KEYS[name], '{}: a line with keys {} is not '
+              "one of the JAX tool's {}".format(name, sorted(line),
+                                                TOOL_KEYS[name]))
+        print('tool {}: {}'.format(name, json.dumps(line)), flush=True)
+    print('tool {}: {:.1f} s, launches {}'.format(name, secs,
+                                                  json.dumps(launches)),
+          flush=True)
+    return lines, launches
+
+
+def expect_launches(name, got, want):
+    check(all(got[k] == want.get(k, 0) for k in got),
+          '{}: launches {}, expected {}'.format(name, got, want))
+
+
+def profiled_train(mods, rec_path, trace_dir, log):
+    """Phase 11's solver run: 8 iterations (7 steps) of ``lstm/lstm.yml``
+    at full width on the records file, traced where ``trace_dir`` is given
+    (``PROFILE_START 3``, ``PROFILE_STEPS 3``); returns the losses and the
+    launches."""
+    exp = 'chip_smoke_profile' if trace_dir else 'chip_smoke_noprofile'
+    prof = ['PROFILE_DIR', trace_dir, 'PROFILE_START', '3', 'PROFILE_STEPS',
+            '3'] if trace_dir else []
+    cfg = mods['load_cfg'](os.path.join(REPO, 'lstm', 'lstm.yml'),
+                           train_overrides(rec_path, exp) + prof)
+    shutil.rmtree(os.path.join(REPO, 'output', exp), ignore_errors=True)
+    net = mods['get_network']('LSTM_train', cfg, generator=torch.Generator()
+                              .manual_seed(int(cfg.RNG_SEED)))
+    launch_counts(mods['rnn_cuda'], mods['ctc_cuda'], reset=True)
+    with contextlib.redirect_stdout(log):
+        losses = mods['train'].train_net(
+            net, {'name': 'chip_smoke'}, None,
+            os.path.join(REPO, 'output', exp),
+            os.path.join(REPO, 'logs', exp), cfg, max_iters=8,
+            device='cuda')[2]
+    torch.cuda.synchronize()
+    return losses, launch_counts(mods['rnn_cuda'], mods['ctc_cuda'])
+
+
+def tools_phase(mods, card, rec_path, train_rate, eval_p50_ms, log):
+    """Phase 11: each measurement tool in this process at the shapes its
+    flags give, its lines against the JAX tool's keys and its kernel
+    launches counted; ``bench_fold_h``'s f32 gate; ``bench_data``'s three
+    backends on the native renderer; ``PROFILE_DIR`` in the solver. Returns
+    the launches by tool and the phase's numbers."""
+    t_phase = time.perf_counter()
+    wc = ['--windows', str(TOOL_WINDOWS), '--calls', str(TOOL_CALLS)]
+    r = 1 + TOOL_WINDOWS * TOOL_CALLS           # calls of a timed function
+    native = ['--set', 'RENDERER', 'native']
+    launches, out = {}, {}
+
+    # bench_ctc: the kernels' loss forward and forward+backward, and the
+    # forward kernel alone: 3 r ctc_fwd, r ctc_bwd
+    lines, launches['bench_ctc'] = run_tool(mods, 'bench_ctc', wc, log)
+    expect_launches('bench_ctc', launches['bench_ctc'],
+                    {'ctc_fwd': 3 * r, 'ctc_bwd': r})
+    out['bench_ctc'] = lines
+
+    # bench_rnn at its default longline shape (T=191: its plain pair takes
+    # ~1,000 launches a call, so fewer calls): the fused forward (the
+    # inference op) and forward+backward: 2 rr bilstm_fwd, rr bilstm_bwd
+    rr = 1 + 3 * 3
+    lines, launches['bench_rnn'] = run_tool(
+        mods, 'bench_rnn', ['--windows', '3', '--calls', '3'], log)
+    expect_launches('bench_rnn', launches['bench_rnn'],
+                    {'bilstm_fwd': 2 * rr, 'bilstm_bwd': rr})
+    out['bench_rnn'] = lines
+
+    # bench_decode: the full step of two decoders at two shapes, and each
+    # shape's logits: 4 rd + 2 bilstm_fwd; --frozen: the live step and the
+    # served program's op, 2 rd
+    dwc = ['--windows', '5', '--calls', '3']
+    rd = 1 + 5 * 3
+    lines, launches['bench_decode'] = run_tool(mods, 'bench_decode', dwc, log)
+    expect_launches('bench_decode', launches['bench_decode'],
+                    {'bilstm_fwd': 4 * rd + 2})
+    out['bench_decode'] = lines
+    frozen, launches['bench_decode --frozen'] = run_tool(
+        mods, 'bench_decode --frozen', dwc + ['--frozen'], log)
+    expect_launches('bench_decode --frozen',
+                    launches['bench_decode --frozen'], {'bilstm_fwd': 2 * rd})
+    out['bench_decode_frozen'] = frozen
+    greedy96 = next(x for x in lines if x.get('shape') == 'default_W96'
+                    and x.get('decoder') == 'greedy'
+                    and x.get('scope') == 'full_step')
+
+    # profile_step at W=128 (the native renderer's 6-character lines are
+    # ~108 pixels wide; --width 96 would double to a W=192 bucket): each of
+    # five pieces counted once and timed r times
+    pw = ['--width', '128']
+    rp = r + 1
+    lines, launches['profile_step'] = run_tool(mods, 'profile_step',
+                                               wc + pw + native, log)
+    expect_launches('profile_step', launches['profile_step'],
+                    {'bilstm_fwd': 3 * rp, 'bilstm_bwd': rp,
+                     'ctc_fwd': 4 * rp, 'ctc_bwd': 2 * rp})
+    out['profile_step'] = lines
+
+    # attrib_step: S steps a variant; the default variant launches each of
+    # kernels 1-4 once a step, ctc=plain and ctc=none the BiLSTM kernels,
+    # lstm=plain the CTC kernels
+    warm, aw, ac = 20, 3, 20
+    steps = warm + 1 + aw * ac
+    lines, launches['attrib_step'] = run_tool(
+        mods, 'attrib_step', ['--windows', str(aw), '--calls', str(ac),
+                              '--warm', str(warm)] + pw + native, log)
+    expect_launches('attrib_step', launches['attrib_step'],
+                    {'bilstm_fwd': 3 * steps, 'bilstm_bwd': 3 * steps,
+                     'ctc_fwd': 2 * steps, 'ctc_bwd': 2 * steps})
+    out['attrib_step'] = lines
+    default_ms = next(x['ms_per_step'] for x in lines
+                      if x.get('variant') == 'ctc=kernel lstm=kernel')
+
+    # bench_fold_h: the f32 gate (the tool raises past it), then bf16
+    lines, _ = run_tool(mods, 'bench_fold_h', ['--windows', '3', '--calls',
+                                               '4'], log)
+    check(lines[0]['rel_err'] < 1e-4, 'fold_h f32 gate: rel_err {}'.format(
+        lines[0]['rel_err']))
+    out['bench_fold_h'] = lines
+
+    # bench_data: the native renderer and the three backends, the records
+    # file phase 5 wrote
+    lines, _ = run_tool(mods, 'bench_data', [
+        '--renderers', 'native', '--backends', 'synth,pool,records', '--set',
+        'RECORDS_PATH', rec_path], log)
+    rates = [x for x in lines if 'backend' in x]
+    check([x['backend'] for x in rates] == ['synth', 'pool', 'records']
+          and all(x.get('img_per_sec') for x in rates)
+          and not any('error' in x for x in lines),
+          'bench_data: {}'.format(lines))
+    out['bench_data'] = lines
+
+    # PROFILE_DIR in the solver: the trace names the kernels, the losses
+    # are the untraced run's, bit for bit
+    trace_dir = os.path.join(REPO, 'output', 'chip_smoke_profile_trace')
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    plain, _ = profiled_train(mods, rec_path, None, log)
+    traced, launches['profiler_train'] = profiled_train(mods, rec_path,
+                                                        trace_dir, log)
+    traces = sorted(f for f in os.listdir(trace_dir)
+                    if f.endswith('.pt.trace.json'))
+    check(len(traces) == 1, 'PROFILE_DIR: trace files {}'.format(traces))
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        trace = f.read()
+    names = {k: k in trace for k in ('bilstm_fwd_cluster_kernel',
+                                     'ctc_fwd_warp_kernel')}
+    print('tool profiler: train_net with PROFILE_DIR (steps [3, 6)): {} '
+          '({:.1f} MB), kernels named {}; losses {} against the untraced '
+          'run {}: bit for bit {}; launches {}'.format(
+              traces[0], len(trace) / 1e6, json.dumps(names), traced, plain,
+              traced == plain, json.dumps(launches['profiler_train'])),
+          flush=True)
+    check(all(names.values()), 'the trace names {}'.format(names))
+    check(len(plain) == 7 and traced == plain,
+          'PROFILE_DIR changed the losses: {} vs {}'.format(traced, plain))
+    expect_launches('profiler_train', launches['profiler_train'],
+                    {'bilstm_fwd': 7, 'bilstm_bwd': 7, 'ctc_fwd': 7,
+                     'ctc_bwd': 7})
+
+    eager_ms = 1e3 / train_rate['steps_per_s']
+    print('tools cross-check on {}: attrib_step default variant {:.3f} ms a '
+          'step (W=128, one batch) beside phase 5\'s eager records-feed step '
+          '{:.3f} ms; bench_decode greedy W=96 full step {:.4f} ms an image '
+          '(random images, seeded weights) beside the eval phase\'s '
+          'lstm_ctc/batch p50 {:.4f} ms an image'.format(
+              card, default_ms, eager_ms, greedy96['p50_ms_per_image'],
+              eval_p50_ms), flush=True)
+    out['cross_check'] = {
+        'attrib_default_ms_per_step': default_ms,
+        'phase5_eager_ms_per_step': eager_ms,
+        'decode_greedy_w96_full_step_ms_per_image':
+            greedy96['p50_ms_per_image'],
+        'eval_lstm_ctc_p50_ms_per_image': eval_p50_ms}
+    out['seconds'] = time.perf_counter() - t_phase
+    print('tools: phase took {:.1f} s'.format(out['seconds']), flush=True)
+    return launches, out
+
+
 def profile_report(what, fn, reps, with_wall=False):
     """``torch.profiler`` over ``reps`` warm calls of ``fn``, the last
     followed to its end on the device: device time by kernel and the
@@ -2808,7 +3057,10 @@ def main():
     from lstm_ctc_ocr_torch.models.factory import get_network
     from lstm_ctc_ocr_torch.ops import (_build, conv_bn_cuda, ctc, ctc_cuda,
                                         rnn, rnn_cuda)
-    from lstm_ctc_ocr_torch.tools import (bench_conv_bn, calibrate_bn,
+    from lstm_ctc_ocr_torch.tools import (attrib_step, bench_conv_bn,
+                                         bench_ctc, bench_data, bench_decode,
+                                         bench_fold_h, bench_rnn,
+                                         calibrate_bn, profile_step,
                                          release_ckpt)
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -2821,7 +3073,12 @@ def main():
             'layers': layers, 'gen': gen, 'image': image,
             'device_store': device_store, 'serve': serve,
             'checkpoint': checkpoint, 'calibrate_bn': calibrate_bn,
-            'release_ckpt': release_ckpt, 'pmesh': pmesh}
+            'release_ckpt': release_ckpt, 'pmesh': pmesh,
+            'tools': {'bench_ctc': bench_ctc, 'bench_rnn': bench_rnn,
+                      'bench_decode': bench_decode,
+                      'profile_step': profile_step,
+                      'attrib_step': attrib_step, 'bench_data': bench_data,
+                      'bench_fold_h': bench_fold_h}}
     if sys.argv[1:2] == ['--dp-worker']:        # a rank of phase 10
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2853,8 +3110,8 @@ def main():
     out_dir = os.path.join(REPO, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'chip_smoke_eval.log'), 'w') as log:
-        eval_launches, eval_predictions = eval_phase(rnn_cuda, test_mod,
-                                                     load_cfg, log)
+        eval_launches, eval_predictions, eval_p50 = eval_phase(
+            rnn_cuda, test_mod, load_cfg, log)
     profile_phase(test_mod, load_cfg)
     with open(os.path.join(out_dir, 'chip_smoke_train.log'), 'w') as log:
         synth_launches, pool_launches, synth = synth_phase(mods, card, log)
@@ -2869,6 +3126,9 @@ def main():
                                                      rate, log)
         dp_launches, dp = dp_phase(mods, card, rec_path, dispatch,
                                    eval_predictions, log)
+    with open(os.path.join(out_dir, 'chip_smoke_tools.log'), 'w') as log:
+        tool_launches, tools = tools_phase(mods, card, rec_path, rate,
+                                           eval_p50['lstm_ctc/batch'], log)
     print('train rate on {}: synthetic feed {:.2f} steps/s ({} fork workers, '
           'os.cpu_count() {}), records feed {:.2f} steps/s; device busy ms '
           'per step {} and {}'.format(
@@ -2889,11 +3149,15 @@ def main():
     check(all(dp_launches[p]['bilstm_fwd'] > 0 for p in dp_launches),
           'bilstm_fwd was not launched on every DP path')
 
-    def dp_total(name):
-        return sum(v[name] for v in dp_launches.values())
+    # the paths of the later phases: data parallelism, and the tools
+    later = dict(dp_launches, **{'tool ' + k: v
+                                 for k, v in tool_launches.items()})
 
-    def dp_paths(name):
-        return {p: v[name] for p, v in dp_launches.items()}
+    def later_total(name):
+        return sum(v[name] for v in later.values())
+
+    def later_paths(name):
+        return {p: v[name] for p, v in later.items()}
     for name in ('lstm_fwd', 'lstm_bwd', 'ctc_fwd', 'ctc_bwd'):
         check(stacked_launches[name] > 0,
               '{} was not launched on the stacked-LSTM path'.format(name))
@@ -2913,14 +3177,14 @@ def main():
     def ctc_launches(name):
         return {'launches': synth_launches[name] + pool_launches[name]
                 + train_launches[name] + stacked_launches[name]
-                + dispatch_launches[name] + dp_total(name),
+                + dispatch_launches[name] + later_total(name),
                 'launches_by_path': dict({
                     'synth_train': synth_launches[name],
                     'pool_train': pool_launches[name],
                     'train': train_launches[name],
                     'stacked_lstm': stacked_launches[name],
                     'dispatch_train': dispatch_launches[name]},
-                    **dp_paths(name))}
+                    **later_paths(name))}
     print(json.dumps({'kernels': [dict(common, **{
         'name': 'bilstm_fwd',
         'source': 'lstm_ctc_ocr_torch/csrc/bilstm_fwd.cu',
@@ -2929,14 +3193,14 @@ def main():
         'launches': eval_launches + synth_launches['bilstm_fwd']
         + pool_launches['bilstm_fwd'] + train_launches['bilstm_fwd']
         + dispatch_launches['bilstm_fwd'] + serve_launches['bilstm_fwd']
-        + dp_total('bilstm_fwd'),
+        + later_total('bilstm_fwd'),
         'launches_by_path': dict({
             'eval': eval_launches, 'serve': serve_launches['bilstm_fwd'],
             'synth_train': synth_launches['bilstm_fwd'],
             'pool_train': pool_launches['bilstm_fwd'],
             'train': train_launches['bilstm_fwd'],
             'dispatch_train': dispatch_launches['bilstm_fwd']},
-            **dp_paths('bilstm_fwd')),
+            **later_paths('bilstm_fwd')),
         'max_abs_err': errs[('bf16 N=64 T=23', False)],
         'ms': fwd['kernel_ms'],
         'device_ms': fwd['device_ms'],
@@ -2965,13 +3229,13 @@ def main():
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_bwd_kernel',
         'launches': synth_launches['bilstm_bwd']
         + pool_launches['bilstm_bwd'] + train_launches['bilstm_bwd']
-        + dispatch_launches['bilstm_bwd'] + dp_total('bilstm_bwd'),
+        + dispatch_launches['bilstm_bwd'] + later_total('bilstm_bwd'),
         'launches_by_path': dict({
             'synth_train': synth_launches['bilstm_bwd'],
             'pool_train': pool_launches['bilstm_bwd'],
             'train': train_launches['bilstm_bwd'],
             'dispatch_train': dispatch_launches['bilstm_bwd']},
-            **dp_paths('bilstm_bwd')),
+            **later_paths('bilstm_bwd')),
         'max_abs_err': bwd_errs['bf16 N=64 T=23'],
         'ms': bwd['kernel_ms'],
         'device_ms': bwd['device_ms'],
@@ -3100,7 +3364,7 @@ def main():
         'by_shape': conv_timings,
     })], 'train': rate, 'stacked_lstm_train': stacked_rate,
         'synthetic_stream': synth, 'dispatch': dispatch, 'serve': served,
-        'data_parallel': dp,
+        'data_parallel': dp, 'tools': tools,
         'seconds': time.perf_counter() - t_start}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

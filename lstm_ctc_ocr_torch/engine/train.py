@@ -58,9 +58,11 @@ or, data parallel, one process per GPU::
     torchrun --nproc_per_node N -m lstm_ctc_ocr_torch.engine.train ...
 
 The device is CUDA unless ``--device cpu`` is given (gloo between CPU
-ranks); without CUDA it raises rather than fall back. Not ported yet, and
-raising ``NotImplementedError`` by name: ``.npy`` pre-train dicts and
-``PROFILE_DIR``.
+ranks); without CUDA it raises rather than fall back. ``PROFILE_DIR``
+traces the steps ``[PROFILE_START, PROFILE_START + PROFILE_STEPS)`` with
+``torch.profiler`` into a ``*.pt.trace.json`` under it
+(``utils/profiler.py``). Not ported yet, and raising
+``NotImplementedError`` by name: ``.npy`` pre-train dicts.
 """
 
 from __future__ import annotations
@@ -84,6 +86,7 @@ from ..models.factory import get_network
 from ..ops import ctc_cuda, rnn_cuda
 from ..parallel import mesh as pmesh
 from ..utils.metrics import accuracy_calculation
+from ..utils.profiler import StepProfiler
 from . import checkpoint
 from .summary import SummaryWriter
 from .test import full_f32, make_decode_step, resolve_device
@@ -209,10 +212,13 @@ def compute_dtype(cfg):
     return _DTYPES.get(str(cfg.TRAIN.DTYPE))
 
 
-def make_loss_fn(model, cfg, dtype, mesh=None):
+def make_loss_fn(model, cfg, dtype, mesh=None, ctc_loss=None):
     """``loss_fn(image, label, label_len, time_step) -> (total, ctc,
     bn_batch)``: the mean CTC loss over the feasible examples plus the L2
-    collection, and the BN layers' batch statistics.
+    collection, and the BN layers' batch statistics. ``ctc_loss`` gives the
+    per-example losses (``ops/ctc.py:ctc_loss``'s contract); None is the
+    kernels' ``ctc_cuda.ctc_loss``, a comparison passes the plain version
+    (``tools/attrib_step.py``).
 
     With a ``mesh`` (``parallel/mesh.py``) the batch is this rank's rows of
     the global batch: the BN statistics are the global batch's, and the CTC
@@ -228,8 +234,8 @@ def make_loss_fn(model, cfg, dtype, mesh=None):
         bn_batch = []      # bn=True convs deposit their batch mean/var here
         logits = model(image, time_step, dtype=dtype, bn_collect=bn_batch,
                        bn_group=group)
-        losses = ctc_cuda.ctc_loss(logits.transpose(0, 1), label, label_len,
-                                   time_step)
+        losses = (ctc_loss or ctc_cuda.ctc_loss)(
+            logits.transpose(0, 1), label, label_len, time_step)
         # an infeasible alignment (input too short for the label) carries
         # the 1e30 sentinel and a zero gradient; average over the feasible
         # examples only so one degenerate sample cannot blow up the scalar
@@ -266,13 +272,15 @@ def all_reduce_grads(params, mesh):
         p.grad = g.view_as(p)
 
 
-def make_train_step(model, optimizer, cfg, dtype, mesh=None):
+def make_train_step(model, optimizer, cfg, dtype, mesh=None, loss_fn=None):
     """``train_step(image, label, label_len, time_step) -> (total, ctc)``
     (device scalars): forward, backward, the solver's update, then the BN
     moving-statistics update. Updates ``model`` and ``optimizer`` in place.
     With a ``mesh``: this rank's rows, the gradients summed over the ranks
-    before the solver's clip (:func:`make_loss_fn`)."""
-    loss_fn = make_loss_fn(model, cfg, dtype, mesh)
+    before the solver's clip (:func:`make_loss_fn`). ``loss_fn`` replaces
+    :func:`make_loss_fn`'s (same contract), for a comparison."""
+    if loss_fn is None:
+        loss_fn = make_loss_fn(model, cfg, dtype, mesh)
     momentum = float(cfg.BN_MOMENTUM)
 
     def train_step(image, label, label_len, time_step):
@@ -531,14 +539,11 @@ def stack_batches(group):
                  for f in ('image', 'label', 'label_len', 'time_step'))
 
 
-def _check_ported(cfg, pre_train):
+def _check_ported(pre_train):
     """Raise by name for what is not ported yet."""
     if pre_train and str(pre_train).endswith('.npy'):
         raise NotImplementedError('.npy pre-train dicts are not ported; pass '
                                   'a .ckpt.npz checkpoint')
-    if str(cfg.PROFILE_DIR):
-        raise NotImplementedError('PROFILE_DIR (utils/profiler.py) is not '
-                                  'ported')
 
 
 def select_mesh(cfg, device):
@@ -643,7 +648,7 @@ class SolverWrapper:
     @full_f32()
     def train_model(self, max_iters, restore=False):
         cfg, dev = self.cfg, self.device
-        _check_ported(cfg, self.pre_train)
+        _check_ported(self.pre_train)
         mesh = select_mesh(cfg, dev)
         world, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
         lead = rank == 0                # prints the display lines
@@ -716,6 +721,7 @@ class SolverWrapper:
             return tuple(torch.from_numpy(a).to(dev, non_blocking=True)
                          for a in arrays)
 
+        prof = StepProfiler(cfg=cfg, device=dev)
         loss_min = float(cfg.TRAIN.LOSS_MIN_SNAPSHOT)
         val_batch = None
 
@@ -782,6 +788,7 @@ class SolverWrapper:
             group_t0 = None
             it = restore_iter
             while it < max_iters:
+                prof.step(it)
                 # wall time between successive submissions is the s/iter:
                 # a dispatch returns before the device finishes
                 now = time.perf_counter()
@@ -834,6 +841,7 @@ class SolverWrapper:
                 process_group(pending[0], pending[1], final_secs,
                               cur_end=pending[0] + pending[2] - 1)
         finally:
+            prof.close()
             if train_gen is not None:
                 train_gen.close()
             if feed is not None:

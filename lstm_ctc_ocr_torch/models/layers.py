@@ -151,10 +151,16 @@ def _cell_weights(cell, dtype):
 
 class BiLSTM(nn.Module):
     """BiLSTM of ``num_hids // 2`` units per direction + f32 projection to
-    ``nclasses``; returns time-major logits [T, N, C]."""
+    ``nclasses``; returns time-major logits [T, N, C]. ``recurrence`` is
+    ``(cells, x [N, T, D], lens) -> [N, T, 2H]``: the fused kernels
+    (``ops/rnn.py:bilstm``) unless a comparison passes another, such as
+    the plain two-scan pair (``rnn.bilstm_scan_pair``,
+    ``tools/attrib_step.py``)."""
 
-    def __init__(self, d, num_hids, nclasses, generator=None):
+    def __init__(self, d, num_hids, nclasses, generator=None,
+                 recurrence=None):
         super().__init__()
+        self.recurrence = recurrence or rnn.bilstm
         h = num_hids // 2
         self.cells = nn.ModuleDict({'fw': LSTMCell(d, h, generator),
                                     'bw': LSTMCell(d, h, generator)})
@@ -170,7 +176,7 @@ class BiLSTM(nn.Module):
         x = _cast(x, dtype)
         cells = {name: _cell_weights(cell, dtype)
                  for name, cell in self.cells.items()}
-        out = rnn.bilstm(cells, x, lens)                    # [N, T, num_hids]
+        out = self.recurrence(cells, x, lens)               # [N, T, num_hids]
         # projection in f32: a small matmul, and CTC wants f32 logits
         logits = out.float() @ self.weights + self.biases
         return logits.transpose(0, 1)                       # [T, N, C]

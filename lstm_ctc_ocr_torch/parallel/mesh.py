@@ -52,11 +52,13 @@ class Mesh:
     """The ranks of a data-parallel run: ``group`` (a ``torch.distributed``
     process group, or None for one process on its own), ``size``, ``rank``,
     ``backend`` ('nccl', 'gloo' or None) and ``device``, where this rank's
-    model and batches live."""
+    model and batches live: this process's CUDA device unless another is
+    given, and without CUDA a ``RuntimeError`` (:func:`cuda_device`)."""
 
-    def __init__(self, group=None, device='cpu'):
+    def __init__(self, group=None, device=None):
         self.group = group
-        self.device = torch.device(device)
+        self.device = torch.device(device) if device is not None \
+            else cuda_device()
         if group is None:
             self.size, self.rank, self.backend = 1, 0, None
         else:
@@ -182,17 +184,29 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(t, group)
 
 
+def cuda_device() -> torch.device:
+    """This process's CUDA device; raises where there is none, as the entry
+    points do (``engine/test.py:resolve_device``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('CUDA is not available; pass device="cpu" to run '
+                           'the mesh on the CPU')
+    return torch.device('cuda', torch.cuda.current_device())
+
+
 def make_mesh(device=None) -> Mesh:
     """The mesh of every rank of the default group (none initialised: one
-    process on its own). ``device`` defaults to the current CUDA device
-    under NCCL, else the CPU."""
+    process on its own). ``device`` defaults to this process's CUDA device,
+    and raises without one; the CPU comes only when asked for
+    (``device='cpu'``) or from a gloo group on a host without CUDA, which
+    can only have been made on the CPU. On a host with CUDA, a gloo group
+    made for CPU tensors passes ``'cpu'``."""
     group = None
     if dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
-    if device is None:
-        nccl = group is not None and str(dist.get_backend(group)) == 'nccl'
-        device = (torch.device('cuda', torch.cuda.current_device()) if nccl
-                  else torch.device('cpu'))
+    if device is None and group is not None \
+            and str(dist.get_backend(group)) == 'gloo' \
+            and not torch.cuda.is_available():
+        device = 'cpu'
     return Mesh(group, device)
 
 

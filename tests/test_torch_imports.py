@@ -43,14 +43,24 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.ops.rnn', 'lstm_ctc_ocr_torch.ops.rnn_cuda',
     'lstm_ctc_ocr_torch.parallel', 'lstm_ctc_ocr_torch.parallel.dryrun',
     'lstm_ctc_ocr_torch.parallel.mesh',
-    'lstm_ctc_ocr_torch.tools', 'lstm_ctc_ocr_torch.tools.ablate_ctc_fwd',
+    'lstm_ctc_ocr_torch.tools', 'lstm_ctc_ocr_torch.tools._common',
+    'lstm_ctc_ocr_torch.tools.ablate_ctc_fwd',
     'lstm_ctc_ocr_torch.tools.ablate_lstm_bwd',
     'lstm_ctc_ocr_torch.tools.ablate_lstm_fwd',
+    'lstm_ctc_ocr_torch.tools.attrib_step',
     'lstm_ctc_ocr_torch.tools.bench_conv_bn',
+    'lstm_ctc_ocr_torch.tools.bench_ctc',
+    'lstm_ctc_ocr_torch.tools.bench_data',
+    'lstm_ctc_ocr_torch.tools.bench_decode',
+    'lstm_ctc_ocr_torch.tools.bench_fold_h',
+    'lstm_ctc_ocr_torch.tools.bench_rnn',
     'lstm_ctc_ocr_torch.tools.calibrate_bn',
     'lstm_ctc_ocr_torch.tools.export_model',
+    'lstm_ctc_ocr_torch.tools.profile_step',
     'lstm_ctc_ocr_torch.tools.release_ckpt',
     'lstm_ctc_ocr_torch.utils', 'lstm_ctc_ocr_torch.utils.metrics',
+    'lstm_ctc_ocr_torch.utils.profiler',
+    'lstm_ctc_ocr_torch.utils.segmentation',
     'lstm_ctc_ocr_torch.utils.timer',
 ]
 

@@ -316,6 +316,26 @@ def test_one_process_takes_the_one_device_step(monkeypatch):
         pmesh.init_distributed(device='cpu')
 
 
+def test_mesh_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """``make_mesh()`` and ``Mesh()`` with no device take this process's
+    CUDA device, as the entry points do; without CUDA they raise rather
+    than land on the CPU. ``make_mesh('cpu')`` is as before."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        pmesh.make_mesh()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        pmesh.Mesh()
+    mesh = pmesh.make_mesh('cpu')
+    assert (mesh.size, mesh.rank, mesh.group, mesh.backend) == \
+        (1, 0, None, None)
+    assert mesh.device == torch.device('cpu')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 3)
+    assert pmesh.make_mesh().device == torch.device('cuda', 3)
+    assert pmesh.Mesh().device == torch.device('cuda', 3)
+
+
 @pytest.fixture(scope='module')
 def val_layout(tmp_path_factory):
     """An empty output dir (eval falls back to the tracked lstm_ctc release)

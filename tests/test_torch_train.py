@@ -425,7 +425,6 @@ def test_solver_cadence_and_resume(tiny_records, tmp_path, capsys):
 
 
 @pytest.mark.parametrize('overrides,pre_train,match', [
-    (['PROFILE_DIR', 'prof'], None, 'PROFILE_DIR'),
     ([], 'weights.npy', 'npy'),
 ])
 def test_unported_options_raise_by_name(tiny_records, tmp_path, overrides,
