@@ -165,10 +165,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     ``train_net`` in a process of ``torch.distributed.run --nproc_per_node
     1`` (``PARALLEL auto``, ``DATA_DEVICE on``, 8-step graphs, 60 steps of
     ``lstm/lstm.yml`` at full width, batch 64, bf16, Adam, the records
-    file) against the same run with ``PARALLEL off`` in this process:
-    losses and final state bit for bit (or within two ``off`` runs'
-    difference, printed), the four kernels once a step and ``bilstm_fwd``
-    once per validation decode; in the same process, a mesh of that one
+    file) against the same run with ``PARALLEL off`` in a fresh process of
+    its own, started as that one is: losses and final state bit for bit (or
+    within two such ``off`` runs' difference, printed), the four kernels
+    once a step and ``bilstm_fwd`` once per validation decode; the same
+    ``off`` run in this process, after the earlier phases, is printed
+    beside them (it shares this process's history, the compared runs do
+    not); in the process of (a), a mesh of that one
     rank runs the store's 8-step graph with its NCCL collectives captured:
     graph against eager, and steps/s, device busy ms a step and idle share
     beside the same graph without collectives (in turns) and phase 8's; (b)
@@ -2459,6 +2462,17 @@ def dp_worker_nccl(mods, args, card):
     return 0
 
 
+def dp_worker_off(mods, args):
+    """Phase 10 (a)'s reference in a fresh process of its own: the same
+    ``train_net`` with ``PARALLEL off`` and no process group."""
+    cfg = mods['load_cfg'](os.path.join(REPO, 'lstm', 'lstm.yml'),
+                           dp_overrides(args.records, 'chip_smoke_dp_fresh{}'
+                                        .format(args.rank), 'off'))
+    torch.save(dp_train_net(mods, cfg, 'chip_smoke_dp_fresh{}'.format(
+        args.rank)), args.out)
+    return 0
+
+
 def dp_worker_gloo(mods, args):
     """Phase 10 (b) and (c) at one of two gloo ranks on the one card: three
     f32 DP steps on this rank's rows of fixed batches, then the DP eval."""
@@ -2509,7 +2523,7 @@ def dp_worker_gloo(mods, args):
 def dp_worker(argv, mods, card):
     import argparse
     parser = argparse.ArgumentParser()
-    parser.add_argument('mode', choices=('nccl', 'gloo'))
+    parser.add_argument('mode', choices=('nccl', 'gloo', 'off'))
     parser.add_argument('--records', required=True)
     parser.add_argument('--out', required=True)
     parser.add_argument('--rank', type=int, default=0)
@@ -2517,6 +2531,8 @@ def dp_worker(argv, mods, card):
     args = parser.parse_args(argv)
     if args.mode == 'nccl':
         return dp_worker_nccl(mods, args, card)
+    if args.mode == 'off':
+        return dp_worker_off(mods, args)
     return dp_worker_gloo(mods, args)
 
 
@@ -2552,10 +2568,11 @@ def bar_ratio(got, want, rtol=2e-5, atol=2e-6):
 
 
 def dp_phase(mods, card, rec_path, dispatch, eval_predictions, log):
-    """(a) ``train_net`` under a one-rank NCCL group against PARALLEL off,
-    and the captured collectives; (b) two gloo ranks on the one card
-    against one rank on the global batch; (c) the DP eval against the eval
-    phase. Returns the launches by path and the phase's numbers."""
+    """(a) ``train_net`` under a one-rank NCCL group against PARALLEL off in
+    a fresh process, and the captured collectives; (b) two gloo ranks on
+    the one card against one rank on the global batch; (c) the DP eval
+    against the eval phase. Returns the launches by path and the phase's
+    numbers."""
     train, load_cfg = mods['train'], mods['load_cfg']
     rnn_cuda, ctc_cuda = mods['rnn_cuda'], mods['ctc_cuda']
     t_phase = time.perf_counter()
@@ -2565,14 +2582,21 @@ def dp_phase(mods, card, rec_path, dispatch, eval_predictions, log):
     a_out = os.path.join(out_dir, 'chip_smoke_dp_a.pt')
     gloo_out = [os.path.join(out_dir, 'chip_smoke_dp_rank{}.pt'.format(r))
                 for r in range(2)]
+    fresh_out = [os.path.join(out_dir, 'chip_smoke_dp_fresh{}.pt'.format(i))
+                 for i in range(2)]
     rendezvous = os.path.join(out_dir, 'chip_smoke_dp_rendezvous')
-    for path in [a_out, rendezvous] + gloo_out:
+    for path in [a_out, rendezvous] + gloo_out + fresh_out:
         if os.path.exists(path):
             os.remove(path)
     logs = [os.path.join(out_dir, 'chip_smoke_dp_{}.log'.format(w))
-            for w in ('a', 'rank0', 'rank1')]
+            for w in ('a', 'rank0', 'rank1', 'fresh0', 'fresh1')]
+
+    def fresh_cmd(i):            # (a)'s reference, a process of its own
+        return [sys.executable, me, '--dp-worker', 'off', '--records',
+                rec_path, '--out', fresh_out[i], '--rank', str(i)]
     # (a) alone on the card, since it measures rates; then (b) and (c)'s
-    # two ranks while this process computes the references
+    # two ranks and (a)'s reference while this process computes the
+    # references of (b) and the same reference again here
     procs_t0 = time.perf_counter()
     rcs = run_workers([[sys.executable, '-m', 'torch.distributed.run',
                         '--standalone', '--nproc_per_node', '1', me,
@@ -2581,11 +2605,13 @@ def dp_phase(mods, card, rec_path, dispatch, eval_predictions, log):
     waiter = threading.Thread(target=lambda: rcs.extend(run_workers(
         [[sys.executable, me, '--dp-worker', 'gloo', '--records', rec_path,
           '--out', gloo_out[r], '--rank', str(r), '--init',
-          'file://' + rendezvous] for r in range(2)], logs[1:],
-        timeout=300)))
+          'file://' + rendezvous] for r in range(2)] + [fresh_cmd(0)],
+        logs[1:4], timeout=300)))
     waiter.start()
 
-    # (a)'s reference: the same run with PARALLEL off, in this process
+    # (a)'s reference run once more in this process, after the earlier
+    # phases: printed beside the comparison, which is between fresh
+    # processes
     cfg_off = load_cfg(yml, dp_overrides(rec_path, 'chip_smoke_dp_off',
                                          'off'))
     with contextlib.redirect_stdout(log):
@@ -2619,44 +2645,53 @@ def dp_phase(mods, card, rec_path, dispatch, eval_predictions, log):
         if rc != 0:
             with open(path) as f:
                 print(f.read()[-4000:], flush=True)
-    check(rcs == [0, 0, 0], 'DP workers exited {} (logs {})'.format(rcs, logs))
+    check(rcs == [0, 0, 0, 0], 'DP workers exited {} (logs {})'.format(
+        rcs, logs[:4]))
     a = torch.load(a_out, weights_only=False)
     ranks = [torch.load(p, weights_only=False) for p in gloo_out]
-    for path in [a_out] + gloo_out:          # states: too large to keep
+    fresh = torch.load(fresh_out[0], weights_only=False)
+    for path in [a_out, fresh_out[0]] + gloo_out:   # states: too large
         os.remove(path)
     out = {'workers_s': workers_s}
 
-    # (a) against PARALLEL off
-    diff = state_difference([torch.tensor(a['losses'])] + a['state'],
-                            [torch.tensor(ref['losses'])] + ref['state'])
+    def run_state(r):
+        return [torch.tensor(r['losses'])] + r['state']
+
+    # (a) against PARALLEL off, each in a fresh process; a difference is
+    # held to that of two fresh PARALLEL off runs
+    diff = state_difference(run_state(a), run_state(fresh))
+    history = state_difference(run_state(ref), run_state(fresh))
     eager = 0.0
     if diff:
-        with contextlib.redirect_stdout(log):
-            ref2 = dp_train_net(mods, cfg_off, 'chip_smoke_dp_off')
-        eager = state_difference(
-            [torch.tensor(ref2['losses'])] + ref2['state'],
-            [torch.tensor(ref['losses'])] + ref['state'])
+        rc = run_workers([fresh_cmd(1)], logs[4:], timeout=300)
+        check(rc == [0], 'DP reference worker exited {} (log {})'.format(
+            rc, logs[4]))
+        fresh2 = torch.load(fresh_out[1], weights_only=False)
+        os.remove(fresh_out[1])
+        eager = state_difference(run_state(fresh2), run_state(fresh))
     val_calls = sum(1 for it in range(1, DP_STEPS + 1) if (it + 1) % 50 == 0)
     want = {'bilstm_fwd': DP_STEPS + val_calls, 'bilstm_bwd': DP_STEPS,
             'lstm_fwd': 0, 'lstm_bwd': 0, 'ctc_fwd': DP_STEPS,
             'ctc_bwd': DP_STEPS}
     print('dp (a) train_net under torch.distributed.run --nproc_per_node 1 '
           '(world {}, {}), PARALLEL auto, DATA_DEVICE on, K={}, {} steps in '
-          '{:.1f} s: losses {:.4f} -> {:.4f}; against PARALLEL off in this '
-          'process: largest |difference| over losses and final state {}{}; '
-          'launches {}'.format(
+          '{:.1f} s: losses {:.4f} -> {:.4f}; against PARALLEL off in a '
+          'fresh process: largest |difference| over losses and final state '
+          '{}{}; the PARALLEL off run in this process, after the earlier '
+          'phases, against the fresh one: {}; launches {}'.format(
               a['world'], a['backend'], DP_K, len(a['losses']), a['wall_s'],
               a['losses'][0], a['losses'][-1], diff,
               ' (bit for bit)' if diff == 0 else
-              ', two PARALLEL off runs differ by {}'.format(eager),
-              json.dumps(a['launches'])), flush=True)
+              ', two fresh PARALLEL off runs differ by {}'.format(eager),
+              history, json.dumps(a['launches'])), flush=True)
     check(len(a['losses']) == DP_STEPS and a['count'] == DP_STEPS,
           'dp (a): {} losses, count {}'.format(len(a['losses']), a['count']))
     check(diff <= eager, 'dp (a) differs from PARALLEL off by {} (two off '
           'runs by {})'.format(diff, eager))
-    check(a['launches'] == want and ref['launches'] == want,
-          'dp (a) launches {} (PARALLEL off {}), expected {}'.format(
-              a['launches'], ref['launches'], want))
+    check(all(r['launches'] == want for r in (a, fresh, ref)),
+          'dp (a) launches {} (PARALLEL off {}, in this process {}), '
+          'expected {}'.format(a['launches'], fresh['launches'],
+                               ref['launches'], want))
     for tag, (graph, eager_k) in a['captured'].items():
         print('dp (a) one NCCL rank, store K=8 graph ({}): {} graphed steps '
               'against eager from one state, largest |graph - eager| {}, '
@@ -2679,7 +2714,9 @@ def dp_phase(mods, card, rec_path, dispatch, eval_predictions, log):
                   store_graph['device_busy_ms_per_step'],
                   store_graph['device_idle_share']), flush=True)
     out['a'] = {'max_abs_diff_vs_parallel_off': diff,
-                'parallel_off_vs_off': eager, 'losses_first_last':
+                'parallel_off_vs_off': eager,
+                'parallel_off_this_process_vs_fresh': history,
+                'losses_first_last':
                 [a['losses'][0], a['losses'][-1]], 'wall_s': a['wall_s'],
                 'graph_vs_eager': a['captured'], 'rates': rate,
                 'rates_by_turn': a['rates']}
@@ -2766,7 +2803,8 @@ def dp_phase(mods, card, rec_path, dispatch, eval_predictions, log):
     print('dp: phase took {:.1f} s (workers {:.1f} s)'.format(
         out['seconds'], workers_s), flush=True)
     launches = {'dp_train_nccl': a['launches'],
-                'dp_reference': ref['launches']}
+                'dp_reference': fresh['launches'],
+                'dp_reference_this_process': ref['launches']}
     for r, res in enumerate(ranks):
         launches['dp_steps_rank{}'.format(r)] = res['launches_b']
         launches['dp_eval_rank{}'.format(r)] = res['launches_c']
