@@ -207,12 +207,43 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     run without it. Then ``attrib_step``'s default step beside phase 5's
     eager step, and ``bench_decode``'s greedy W=96 full step beside the
     eval phase's p50, and the phase's seconds.
+12. DSL phase: the model DSL (``models/network.py``) and the offline
+    surface, at full width. (a) The JAX package's ``crnn.LSTM_train``
+    chain verbatim as a port ``Network`` subclass, the ``lstm_ctc`` release
+    loaded through the weight bridge by ``test_net(model=)`` on
+    ``data/val`` (bf16, batch 64): every string equal to the eval phase's
+    fixed model's, at least 483/500, one ``bilstm_fwd`` launch a decode
+    call. (b) ``train_net``, 20 steps on phase 5's records file: the DSL
+    net and the fixed model from one seed, and a DSL ``.lstm(512, 2)``
+    head and the ``make_head`` stacked model, losses and final state bit
+    for bit (cuDNN deterministic for both runs), kernels 1-4 (5-6) 20
+    launches a run (2 x 20). (c) A DSL net of ``fc``, ``avg_pool``,
+    ``dropout``, ``conv_norm`` (BN and crelu), ``upconv``, ``lrn``,
+    ``batch_normalization``, ``pva_negation_block_v2`` and
+    ``pva_inception_res_block`` forward and backward in f32: card against
+    CPU within 1e-4 of each tensor's scale at ``keep_prob`` 1; two seeded
+    runs at 0.5 give bit-identical outputs (masks) and gradients within
+    1e-5 (the backward's overlapping max pool and cuDNN's weight gradients
+    sum with atomics). (d) ``convert_ckpt2npy`` of the release,
+    then 5 steps from the ``.npy`` against 5 from the ``.ckpt.npz``, bit
+    for bit. (e) ``gen_img.run(500)`` under ``digit4.yml`` + ``RENDERER
+    native``: the names and decoded pixels of ``data/val_digit4_native``;
+    ``build_records --synth 512`` trains 5 steps; ``vis_batch
+    --from-store`` on a pool: tiles equal to the store's gathered rows.
+    (f) Kernels 3-4 against the C++ oracle (``native/ctc_ref.py``) at
+    batch 64, T=23/L=6 and T=111/L=24 (the kernel phase's cases, infeasible,
+    empty-label and one-frame rows included): the loss within 1e-5
+    relative, each example's gradient within max(1e-5, 1e-6 * its loss),
+    the f32 rounding of the log-space sums (the plain version's distance
+    printed beside it); these comparison launches count on no path.
+    ``python3 chip_smoke.py --phase 12`` runs the build and this phase
+    alone (its reference strings from the fixed model's eval, made there).
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 seven kernels (and the rates, the synthetic stream's, the serve, the
-dispatch, the data-parallel and the tools phase's numbers); the last
+dispatch, the data-parallel, the tools and the DSL phase's numbers); the last
 line is ``{"ok": true, "device": {...}}``. Per-image eval lines, the
-training runs', the serve phase's and the tools' output go to
+training runs', the serve phase's, the tools' and the DSL phase's output go to
 ``chiprun_out/``.
 """
 
@@ -3038,6 +3069,514 @@ def tools_phase(mods, card, rec_path, train_rate, eval_p50_ms, log):
     return launches, out
 
 
+# --- phase 12: the model DSL and the offline surface -------------------------
+
+def dsl_classes(Network):
+    """The JAX package's ``crnn.LSTM_train`` chain verbatim as a port
+    ``Network`` subclass (``cfg`` read from ``self.cfg``), the same chain
+    with a stacked ``.lstm(512, 2)`` head, and phase 12 (c)'s net of the
+    DSL-only and legacy layers."""
+
+    class LSTMTrainDSL(Network):
+        def setup(self):
+            cfg = self.cfg
+            (self.feed('data')
+             .conv_single(3, 3, 64, 1, 1, name='conv1', c_i=cfg.NCHANNELS)
+             .max_pool(2, 2, 2, 2, padding='VALID', name='pool1')
+             .conv_single(3, 3, 128, 1, 1, name='conv2')
+             .max_pool(2, 2, 2, 2, padding='VALID', name='pool2')
+             .conv_single(3, 3, 256, 1, 1, name='conv3_1')
+             .conv_single(3, 3, 256, 1, 1, name='conv3_2')
+             .max_pool(1, 2, 1, 2, padding='VALID', name='pool2')
+             .conv_single(3, 3, 512, 1, 1, name='conv4_1', bn=True)
+             .conv_single(3, 3, 512, 1, 1, name='conv4_2', bn=True)
+             .max_pool(1, 2, 1, 2, padding='VALID', name='pool3')
+             .conv_single(2, 2, 512, 1, 1, padding='VALID', name='conv5',
+                          relu=False)
+             .reshape_squeeze_layer(d=512, name='reshaped_layer'))
+            (self.feed('reshaped_layer', 'time_step_len')
+             .bi_lstm(cfg.TRAIN.NUM_HID, cfg.TRAIN.NUM_LAYERS, name='logits'))
+
+    class StackedDSL(LSTMTrainDSL):
+        def setup(self):
+            super().setup()
+            self.specs.pop()
+            self.layer_order.pop()
+            (self.feed('reshaped_layer', 'time_step_len')
+             .lstm(512, STACKED_LAYERS, name='logits'))
+
+    class LegacyNet(Network):
+        input_names = ('data',)
+
+        def __init__(self, keep_prob, cfg, generator):
+            self.keep_prob = keep_prob
+            super().__init__(cfg, generator=generator,
+                             input_shapes={'data': LEGACY_SHAPE})
+
+        def setup(self):
+            (self.feed('data')
+             .conv_norm(3, 3, 32, 1, 1, name='cn')
+             .conv_norm(3, 3, 32, 2, 2, biased=False, name='crelu')
+             .lrn(2, 1e-4, 0.75, name='lrn')
+             .batch_normalization(name='bn')
+             .pva_negation_block_v2(3, 3, 128, 1, 1, 64, name='neg')
+             .pva_inception_res_block(name='incep')
+             .upconv(None, 64, name='up')
+             .avg_pool(2, 2, 2, 2, name='avg')
+             .dropout(self.keep_prob, name='drop')
+             .fc(10, relu=False, name='fc'))
+    return LSTMTrainDSL, StackedDSL, LegacyNet
+
+
+# phase 12 (c)'s input, JAX layout [N, A1, A2, C]
+LEGACY_SHAPE = (8, 32, 32, 3)
+
+
+def dsl_train_overrides(rec_path, exp, steps):
+    """``train_overrides`` for a run of ``steps`` steps with no validation
+    decode and no snapshot."""
+    return train_overrides(rec_path, exp) + [
+        'VAL.VAL_STEP', '1000', 'TRAIN.SNAPSHOT_ITERS', '1000',
+        'TRAIN.LOSS_MIN_SNAPSHOT', '0.0', 'TRAIN.DISPLAY', str(steps)]
+
+
+def train_pair(mods, make, cfg, exp, steps, log, pre_train=(None, None)):
+    """``train_net`` of ``steps`` steps for each of the two models
+    ``make(i)`` gives (``pre_train[i]`` each), the kernel counters set to 0
+    before each run and read after it. Returns the two (losses, state,
+    launches)."""
+    out = []
+    for i in range(2):
+        net = make(i)
+        launch_counts(mods['rnn_cuda'], mods['ctc_cuda'], reset=True)
+        with contextlib.redirect_stdout(log):
+            model, _, losses = mods['train'].train_net(
+                net, {'name': 'chip_smoke'}, pre_train[i],
+                os.path.join(REPO, 'output', exp),
+                os.path.join(REPO, 'logs', exp), cfg, max_iters=steps + 1,
+                device='cuda')
+        torch.cuda.synchronize()
+        out.append((losses, {k: v.detach().clone()
+                             for k, v in model.state_dict().items()},
+                    launch_counts(mods['rnn_cuda'], mods['ctc_cuda'])))
+    return out
+
+
+def bit_for_bit(pair, steps, what):
+    """Check two ``train_pair`` runs: ``steps`` finite losses each, equal,
+    and every tensor of the final state equal. Returns the largest
+    difference of a state tensor (0.0)."""
+    (la, sa, _), (lb, sb, _) = pair
+    check(len(la) == steps and bool(np.isfinite(la).all()),
+          '{}: expected {} finite losses, got {}'.format(what, steps, la))
+    diff = max(float((sa[k].float() - sb[k].float()).abs().max())
+               for k in sa)
+    check(list(sa) == list(sb), '{}: state keys differ'.format(what))
+    check(la == lb and diff == 0.0,
+          '{}: losses {} vs {}, largest state difference {}'.format(
+              what, la, lb, diff))
+    return diff
+
+
+def legacy_phase(LegacyNet, cfg):
+    """(c): the DSL-only and legacy layers forward and backward in f32 on
+    the card against the same net on the CPU (dropout at keep_prob 1), and
+    two dropout runs at keep_prob 0.5 from one seed. Returns the worst
+    output and gradient differences over each tensor's scale."""
+    gen = torch.Generator().manual_seed(0)
+    cpu = LegacyNet(1.0, cfg, gen).train()
+    card = LegacyNet(1.0, cfg, torch.Generator().manual_seed(1))
+    card.load_state_dict(cpu.state_dict())
+    card = card.cuda().train()
+    rng = np.random.RandomState(0)
+    n, a1, a2, c = LEGACY_SHAPE
+    x = torch.from_numpy(rng.randn(n, c, a1, a2).astype(np.float32))
+    y_cpu = cpu(x)
+    w = torch.from_numpy(rng.randn(*y_cpu.shape).astype(np.float32))
+    (y_cpu * w).sum().backward()
+    y_card = card(x.cuda())
+    (y_card * w.cuda()).sum().backward()
+    torch.cuda.synchronize()
+
+    def rel(got, want):
+        return float((got.cpu() - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+    out_err = rel(y_card.detach(), y_cpu.detach())
+    grads = {k: p.grad for k, p in cpu.named_parameters()}
+    big = max(float(g.abs().max()) for g in grads.values())
+    grad_err, noise = 0.0, 0.0
+    for k, p in card.named_parameters():
+        want = grads[k]
+        if float(want.abs().max()) <= 1e-6 * big:
+            # zero in exact arithmetic (a bias batch norm removes): noise
+            noise = max(noise, float(p.grad.abs().max()) / big)
+        else:
+            grad_err = max(grad_err, rel(p.grad, want))
+    check(y_card.shape == (n, 10, a1 // 4, a2 // 4),
+          'legacy net output {}'.format(tuple(y_card.shape)))
+    check(out_err <= 1e-4 and grad_err <= 1e-4 and noise <= 1e-5,
+          'legacy net card vs CPU: output {:.2e}, gradients {:.2e}, '
+          'zero-gradient noise {:.2e} (bars 1e-4, 1e-4, 1e-5)'.format(
+              out_err, grad_err, noise))
+    drop = LegacyNet(0.5, cfg, torch.Generator().manual_seed(0)).cuda()
+    drop.load_state_dict(cpu.state_dict())
+    drop.train()
+    runs = []
+    for _ in range(2):
+        drop.seed_dropout(11)
+        drop.zero_grad()
+        outs = drop.outputs(x.cuda())
+        y = outs['fc']
+        (y * w.cuda()).sum().backward()
+        runs.append((y.detach().clone(),
+                     [p.grad.clone() for p in drop.parameters()]))
+    # the forward (masks and all) is deterministic; the backward's overlapping
+    # 3x3/2 max pool and cuDNN's weight gradients sum with atomics, so two
+    # backwards agree to rounding, not bit for bit
+    same = torch.equal(runs[0][0], runs[1][0])
+    grad_runs = max(rel(a, b.cpu()) for a, b in zip(runs[0][1], runs[1][1]))
+    kept = float((outs['drop'] != 0).sum()) / max(
+        1, int((outs['avg'] != 0).sum()))
+    moved = not torch.equal(runs[0][0], y_card.detach())
+    check(same and moved and grad_runs <= 1e-5,
+          'dropout at keep_prob 0.5: two seeded runs bit-identical {}, '
+          'masks drawn {}, gradients {:.2e} apart'.format(same, moved,
+                                                          grad_runs))
+    return {'output_rel_err': out_err, 'grad_rel_err': grad_err,
+            'zero_grad_noise': noise, 'dropout_runs_bit_identical': same,
+            'dropout_runs_grad_rel_diff': grad_runs,
+            'dropout_kept_share': kept,
+            'parameters': sum(p.numel() for p in cpu.parameters())}
+
+
+def caption_rows(shape, tiles, cols, pad=6, caption_h=14):
+    """True on the caption band of each row of a vis_batch sheet."""
+    mask = np.zeros(shape, bool)
+    cell_h = max(im.shape[0] for im, _ in tiles) + caption_h + pad
+    for k, (im, _) in enumerate(tiles):
+        y = pad + (k // max(1, min(cols, len(tiles)))) * cell_h + im.shape[0]
+        mask[y:y + caption_h] = True
+    return mask
+
+
+def oracle_phase(mods, ctc_ref):
+    """(f): kernels 3 and 4 (``ctc_cuda.ctc_loss`` and its backward) against
+    the C++ oracle at the kernel phase's cases. The loss within 1e-5
+    relative; each example's gradient within max(1e-5, 1e-6 * its loss)
+    absolute: the f32 log-space sums the kernels (and the plain version)
+    carry round to ~1e-7 of the loss (tests/test_torch_ctc_ref.py). The
+    plain version's distance from the oracle is printed beside it."""
+    ctc, ctc_cuda = mods['ctc'], mods['ctc_cuda']
+    out = {}
+    for t_len, l_max in ((23, 6), (111, 24)):
+        case = ctc_case(ctc, t_len, l_max, seed=5)
+        args = [case[k].cpu().numpy() for k in ('logits', 'labels',
+                                                'label_lens', 'logit_lens')]
+        ref_loss, ref_grad = ctc_ref.ctc_loss_grad(*args)
+        feasible = np.isfinite(ref_loss)
+        errs = {}
+        for name, fn in (('kernels', ctc_cuda.ctc_loss),
+                         ('plain', ctc.ctc_loss)):
+            x = case['logits'].clone().requires_grad_()
+            loss = fn(x, case['labels'], case['label_lens'],
+                      case['logit_lens'])
+            torch.where(loss < 1e29, loss, torch.zeros_like(loss)).sum() \
+                .backward()
+            got = loss.detach().cpu().numpy()
+            grad = x.grad.cpu().numpy()
+            check(np.array_equal(got >= 1e29, ~feasible),
+                  '{} T={}: infeasible rows {} vs the oracle\'s {}'.format(
+                      name, t_len, np.where(got >= 1e29)[0],
+                      np.where(~feasible)[0]))
+            g_err = np.abs(grad - ref_grad).max(axis=(1, 2))
+            errs[name] = {
+                'loss_rel_err': float(np.max(
+                    np.abs(got[feasible] - ref_loss[feasible])
+                    / np.abs(ref_loss[feasible]))),
+                'grad_abs_err': float(g_err.max()),
+                'grad_over_bar': float(np.max(g_err / np.maximum(
+                    1e-5, 1e-6 * np.where(feasible, ref_loss, 0.0)))),
+                'infeasible_grad_zero': not grad[~feasible].any()}
+        k = errs['kernels']
+        key = 'T={} L={}'.format(t_len, l_max)
+        print('dsl (f) CTC kernels vs the C++ oracle, N=64 {}: loss {:.2e} '
+              'relative, gradient {:.2e} absolute ({:.2f} of the bar); the '
+              'plain version {:.2e} / {:.2e}; infeasible rows {}'.format(
+                  key, k['loss_rel_err'], k['grad_abs_err'],
+                  k['grad_over_bar'], errs['plain']['loss_rel_err'],
+                  errs['plain']['grad_abs_err'],
+                  np.where(~feasible)[0].tolist()), flush=True)
+        check(k['loss_rel_err'] <= 1e-5 and k['grad_over_bar'] <= 1.0
+              and k['infeasible_grad_zero'],
+              'CTC kernels vs the oracle at {}: {}'.format(key, k))
+        out[key] = errs
+    return out
+
+
+def dsl_phase(mods, card, rec_path, eval_predictions, log):
+    """Phase 12: the model DSL and the offline surface at full width on the
+    card. Returns the launches by path and the phase's numbers."""
+    from lstm_ctc_ocr_torch.data import gen_img
+    from lstm_ctc_ocr_torch.data.image import decode_png
+    from lstm_ctc_ocr_torch.models.network import Network
+    from lstm_ctc_ocr_torch.native import ctc_ref
+    from lstm_ctc_ocr_torch.tools import (build_records, convert_ckpt2npy,
+                                         vis_batch)
+    load_cfg, train, test_mod = mods['load_cfg'], mods['train'], mods['test']
+    rnn_cuda, ctc_cuda = mods['rnn_cuda'], mods['ctc_cuda']
+    LSTMTrainDSL, StackedDSL, LegacyNet = dsl_classes(Network)
+    t_phase = time.perf_counter()
+    yml = os.path.join(REPO, 'lstm', 'lstm.yml')
+    work = os.path.join(REPO, 'output', 'chip_smoke_dsl')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    launches, out = {}, {'card': card}
+
+    def seeded(i=0):
+        return torch.Generator().manual_seed(int(cfg.RNG_SEED) + i)
+
+    # (a) the DSL LSTM_train on the lstm_ctc release through test_net
+    cfg = load_cfg(yml, ['TEST.BATCH_SIZE', '64', 'BN_EVAL', "'batch'",
+                         'TRAIN.DTYPE', "'bfloat16'", 'DECODER', "'greedy'"])
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
+    echoed = []
+    t0 = time.perf_counter()
+    r = test_mod.test_net(cfg, os.path.join(REPO, 'data', 'val'),
+                          os.path.join(REPO, 'checkpoints', cfg.EXP_DIR),
+                          device='cuda', echo=echoed.append,
+                          model=LSTMTrainDSL(cfg, generator=seeded()))
+    eval_s = time.perf_counter() - t0
+    log.write('== (a) DSL LSTM_train eval\n' + '\n'.join(echoed) + '\n')
+    launches['dsl_eval'] = launch_counts(rnn_cuda, ctc_cuda)
+    want = eval_predictions['lstm_ctc/batch']
+    same = sum(r.predictions.get(f) == s for f, s in want.items())
+    print('dsl (a) the JAX LSTM_train chain as a port Network, lstm_ctc '
+          'release through the bridge, test_net on data/val (bf16, batch '
+          '64): {}/{} correct, {}/{} strings equal to the fixed model\'s '
+          '(eval phase), {} decode calls, bilstm_fwd {} launches, {:.1f} s'
+          .format(r.correct, r.total, same, len(want), r.decode_calls,
+                  launches['dsl_eval']['bilstm_fwd'], eval_s), flush=True)
+    check(r.total == 500 and r.correct >= 483 and same == len(want) == 500,
+          'DSL eval: {}/{} correct, {} strings equal'.format(
+              r.correct, r.total, same))
+    check(launches['dsl_eval']['bilstm_fwd'] == r.decode_calls > 0,
+          'DSL eval: {} launches for {} decode calls'.format(
+              launches['dsl_eval']['bilstm_fwd'], r.decode_calls))
+    out['a'] = {'correct': r.correct, 'total': r.total,
+                'strings_equal': same, 'decode_calls': r.decode_calls,
+                'seconds': eval_s}
+
+    # (b) 20 steps of train_net: the DSL nets against the fixed models,
+    # from one seed, on the records file, bf16, batch 64 (deterministic
+    # cuDNN for both runs of a pair)
+    steps = 20
+    torch.backends.cudnn.deterministic = True
+    try:
+        for what, dsl_cls, fixed in (
+                ('dsl_train', LSTMTrainDSL, None),
+                ('dsl_stacked_train', StackedDSL, stacked_model)):
+            exp = 'chip_smoke_' + what
+            cfg = load_cfg(yml, dsl_train_overrides(rec_path, exp, steps))
+            check(int(cfg.TRAIN.BATCH_SIZE) == 64
+                  and int(cfg.TRAIN.NUM_HID) == 512,
+                  'lstm.yml is not the full-width default model')
+
+            def make(i, dsl_cls=dsl_cls, fixed=fixed, cfg=cfg):
+                if i == 0:
+                    return dsl_cls(cfg, generator=seeded())
+                if fixed is None:
+                    return mods['get_network']('LSTM_train', cfg,
+                                               generator=seeded())
+                return fixed(mods, cfg)
+            t0 = time.perf_counter()
+            pair = train_pair(mods, make, cfg, exp, steps, log)
+            secs = time.perf_counter() - t0
+            bit_for_bit(pair, steps, what)
+            (losses, _, dsl_counts), (_, _, fixed_counts) = pair
+            if fixed is None:
+                want = {'bilstm_fwd': steps, 'bilstm_bwd': steps,
+                        'lstm_fwd': 0, 'lstm_bwd': 0}
+            else:
+                want = {'bilstm_fwd': 0, 'bilstm_bwd': 0,
+                        'lstm_fwd': STACKED_LAYERS * steps,
+                        'lstm_bwd': STACKED_LAYERS * steps}
+            want.update(ctc_fwd=steps, ctc_bwd=steps)
+            check(dsl_counts == want == fixed_counts,
+                  '{}: launches {} (DSL) and {} (fixed), expected {}'.format(
+                      what, dsl_counts, fixed_counts, want))
+            launches[what] = {k: dsl_counts[k] + fixed_counts[k]
+                              for k in dsl_counts}
+            print('dsl (b) {}: the DSL net and the fixed model from one '
+                  'seed, {} steps each of train_net (records, bf16, batch '
+                  '64): losses and final state bit for bit, loss {:.4f} -> '
+                  '{:.4f}, launches {} each, {:.1f} s for both'.format(
+                      what, steps, losses[0], losses[-1],
+                      json.dumps(dsl_counts), secs), flush=True)
+            out[what] = {'steps': steps, 'first_loss': losses[0],
+                         'last_loss': losses[-1], 'bit_for_bit': True,
+                         'seconds': secs}
+
+        # (d) .npy pre-train against .ckpt.npz pre-train, 5 steps each
+        release = os.path.join(REPO, 'checkpoints', 'lstm_ctc',
+                               'lstm_ctc_iter_32207.ckpt.npz')
+        npy = os.path.join(work, 'lstm_ctc.npy')
+        with contextlib.redirect_stdout(log):
+            check(convert_ckpt2npy.main([release, '--out', npy]) == 0,
+                  'convert_ckpt2npy failed')
+        exp = 'chip_smoke_npy'
+        cfg = load_cfg(yml, dsl_train_overrides(rec_path, exp, 5))
+        pair = train_pair(
+            mods, lambda i: mods['get_network']('LSTM_train', cfg,
+                                                generator=seeded(i)),
+            cfg, exp, 5, log, pre_train=(npy, release))
+        bit_for_bit(pair, 5, 'npy pre-train')
+        launches['npy_pre_train'] = {k: pair[0][2][k] + pair[1][2][k]
+                                     for k in pair[0][2]}
+        print('dsl (d) convert_ckpt2npy of the lstm_ctc release, then 5 '
+              'steps of train_net(pre_train=.npy) against '
+              'pre_train=.ckpt.npz: losses and final state bit for bit '
+              '({:.4f} -> {:.4f})'.format(pair[0][0][0], pair[0][0][-1]),
+              flush=True)
+        out['npy_pre_train'] = {'steps': 5, 'losses': pair[0][0],
+                                'bit_for_bit': True}
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (c) the DSL-only and legacy layers on the card
+    out['legacy'] = legacy_phase(LegacyNet, load_cfg(yml))
+    print('dsl (c) fc, avg_pool, dropout, conv_norm (BN and crelu), upconv, '
+          'lrn, batch_normalization, pva_negation_block_v2 and '
+          'pva_inception_res_block, {parameters} parameters, f32 at {shape}: '
+          'card vs CPU output {output_rel_err:.2e}, gradients '
+          '{grad_rel_err:.2e} of each tensor\'s scale (zero-gradient noise '
+          '{zero_grad_noise:.2e}); dropout 0.5, two seeded runs\' outputs '
+          'bit-identical: {dropout_runs_bit_identical} (kept '
+          '{dropout_kept_share:.3f}; gradients {dropout_runs_grad_rel_diff:.2e} '
+          'apart)'.format(shape=LEGACY_SHAPE, **out['legacy']), flush=True)
+
+    # (e) the offline writers: gen_img against the tracked native set,
+    # build_records --synth into a 5-step run, vis_batch --from-store
+    ref_dir = os.path.join(REPO, 'data', 'val_digit4_native')
+    gen_dir = os.path.join(work, 'gen_img')
+    cfg = load_cfg(os.path.join(REPO, 'lstm', 'digit4.yml'),
+                   ['RENDERER', 'native'])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        gen_img.run(500, gen_dir, cfg=cfg)
+    gen_s = time.perf_counter() - t0
+    names = sorted(os.listdir(gen_dir))
+    want_names = sorted(os.listdir(ref_dir))
+    same = 0
+    for f in names:
+        if f in want_names:
+            with open(os.path.join(gen_dir, f), 'rb') as a, \
+                    open(os.path.join(ref_dir, f), 'rb') as b:
+                same += bool(np.array_equal(decode_png(a.read()),
+                                            decode_png(b.read())))
+    print('dsl (e) gen_img.run(500) under digit4.yml + RENDERER native: {} '
+          'files, names equal to data/val_digit4_native\'s: {}, decoded '
+          'pixels bit-identical {}/500, {:.1f} s ({} workers)'.format(
+              len(names), names == want_names, same, gen_s,
+              max(os.cpu_count() - 1, 0)), flush=True)
+    check(names == want_names and same == 500,
+          'gen_img: names equal {}, pixels equal {}/500'.format(
+              names == want_names, same))
+    synth_rec = os.path.join(work, 'synth512.records')
+    with contextlib.redirect_stdout(log):
+        check(build_records.main(['--synth', '512', '--out', synth_rec,
+                                  '--set', 'RENDERER', 'native']) == 0,
+              'build_records --synth failed')
+    exp = 'chip_smoke_synth_records'
+    cfg = load_cfg(yml, dsl_train_overrides(synth_rec, exp, 5))
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
+    with contextlib.redirect_stdout(log):
+        losses = train.train_net(
+            mods['get_network']('LSTM_train', cfg, generator=seeded()),
+            {'name': 'chip_smoke'}, None, os.path.join(REPO, 'output', exp),
+            os.path.join(REPO, 'logs', exp), cfg, max_iters=6,
+            device='cuda')[2]
+    torch.cuda.synchronize()
+    launches['synth_records_train'] = launch_counts(rnn_cuda, ctc_cuda)
+    check(len(losses) == 5 and bool(np.isfinite(losses).all()),
+          'build_records --synth 512: losses {}'.format(losses))
+    check(launches['synth_records_train']['bilstm_fwd'] == 5,
+          'synth records: launches {}'.format(
+              launches['synth_records_train']))
+    print('dsl (e) build_records --synth 512 (native), 5 steps of train_net '
+          'on it: losses {}, launches {}'.format(
+              [round(x, 4) for x in losses],
+              json.dumps(launches['synth_records_train'])), flush=True)
+    sheet_png = os.path.join(work, 'vis_batch.png')
+    pool_set = ['DATA_BACKEND', 'pool', 'POOL_SIZE', '64', 'RENDERER',
+                'native']
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(vis_batch.main(['--n', '16', '--cols', '4', '--from-store',
+                              '--out', sheet_png, '--set'] + pool_set) == 0,
+              'vis_batch --from-store failed')
+    log.write(buf.getvalue())
+    shown = re.search(r'rows \[([0-9, ]*)\]', buf.getvalue())
+    check(shown is not None, 'vis_batch named no rows')
+    idx = torch.tensor([int(i) for i in shown.group(1).split(',')],
+                       device='cuda')
+    # the same pool again (from its cache): the rows the sheet names
+    cfg = load_cfg(None, pool_set)
+    with contextlib.redirect_stdout(log):
+        feed = mods['device_store'].make_device_feed(cfg, torch.device('cuda'))
+    rows = [a.index_select(0, idx).cpu().numpy() for a in feed.store.arrays]
+    from lstm_ctc_ocr_torch.config import get_encode_decode_dict
+    tiles = vis_batch.batch_to_images(rows[0], rows[1], rows[2],
+                                      get_encode_decode_dict(cfg)[1])
+    with open(sheet_png, 'rb') as f:
+        sheet = decode_png(f.read())[..., 0]
+    want = vis_batch.contact_sheet(tiles, 4)
+    mask = caption_rows(sheet.shape, tiles, 4)
+    tiles_equal = sheet.shape == want.shape and bool(
+        np.array_equal(sheet[~mask], want[~mask]))
+    print('dsl (e) vis_batch --from-store on a 64-image pool: a {}x{} sheet, '
+          'tiles equal to the store\'s gathered rows: {}'.format(
+              sheet.shape[1], sheet.shape[0], tiles_equal), flush=True)
+    check(tiles_equal, 'vis_batch --from-store: tiles differ from the rows')
+    out['offline'] = {'gen_img_identical': same, 'gen_img_seconds': gen_s,
+                      'synth_records_losses': losses,
+                      'vis_batch_tiles_equal': tiles_equal}
+
+    # (f) kernels 3-4 against the C++ oracle (comparison launches: not
+    # counted on any path)
+    out['oracle'] = oracle_phase(mods, ctc_ref)
+    out['seconds'] = time.perf_counter() - t_phase
+    print('dsl: phase took {:.1f} s on {}'.format(out['seconds'], card),
+          flush=True)
+    return launches, out
+
+
+def phase12_alone(mods, card, kind):
+    """``python3 chip_smoke.py --phase 12``: the kernels' build, then phase
+    12 alone, its reference strings from the fixed model's eval of
+    ``lstm_ctc`` and its records file from ``data/val`` made here. For
+    working on the phase; the smoke run takes no arguments."""
+    cfg = mods['load_cfg'](os.path.join(REPO, 'lstm', 'lstm.yml'),
+                           ['TEST.BATCH_SIZE', '64', 'BN_EVAL', "'batch'",
+                            'TRAIN.DTYPE', "'bfloat16'", 'DECODER',
+                            "'greedy'"])
+    r = mods['test'].test_net(cfg, os.path.join(REPO, 'data', 'val'),
+                              os.path.join(REPO, 'checkpoints', cfg.EXP_DIR),
+                              device='cuda', echo=lambda s: None)
+    rec_path = os.path.join(REPO, 'chiprun_out', 'chip_smoke_val.records')
+    os.makedirs(os.path.dirname(rec_path), exist_ok=True)
+    mods['records'].write_image_annotation_pairs_to_records(
+        os.path.join(REPO, 'data', 'val'), rec_path)
+    with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke_dsl.log'),
+              'w') as log:
+        _, dsl = dsl_phase(mods, card, rec_path,
+                           {'lstm_ctc/batch': r.predictions}, log)
+    print(json.dumps({'dsl': dsl}), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': kind,
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def profile_report(what, fn, reps, with_wall=False):
     """``torch.profiler`` over ``reps`` warm calls of ``fn``, the last
     followed to its end on the device: device time by kernel and the
@@ -3138,6 +3677,9 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print('ptxas {}: {}'.format(name, line.strip()), flush=True)
 
+    if sys.argv[1:3] == ['--phase', '12']:      # phase 12 alone
+        return phase12_alone(mods, card, kind)
+
     errs, timings = bilstm_fwd_phase(rnn_cuda, _build)
     bwd_errs, bwd_timings = bilstm_bwd_phase(rnn_cuda, _build)
     lstm_errs, lstm_timings = lstm_phase(rnn, rnn_cuda, _build)
@@ -3167,6 +3709,9 @@ def main():
     with open(os.path.join(out_dir, 'chip_smoke_tools.log'), 'w') as log:
         tool_launches, tools = tools_phase(mods, card, rec_path, rate,
                                            eval_p50['lstm_ctc/batch'], log)
+    with open(os.path.join(out_dir, 'chip_smoke_dsl.log'), 'w') as log:
+        dsl_launches, dsl = dsl_phase(mods, card, rec_path, eval_predictions,
+                                      log)
     print('train rate on {}: synthetic feed {:.2f} steps/s ({} fork workers, '
           'os.cpu_count() {}), records feed {:.2f} steps/s; device busy ms '
           'per step {} and {}'.format(
@@ -3187,15 +3732,23 @@ def main():
     check(all(dp_launches[p]['bilstm_fwd'] > 0 for p in dp_launches),
           'bilstm_fwd was not launched on every DP path')
 
-    # the paths of the later phases: data parallelism, and the tools
+    # the paths of the later phases: data parallelism, the tools, and the
+    # model DSL and the offline surface
     later = dict(dp_launches, **{'tool ' + k: v
                                  for k, v in tool_launches.items()})
+    later.update({'dsl ' + k: v for k, v in dsl_launches.items()})
 
     def later_total(name):
         return sum(v[name] for v in later.values())
 
     def later_paths(name):
         return {p: v[name] for p, v in later.items()}
+    for name in ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd', 'ctc_bwd'):
+        check(dsl_launches['dsl_train'][name] > 0,
+              '{} was not launched on the DSL train path'.format(name))
+    for name in ('lstm_fwd', 'lstm_bwd'):
+        check(dsl_launches['dsl_stacked_train'][name] > 0,
+              '{} was not launched on the DSL stacked path'.format(name))
     for name in ('lstm_fwd', 'lstm_bwd', 'ctc_fwd', 'ctc_bwd'):
         check(stacked_launches[name] > 0,
               '{} was not launched on the stacked-LSTM path'.format(name))
@@ -3340,9 +3893,12 @@ def main():
         'source': 'lstm_ctc_ocr_torch/csrc/lstm_fwd.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:90',
         'tpu_kernel': 'ops/rnn_pallas.py:_fwd_kernel',
-        'launches': stacked_launches['lstm_fwd'] + serve_launches['lstm_fwd'],
-        'launches_by_path': {'stacked_lstm': stacked_launches['lstm_fwd'],
-                             'serve': serve_launches['lstm_fwd']},
+        'launches': stacked_launches['lstm_fwd'] + serve_launches['lstm_fwd']
+        + later_total('lstm_fwd'),
+        'launches_by_path': dict({
+            'stacked_lstm': stacked_launches['lstm_fwd'],
+            'serve': serve_launches['lstm_fwd']},
+            **later_paths('lstm_fwd')),
         'max_abs_err': lstm_errs['bf16 N=64 T=23']['lstm_fwd'],
         'ms': uni['fwd_ms'],
         'device_ms': uni['fwd_device_ms'],
@@ -3367,8 +3923,10 @@ def main():
         'source': 'lstm_ctc_ocr_torch/csrc/lstm_bwd.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:177',
         'tpu_kernel': 'ops/rnn_pallas.py:_bwd_kernel',
-        'launches': stacked_launches['lstm_bwd'],
-        'launches_by_path': {'stacked_lstm': stacked_launches['lstm_bwd']},
+        'launches': stacked_launches['lstm_bwd'] + later_total('lstm_bwd'),
+        'launches_by_path': dict(
+            {'stacked_lstm': stacked_launches['lstm_bwd']},
+            **later_paths('lstm_bwd')),
         'max_abs_err': lstm_errs['bf16 N=64 T=23']['lstm_bwd'],
         'ms': uni['bwd_ms'],
         'device_ms': uni['bwd_device_ms'],
@@ -3402,7 +3960,7 @@ def main():
         'by_shape': conv_timings,
     })], 'train': rate, 'stacked_lstm_train': stacked_rate,
         'synthetic_stream': synth, 'dispatch': dispatch, 'serve': served,
-        'data_parallel': dp, 'tools': tools,
+        'data_parallel': dp, 'tools': tools, 'dsl': dsl,
         'seconds': time.perf_counter() - t_start}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

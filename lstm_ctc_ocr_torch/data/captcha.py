@@ -18,6 +18,10 @@ from __future__ import annotations
 import random as _random
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
+
+from .image import save_png
+
 
 def require_pil(renderer: str):
     """Import Pillow for ``RENDERER: <renderer>``, or raise by name."""
@@ -175,5 +179,6 @@ class ImageCaptcha:
         return im
 
     def write(self, chars: str, output: str, rng=None) -> None:
-        """Render and save to ``output`` (used by the offline dataset writer)."""
-        self.generate_image(chars, rng=rng).save(output)
+        """Render and save to ``output`` as a PNG (the offline dataset
+        writer, ``data/gen_img.py``)."""
+        save_png(output, np.asarray(self.generate_image(chars, rng=rng)))

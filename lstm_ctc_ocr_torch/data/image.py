@@ -5,7 +5,9 @@ Counterpart of ``load_image``/``preprocess_image`` in the JAX package's
 on OpenCV, Pillow or PyYAML, so it carries:
 
 * a PNG decoder on ``zlib``: 8-bit gray, gray+alpha, RGB and RGBA,
-  non-interlaced, all five row filters;
+  non-interlaced, all five row filters; and an encoder (:func:`save_png`)
+  for 8-bit gray and RGB, whose bytes may differ from Pillow's but whose
+  decoded pixels do not;
 * the grayscale conversion that ``cv2.imread(path, IMREAD_GRAYSCALE)`` does
   for a color PNG — libpng's ``png_set_rgb_to_gray`` with OpenCV's
   (0.299, 0.587) weights, in libpng's 15-bit fixed point with truncation;
@@ -139,6 +141,40 @@ def to_gray(pixels: np.ndarray) -> np.ndarray:
     rgb = pixels[..., :3].astype(np.uint32)
     gray = (rgb[..., 0] * 9797 + rgb[..., 1] * 19234 + rgb[..., 2] * 3737) >> 15
     return gray.astype(np.uint8)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack('>I', len(body)) + kind + body
+            + struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(pixels: np.ndarray) -> bytes:
+    """uint8 ``[H, W]`` (gray) or ``[H, W, 3]`` (RGB) -> PNG bytes: 8-bit,
+    non-interlaced, every row unfiltered (filter 0), zlib level 6."""
+    pixels = np.asarray(pixels)
+    if pixels.dtype != np.uint8:
+        raise ValueError('PNG pixels must be uint8, not {}'.format(
+            pixels.dtype))
+    if pixels.ndim == 2:
+        ctype = 0
+    elif pixels.ndim == 3 and pixels.shape[2] == 3:
+        ctype = 2
+    else:
+        raise ValueError('PNG pixels must be [H, W] or [H, W, 3], not {}'
+                         .format(pixels.shape))
+    h, w = pixels.shape[:2]
+    rows = np.zeros((h, 1 + pixels[0].size), np.uint8)
+    rows[:, 1:] = pixels.reshape(h, -1)
+    ihdr = struct.pack('>IIBBBBB', w, h, 8, ctype, 0, 0, 0)
+    return (_PNG_SIG + _chunk(b'IHDR', ihdr)
+            + _chunk(b'IDAT', zlib.compress(rows.tobytes(), 6))
+            + _chunk(b'IEND', b''))
+
+
+def save_png(path: str, pixels: np.ndarray) -> None:
+    """Write :func:`encode_png` of ``pixels`` to ``path``."""
+    with open(path, 'wb') as f:
+        f.write(encode_png(pixels))
 
 
 def load_image(path: str) -> np.ndarray:

@@ -20,6 +20,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from .captcha import _default_font, require_pil
+from .image import save_png
 
 
 def _noise_texture(w: int, h: int, rng, base: int, spread: int
@@ -105,4 +106,4 @@ class SceneTextRenderer:
         return Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8), 'RGB')
 
     def write(self, chars: str, output: str, rng=None) -> None:
-        self.generate_image(chars, rng=rng).save(output)
+        save_png(output, np.asarray(self.generate_image(chars, rng=rng)))

@@ -9,17 +9,28 @@ for eval. Releases store float leaves in f16.
 
 The bridge, :func:`params_from_flat` and its exact inverse
 :func:`flat_from_params`, maps those keys 1:1 onto the port's
-``state_dict`` names (``models/crnn.py``):
+``state_dict`` names (``models/crnn.py``, and any tree of the model DSL,
+``models/network.py``): ``params/a/b/.../leaf`` <-> ``a.b.....leaf``, with
+these leaf rules:
 
-* an HWIO conv kernel ``[kW, kH, C_in, C_out]`` <-> ``[C_out, C_in, kW, kH]``
-  (``permute(3, 2, 0, 1)``; the first spatial axis stays the width axis);
-* an LSTM ``kernel [D+H, 4H]`` <-> ``w = kernel[:D]`` and ``u = kernel[D:]``,
-  gate order unchanged; the cells of a BiLSTM are keyed by direction
-  (``params/logits/cells/fw/kernel`` <-> ``logits.cells.fw.w``), those of
-  the stacked ``lstm`` head by their index in the list
-  (``params/logits/cells/0/kernel`` <-> ``logits.cells.0.w``);
+* a 4-D ``kernel``, HWIO ``[kW, kH, C_in, C_out]`` <-> ``[C_out, C_in, kW,
+  kH]`` (``permute(3, 2, 0, 1)``; the first spatial axis stays the width
+  axis); the DSL's transposed conv (``upconv``) keeps TF's ``[k, k, C_out,
+  C_in]``, which the same permute maps onto ``F.conv_transpose2d``'s
+  ``[C_in, C_out, k, k]`` (``models/layers_legacy.py:UpConv``);
+* an LSTM cell's ``kernel [D+H, 4H]`` (a leaf under ``.../cells/<cell>/``)
+  <-> ``w = kernel[:D]`` and ``u = kernel[D:]``, gate order unchanged; the
+  cells of a BiLSTM are keyed by direction (``params/logits/cells/fw/kernel``
+  <-> ``logits.cells.fw.w``), those of the stacked ``lstm`` head by their
+  index in the list (``params/logits/cells/0/kernel`` <-> ``logits.cells.0.w``);
 * ``bn_state/<layer>/{mean,var}`` <-> the ``<layer>.bn_{mean,var}`` buffers;
-* float leaves (f16 in releases) become f32.
+  the legacy layers' frozen ``bn_moving_{mean,var}`` are ``params/`` leaves,
+  as in the JAX tree;
+* 1-D and 2-D leaves keep their layout; float leaves (f16 in releases)
+  become f32.
+
+:func:`load_npy_pretrained` loads the ``{layer: {param: ndarray}}`` dict
+that ``tools/convert_ckpt2npy.py`` writes.
 
 A training snapshot also holds the optimizer state under the keys the JAX
 package's optax chain flattens to: ``opt_state/1/0/.mu/<path>``,
@@ -89,6 +100,11 @@ def _f32(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr))
 
 
+def _is_cell_leaf(parts) -> bool:
+    """``<...>/cells/<cell>/<leaf>``: a leaf of an LSTM cell."""
+    return len(parts) >= 4 and parts[-3] == 'cells'
+
+
 def params_from_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """JAX flat checkpoint keys -> the port's ``state_dict`` entries.
 
@@ -97,23 +113,21 @@ def params_from_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
         parts = key.split('/')
-        if parts[0] == 'bn_state' and len(parts) == 3:
-            out['{}.bn_{}'.format(parts[1], parts[2])] = _f32(arr)
-        elif parts[0] == 'params' and parts[2:3] == ['cells']:
-            layer, cell, leaf = parts[1], parts[3], parts[4]   # fw|bw|index
-            prefix = '{}.cells.{}.'.format(layer, cell)
-            if leaf == 'kernel':
+        if parts[0] == 'bn_state' and len(parts) >= 3:
+            out['{}.bn_{}'.format('.'.join(parts[1:-1]), parts[-1])] = \
+                _f32(arr)
+        elif parts[0] == 'params' and len(parts) >= 3:
+            prefix, leaf = '.'.join(parts[1:-1]), parts[-1]
+            if leaf == 'kernel' and _is_cell_leaf(parts) and arr.ndim == 2:
                 h_dim = arr.shape[1] // 4
                 d = arr.shape[0] - h_dim
-                out[prefix + 'w'] = _f32(arr[:d])
-                out[prefix + 'u'] = _f32(arr[d:])
-            else:
-                out[prefix + leaf] = _f32(arr)
-        elif parts[0] == 'params' and len(parts) == 3:
+                out[prefix + '.w'] = _f32(arr[:d])
+                out[prefix + '.u'] = _f32(arr[d:])
+                continue
             t = _f32(arr)
-            if parts[2] == 'kernel' and t.dim() == 4:
+            if leaf == 'kernel' and t.dim() == 4:
                 t = t.permute(3, 2, 0, 1).contiguous()
-            out['{}.{}'.format(parts[1], parts[2])] = t
+            out['{}.{}'.format(prefix, leaf)] = t
         elif parts[0] == 'params':
             raise KeyError('unexpected parameter path in checkpoint: ' + key)
     return out
@@ -127,22 +141,72 @@ def flat_from_params(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     for name, t in state.items():
         arr = t.detach().cpu().numpy()
         parts = name.split('.')
-        if parts[1:2] == ['cells']:
-            layer, cell, leaf = parts[0], parts[2], parts[3]
-            base = 'params/{}/cells/{}/'.format(layer, cell)
-            if leaf in ('w', 'u'):
-                cells.setdefault(base, {})[leaf] = arr
-            else:
-                out[base + leaf] = arr
-        elif parts[1] in ('bn_mean', 'bn_var'):
-            out['bn_state/{}/{}'.format(parts[0], parts[1][3:])] = arr
+        if _is_cell_leaf(parts) and parts[-1] in ('w', 'u'):
+            base = 'params/{}/'.format('/'.join(parts[:-1]))
+            cells.setdefault(base, {})[parts[-1]] = arr
+        elif parts[-1] in ('bn_mean', 'bn_var'):
+            out['bn_state/{}/{}'.format('/'.join(parts[:-1]),
+                                        parts[-1][3:])] = arr
         else:
-            if parts[1] == 'kernel' and arr.ndim == 4:
+            if parts[-1] == 'kernel' and arr.ndim == 4:
                 arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
-            out['params/{}/{}'.format(parts[0], parts[1])] = arr
+            out['params/' + '/'.join(parts)] = arr
     for base, wu in cells.items():
         out[base + 'kernel'] = np.concatenate([wu['w'], wu['u']], axis=0)
     return out
+
+
+def load_npy_pretrained(model: torch.nn.Module, path: str,
+                        ignore_missing: bool = False) -> torch.nn.Module:
+    """Load a ``{layer: {param: ndarray}}`` ``.npy`` dict in the JAX
+    layouts (``tools/convert_ckpt2npy.py``'s, nested as the JAX tree, a
+    stacked ``lstm`` layer's cells under digit keys) into ``model``, in
+    place, through the bridge; the JAX ``load_npy_pretrained``.
+
+    A name the model lacks raises ``KeyError('pretrained var not in model:
+    <path>')`` and a shape (in the JAX layout) that differs raises
+    ``ValueError``, unless ``ignore_missing``: then the one is skipped and
+    the other skipped with the JAX line ``skipping <path>: ckpt shape ...
+    vs model ...``."""
+    d = np.load(path, allow_pickle=True).item()
+    model_flat = {k[len('params/'):]: v
+                  for k, v in flat_from_params(model.state_dict()).items()
+                  if k.startswith('params/')}
+    nodes = {'/'.join(k.split('/')[:i]) for k in model_flat
+             for i in range(1, k.count('/') + 1)}
+    take: Dict[str, np.ndarray] = {}
+
+    def assign(src, prefix):
+        for name, val in src.items():
+            where = prefix + '/' + str(name) if prefix else str(name)
+            if isinstance(val, dict):
+                if where not in nodes:
+                    if ignore_missing:
+                        continue
+                    raise KeyError(
+                        'pretrained var not in model: {}'.format(where))
+                assign(val, where)
+                continue
+            if where not in model_flat:
+                if ignore_missing:
+                    continue
+                raise KeyError('pretrained var not in model: {}'.format(where))
+            cur = model_flat[where]
+            if tuple(np.shape(cur)) != tuple(np.shape(val)):
+                if ignore_missing:
+                    print('skipping {}: ckpt shape {} vs model {}'.format(
+                        where, np.shape(val), np.shape(cur)))
+                    continue
+                raise ValueError('shape mismatch for {}: {} vs {}'.format(
+                    where, np.shape(val), np.shape(cur)))
+            take['params/' + where] = np.asarray(val)
+
+    assign(d, '')
+    state = model.state_dict()
+    with torch.no_grad():
+        for name, t in params_from_flat(take).items():
+            state[name].copy_(t)
+    return model
 
 
 def load_into(model: torch.nn.Module, path: str, need_bn_state: bool,

@@ -141,13 +141,21 @@ def make_decode_step(model, cfg, device, mesh=None):
     """images [N, W, 32] f32 numpy, steps [N] int32 -> decoded ids [N, T]
     int32 numpy; the copy back to the host waits for the device. With a
     ``mesh``: this rank's rows of a global batch, decoded with the batch
-    statistics of every rank's rows."""
+    statistics of every rank's rows. A decode runs the model in eval mode
+    (a DSL net's dropout is off), and leaves its mode as it was."""
     decode = decode_fn(model, cfg, mesh.group if mesh is not None else None)
 
     @torch.inference_mode()
     def decode_step(images, steps):
-        return decode(torch.from_numpy(images).to(device),
-                      torch.from_numpy(steps).to(device)).cpu().numpy()
+        training = model.training
+        if training:
+            model.eval()
+        try:
+            return decode(torch.from_numpy(images).to(device),
+                          torch.from_numpy(steps).to(device)).cpu().numpy()
+        finally:
+            if training:
+                model.train()
     return decode_step
 
 

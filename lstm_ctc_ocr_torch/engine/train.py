@@ -61,8 +61,16 @@ The device is CUDA unless ``--device cpu`` is given (gloo between CPU
 ranks); without CUDA it raises rather than fall back. ``PROFILE_DIR``
 traces the steps ``[PROFILE_START, PROFILE_START + PROFILE_STEPS)`` with
 ``torch.profiler`` into a ``*.pt.trace.json`` under it
-(``utils/profiler.py``). Not ported yet, and raising
-``NotImplementedError`` by name: ``.npy`` pre-train dicts.
+(``utils/profiler.py``). ``pre_train`` takes a checkpoint (``.ckpt.npz``)
+or a ``.npy`` dict (``tools/convert_ckpt2npy.py``'s), the latter loaded
+with ``ignore_missing`` as the JAX solver loads it
+(``checkpoint.load_npy_pretrained``).
+
+``network`` is any model with the CRNN's call contract: ``models/crnn.py``'s
+fixed modules or a ``models/network.py`` DSL subclass. A DSL net with a
+dropout layer draws its masks in training mode from the network's own
+generator; it raises ``NotImplementedError`` under
+``TRAIN.STEPS_PER_DISPATCH > 1`` (a CUDA graph would replay one mask).
 """
 
 from __future__ import annotations
@@ -384,6 +392,11 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
     capture. A gloo group on CUDA raises (:func:`check_graph_collectives`).
     """
     check_graph_collectives(mesh, next(model.parameters()).device)
+    if getattr(model, 'has_dropout', lambda: False)():
+        raise NotImplementedError(
+            'TRAIN.STEPS_PER_DISPATCH > 1 with dropout in training: a '
+            'K-step CUDA graph would replay one dropout mask; set '
+            'TRAIN.STEPS_PER_DISPATCH 1')
     train_step = make_train_step(model, optimizer, cfg, dtype, mesh)
     k = int(k)
 
@@ -539,13 +552,6 @@ def stack_batches(group):
                  for f in ('image', 'label', 'label_len', 'time_step'))
 
 
-def _check_ported(pre_train):
-    """Raise by name for what is not ported yet."""
-    if pre_train and str(pre_train).endswith('.npy'):
-        raise NotImplementedError('.npy pre-train dicts are not ported; pass '
-                                  'a .ckpt.npz checkpoint')
-
-
 def select_mesh(cfg, device):
     """The data-parallel mesh of a solver run, or None for the one-device
     step (the JAX solver's ``_select_mesh``, a rank for a device).
@@ -648,7 +654,6 @@ class SolverWrapper:
     @full_f32()
     def train_model(self, max_iters, restore=False):
         cfg, dev = self.cfg, self.device
-        _check_ported(self.pre_train)
         mesh = select_mesh(cfg, dev)
         world, rank = (mesh.size, mesh.rank) if mesh is not None else (1, 0)
         lead = rank == 0                # prints the display lines
@@ -672,6 +677,10 @@ class SolverWrapper:
                                    .format(self.output_dir))
             restore_iter = step
             print('Restored step {} from {}'.format(step, self.output_dir))
+        elif self.pre_train and str(self.pre_train).endswith('.npy'):
+            checkpoint.load_npy_pretrained(model, self.pre_train,
+                                           ignore_missing=True)
+            print('Loaded pre-trained weights from {}'.format(self.pre_train))
         elif self.pre_train:
             checkpoint.load_into(model, self.pre_train, need_bn_state=False,
                                  params_only=True)
@@ -872,7 +881,8 @@ def main(argv=None):
     parser.add_argument('--cfg', dest='cfg_file', default=None,
                         help='YAML experiment config merged over the defaults')
     parser.add_argument('--pre_train', default=None,
-                        help='checkpoint (.ckpt.npz) to initialise from')
+                        help='checkpoint (.ckpt.npz) or .npy dict to '
+                             'initialise from')
     parser.add_argument('--rand', dest='randomize', action='store_true',
                         help='skip the fixed RNG seed (non-reproducible run)')
     parser.add_argument('--network', dest='network_name',

@@ -1,9 +1,11 @@
 """The CRNN's layers as ``nn.Module``s with the JAX package's parameter names.
 
-Counterpart of the JAX package's ``models/layers.py`` for the main path:
-``conv_single`` (bias, batch norm, relu), ``max_pool``, ``reshape_squeeze``,
-``bi_lstm`` with its f32 projection, and the stacked unidirectional
-``lstm`` variant.
+Counterpart of the JAX package's ``models/layers.py``: ``conv_single``
+(bias, batch norm, relu, any kernel, stride and TF padding), ``max_pool``
+and ``avg_pool``, ``reshape_squeeze``, ``bi_lstm`` with its f32
+projection, the stacked unidirectional ``lstm`` variant, and the layers
+only the model DSL uses (``models/network.py``): ``fc``, ``softmax`` and
+``dropout``.
 
 Layout: the JAX package runs images as ``[N, W, H, C]`` with HWIO kernels
 whose *first* spatial axis runs over image width. The port runs
@@ -11,6 +13,13 @@ whose *first* spatial axis runs over image width. The port runs
 kernels ``[C_out, C_in, kW, kH]`` (``hwio.permute(3, 2, 0, 1)``), so a SAME
 3x3 conv is ``padding=1``, the VALID 2x2 conv5 is ``padding=0`` and a
 ``(1, 2)`` pool pools the height only.
+
+TF's ``SAME`` padding puts the odd extra row or column at the end of an
+axis; ``F.conv2d(padding=int)`` pads both ends alike, so a geometry whose
+two ends differ (an even kernel, or a stride) pads explicitly first
+(:func:`same_pads`), with -inf for a max pool and zeros otherwise. The
+main path's geometry (odd kernels at stride 1, the VALID conv5, pools
+with stride = window) keeps its plain calls.
 
 Cast points follow ``layers.py:66-107,154-160``: the conv and ``+bias`` run
 in the compute dtype, batch norm runs in f32 on the compute-dtype output
@@ -45,6 +54,50 @@ def _glorot_(t, fan_in, fan_out, generator):
         t.uniform_(-bound, bound, generator=generator)
 
 
+def variance_scaling_(t, factor, fan_in, fan_out, generator):
+    """``variance_scaling(factor, 'fan_avg', 'truncated_normal')``: a
+    normal truncated at two standard deviations, rescaled so that the
+    truncated draw has variance ``factor / ((fan_in + fan_out) / 2)``."""
+    std = math.sqrt(factor / ((fan_in + fan_out) / 2.0)) / 0.87962566
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+
+
+def out_dim(size, k, s, padding):
+    """Output length of one axis under TF's ``SAME`` or ``VALID``."""
+    if padding == 'SAME':
+        return -(-size // s)
+    return -(-(size - k + 1) // s)
+
+
+def same_pads(size, k, s):
+    """TF ``SAME`` padding of one axis: (before, after), the odd one after."""
+    total = max((out_dim(size, k, s, 'SAME') - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _tf_pads(x, k, s, padding):
+    """``F.pad`` order (last axis first) of TF padding over dims 2 and 3 of
+    ``x``, or None where there is none."""
+    if padding != 'SAME':
+        return None
+    (a0, a1), (b0, b1) = (same_pads(x.shape[2 + i], k[i], s[i])
+                          for i in range(2))
+    return (b0, b1, a0, a1) if a0 or a1 or b0 or b1 else None
+
+
+def conv2d_tf(x, kernel, stride=(1, 1), padding='SAME'):
+    """``F.conv2d`` of ``x`` [N, C, A1, A2] with TF ``SAME`` / ``VALID``
+    padding (the JAX ``conv_general_dilated``)."""
+    pads = _tf_pads(x, kernel.shape[2:], stride, padding)
+    if pads is None:
+        return F.conv2d(x, kernel, stride=stride)
+    if pads[0] == pads[1] and pads[2] == pads[3]:
+        return F.conv2d(x, kernel, stride=stride, padding=(pads[2], pads[0]))
+    return F.conv2d(F.pad(x, pads), kernel, stride=stride)
+
+
 def _cast(x, dtype):
     return x if dtype is None else x.to(dtype)
 
@@ -70,21 +123,41 @@ def batch_moments(y32, group=None):
 
 
 class ConvSingle(nn.Module):
-    """Conv + bias (+ training-mode batch norm) (+ relu), stride 1.
+    """Conv (+ bias) (+ training-mode batch norm) (+ relu).
 
-    Parameters ``kernel`` [C_out, C_in, kW, kH], ``biases``, and with
-    ``bn`` also ``bn_gamma``/``bn_beta`` and the moving-statistics buffers
-    ``bn_mean`` (zeros) / ``bn_var`` (ones) — the JAX ``init_bn_state``.
+    Parameters ``kernel`` [C_out, C_in, k, k2] (``k2`` defaults to ``k``),
+    ``biases`` unless ``biased`` is false, and with ``bn`` also
+    ``bn_gamma``/``bn_beta`` and the moving-statistics buffers ``bn_mean``
+    (zeros) / ``bn_var`` (ones) — the JAX ``init_bn_state``. ``stride`` is
+    (s, s2); ``padding`` TF's ``SAME`` or ``VALID``. ``kernel_init``:
+    ``'xavier'`` (glorot uniform), ``'zero'``, or a float, the factor of a
+    fan-average truncated-normal variance scaling (the legacy convs).
     """
 
     def __init__(self, c_i, c_o, k, bn=False, relu=True, padding='SAME',
-                 generator=None):
+                 generator=None, k2=None, stride=(1, 1), biased=True,
+                 kernel_init='xavier'):
         super().__init__()
+        k2 = k if k2 is None else k2
         self.bn, self.relu = bn, relu
-        self.padding = (k - 1) // 2 if padding == 'SAME' else 0
-        self.kernel = nn.Parameter(torch.empty(c_o, c_i, k, k))
-        _glorot_(self.kernel, c_i * k * k, c_o * k * k, generator)
-        self.biases = nn.Parameter(torch.zeros(c_o))
+        self.stride, self.pad_mode = tuple(stride), padding
+        # the main path's geometry keeps its symmetric int padding
+        self.padding = None
+        if self.stride == (1, 1) and padding == 'VALID':
+            self.padding = 0
+        elif self.stride == (1, 1) and k % 2 and k2 % 2:
+            self.padding = (k - 1) // 2 if k == k2 else \
+                ((k - 1) // 2, (k2 - 1) // 2)
+        self.kernel = nn.Parameter(torch.empty(c_o, c_i, k, k2))
+        if kernel_init == 'xavier':
+            _glorot_(self.kernel, c_i * k * k2, c_o * k * k2, generator)
+        elif kernel_init == 'zero':
+            with torch.no_grad():
+                self.kernel.zero_()
+        else:
+            variance_scaling_(self.kernel, float(kernel_init),
+                              c_i * k * k2, c_o * k * k2, generator)
+        self.biases = nn.Parameter(torch.zeros(c_o)) if biased else None
         if bn:
             self.bn_gamma = nn.Parameter(torch.ones(c_o))
             self.bn_beta = nn.Parameter(torch.zeros(c_o))
@@ -98,8 +171,13 @@ class ConvSingle(nn.Module):
         it, for the train step's moving-statistics update. ``bn_group``: a
         process group whose ranks' rows share the batch statistics."""
         x = _cast(x, dtype)
-        y = F.conv2d(x, _cast(self.kernel, dtype), padding=self.padding)
-        y = y + _cast(self.biases, dtype).view(1, -1, 1, 1)
+        if self.padding is not None:
+            y = F.conv2d(x, _cast(self.kernel, dtype), padding=self.padding)
+        else:
+            y = conv2d_tf(x, _cast(self.kernel, dtype), self.stride,
+                          self.pad_mode)
+        if self.biases is not None:
+            y = y + _cast(self.biases, dtype).view(1, -1, 1, 1)
         if self.bn:
             # batch statistics over (N, W, H) in f32, biased variance —
             # padded columns and duplicated pad rows included — unless the
@@ -122,9 +200,82 @@ class ConvSingle(nn.Module):
         return y
 
 
-def max_pool(x, k_w, k_h):
-    """VALID max pool with stride = window over (W, H)."""
-    return F.max_pool2d(x, (k_w, k_h), (k_w, k_h))
+def max_pool(x, k_w, k_h, s_w=None, s_h=None, padding='VALID'):
+    """Max pool over (W, H), window (k_w, k_h), stride (s_w, s_h) (the
+    window by default); ``SAME`` pads with -inf, TF's way."""
+    s = (k_w if s_w is None else s_w, k_h if s_h is None else s_h)
+    pads = _tf_pads(x, (k_w, k_h), s, padding)
+    if pads is not None:
+        x = F.pad(x, pads, value=float('-inf'))
+    return F.max_pool2d(x, (k_w, k_h), s)
+
+
+def avg_pool(x, k_w, k_h, s_w, s_h, padding='SAME'):
+    """Average pool as the JAX ``avg_pool_apply``: the window's sum over
+    ``k_w * k_h``, the ``SAME`` padding's zeros counted (not the mean of
+    the valid cells)."""
+    pads = _tf_pads(x, (k_w, k_h), (s_w, s_h), padding)
+    if pads is not None:
+        x = F.pad(x, pads)
+    return F.avg_pool2d(x, (k_w, k_h), (s_w, s_h))
+
+
+def pool_out_shape(in_shape, k_h, k_w, s_h, s_w, padding='SAME'):
+    """Output shape of a pool on a JAX-layout shape (N, A1, A2, C)."""
+    n, a1, a2, c = in_shape
+    return (n, out_dim(a1, k_h, s_h, padding), out_dim(a2, k_w, s_w, padding),
+            c)
+
+
+def channel_dim(x):
+    """The channel axis: 1 of a 4-D tensor [N, C, A1, A2] (the JAX
+    layout's last axis), else the last."""
+    return 1 if x.dim() == 4 else x.dim() - 1
+
+
+def channel_view(p, x):
+    """A per-channel vector ``p`` shaped to broadcast over ``x``."""
+    return p.view(1, -1, 1, 1) if x.dim() == 4 else p
+
+
+class FC(nn.Module):
+    """Fully connected: ``weights`` [in, out] (glorot, as the JAX ``fc``)
+    and ``biases``; on a 4-D tensor it maps the channel axis, as the JAX
+    matmul does on NHWC's last. The matmul runs in the compute dtype and
+    adds the f32 bias."""
+
+    def __init__(self, d, num_out, relu=True, generator=None):
+        super().__init__()
+        self.relu = relu
+        self.weights = nn.Parameter(torch.empty(d, num_out))
+        _glorot_(self.weights, d, num_out, generator)
+        self.biases = nn.Parameter(torch.zeros(num_out))
+
+    def forward(self, x, dtype=None):
+        four = x.dim() == 4
+        if four:
+            x = x.permute(0, 2, 3, 1)
+        y = _cast(x, dtype) @ _cast(self.weights, dtype) + self.biases
+        if self.relu:
+            y = F.relu(y)
+        return y.permute(0, 3, 1, 2) if four else y
+
+
+def softmax(x):
+    """Softmax over the channel axis (the JAX last axis)."""
+    return torch.softmax(x, dim=channel_dim(x))
+
+
+def dropout(x, keep_prob, training, generator):
+    """Inverted dropout: each element kept with probability ``keep_prob``
+    and scaled by ``1 / keep_prob``; the identity outside training or at
+    ``keep_prob >= 1``. The mask comes from ``generator`` (on ``x``'s
+    device), so a seed fixes it; it cannot match ``jax.random``'s."""
+    if not training or keep_prob >= 1.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob, 0.0).to(x.dtype)
 
 
 def reshape_squeeze(x, d):

@@ -238,6 +238,12 @@ class NativeCaptcha:
                                     out_h=self.img_height)
         return imgs[0, :, :int(widths[0])]
 
+    def write(self, chars: str, output: str, rng=None) -> None:
+        """Render and save to ``output`` as an 8-bit gray PNG (the offline
+        dataset writer, ``data/gen_img.py``)."""
+        from ..data.image import save_png
+        save_png(output, self.generate_image(chars, rng))
+
 
 def main():
     """Rewrite ``glyph_atlas.npz`` from the default charset and font."""

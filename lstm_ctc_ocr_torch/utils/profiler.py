@@ -42,10 +42,12 @@ class StepProfiler:
     ``trace_dir``, ``start`` and ``num_steps`` default to ``cfg``'s
     ``PROFILE_DIR``, ``PROFILE_START`` and ``PROFILE_STEPS``; without a
     ``cfg`` or a ``trace_dir`` the profiler is disabled. ``device`` is the
-    model's device: CUDA activity is recorded where it is a CUDA device."""
+    model's device: CUDA activity is recorded where it is a CUDA device.
+    It defaults to this process's CUDA device and raises without one, as
+    the entry points do; the CPU comes only from ``device='cpu'``."""
 
     def __init__(self, trace_dir=None, start=None, num_steps=None, cfg=None,
-                 device='cpu'):
+                 device=None):
         def pick(value, key, default):
             if value is not None:
                 return value
@@ -53,6 +55,11 @@ class StepProfiler:
         self.trace_dir = str(pick(trace_dir, 'PROFILE_DIR', ''))
         self.start = int(pick(start, 'PROFILE_START', 0))
         self.num_steps = int(pick(num_steps, 'PROFILE_STEPS', 0))
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError('CUDA is not available; pass device="cpu" '
+                                   'to profile on the CPU')
+            device = torch.device('cuda', torch.cuda.current_device())
         self.device = torch.device(device)
         self.active = False
         self.done = False

@@ -27,6 +27,7 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.data', 'lstm_ctc_ocr_torch.data.captcha',
     'lstm_ctc_ocr_torch.data.device_store',
     'lstm_ctc_ocr_torch.data.enqueuer', 'lstm_ctc_ocr_torch.data.gen',
+    'lstm_ctc_ocr_torch.data.gen_img',
     'lstm_ctc_ocr_torch.data.image', 'lstm_ctc_ocr_torch.data.pool',
     'lstm_ctc_ocr_torch.data.records', 'lstm_ctc_ocr_torch.data.scene',
     'lstm_ctc_ocr_torch.engine', 'lstm_ctc_ocr_torch.engine.checkpoint',
@@ -34,7 +35,10 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.engine.summary', 'lstm_ctc_ocr_torch.engine.test',
     'lstm_ctc_ocr_torch.engine.train', 'lstm_ctc_ocr_torch.models',
     'lstm_ctc_ocr_torch.models.crnn', 'lstm_ctc_ocr_torch.models.factory',
-    'lstm_ctc_ocr_torch.models.layers', 'lstm_ctc_ocr_torch.native',
+    'lstm_ctc_ocr_torch.models.layers',
+    'lstm_ctc_ocr_torch.models.layers_legacy',
+    'lstm_ctc_ocr_torch.models.network', 'lstm_ctc_ocr_torch.native',
+    'lstm_ctc_ocr_torch.native.ctc_ref',
     'lstm_ctc_ocr_torch.native.synth', 'lstm_ctc_ocr_torch.ops',
     'lstm_ctc_ocr_torch.ops._build', 'lstm_ctc_ocr_torch.ops.beam',
     'lstm_ctc_ocr_torch.ops.conv_bn_cuda', 'lstm_ctc_ocr_torch.ops.ctc',
@@ -49,15 +53,18 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.tools.ablate_lstm_fwd',
     'lstm_ctc_ocr_torch.tools.attrib_step',
     'lstm_ctc_ocr_torch.tools.bench_conv_bn',
+    'lstm_ctc_ocr_torch.tools.build_records',
     'lstm_ctc_ocr_torch.tools.bench_ctc',
     'lstm_ctc_ocr_torch.tools.bench_data',
     'lstm_ctc_ocr_torch.tools.bench_decode',
     'lstm_ctc_ocr_torch.tools.bench_fold_h',
     'lstm_ctc_ocr_torch.tools.bench_rnn',
     'lstm_ctc_ocr_torch.tools.calibrate_bn',
+    'lstm_ctc_ocr_torch.tools.convert_ckpt2npy',
     'lstm_ctc_ocr_torch.tools.export_model',
     'lstm_ctc_ocr_torch.tools.profile_step',
     'lstm_ctc_ocr_torch.tools.release_ckpt',
+    'lstm_ctc_ocr_torch.tools.vis_batch',
     'lstm_ctc_ocr_torch.utils', 'lstm_ctc_ocr_torch.utils.metrics',
     'lstm_ctc_ocr_torch.utils.profiler',
     'lstm_ctc_ocr_torch.utils.segmentation',
@@ -90,7 +97,8 @@ def test_data_path_imports_neither_torch_nor_pil():
     forked from a process that holds a CUDA context must never touch it)
     and no Pillow (the native renderer runs without it)."""
     mods = ['lstm_ctc_ocr_torch.data.' + m for m in (
-        'captcha', 'enqueuer', 'gen', 'image', 'pool', 'records', 'scene')]
+        'captcha', 'enqueuer', 'gen', 'gen_img', 'image', 'pool', 'records',
+        'scene')]
     mods.append('lstm_ctc_ocr_torch.native.synth')
     code = ('import importlib, sys\n'
             'for m in {!r}:\n'

@@ -1,7 +1,8 @@
 """The port's ``StepProfiler`` (``utils/profiler.py``) against the JAX
 package's, and ``PROFILE_DIR`` in the solver.
 
-* Disabled by default: no trace, no directory.
+* Disabled by default: no trace, no directory. The device defaults to
+  CUDA and raises without it.
 * The window: the port's and the JAX ``StepProfiler`` driven through the
   same iteration sequences (one step a dispatch, and K = 3 and 8 steps a
   dispatch, where a dispatch can jump over the whole window and trace
@@ -40,12 +41,28 @@ def _traces(d):
 
 
 def test_disabled_by_default(tmp_path):
-    for prof in (StepProfiler(), StepProfiler(cfg=default_cfg())):
+    for prof in (StepProfiler(device='cpu'),
+                 StepProfiler(cfg=default_cfg(), device='cpu')):
         assert not prof.enabled
         for it in range(50):
             prof.step(it)
         prof.close()
         assert not prof.active and not prof.done
+
+
+def test_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """``StepProfiler()`` with no device takes this process's CUDA device,
+    as ``parallel/mesh.py:make_mesh`` does, so a trace on the card records
+    its kernels; without CUDA it raises rather than land on the CPU."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        StepProfiler()
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        StepProfiler(cfg=default_cfg())
+    assert StepProfiler(device='cpu').device == torch.device('cpu')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 3)
+    assert StepProfiler().device == torch.device('cuda', 3)
 
 
 def _transitions(prof, its):
@@ -82,7 +99,8 @@ def test_window_matches_jax(tmp_path, monkeypatch, capsys, start, num_steps,
     jdir, pdir = str(tmp_path / 'jax'), str(tmp_path / 'port')
     want = _transitions(jprofiler.StepProfiler(jdir, start, num_steps), its)
     jax_lines = capsys.readouterr().out.replace(jdir, 'DIR')
-    got = _transitions(StepProfiler(pdir, start, num_steps), its)
+    got = _transitions(StepProfiler(pdir, start, num_steps, device='cpu'),
+                      its)
     port_lines = capsys.readouterr().out.replace(pdir, 'DIR')
     assert got == want
     assert port_lines == jax_lines
@@ -92,7 +110,7 @@ def test_window_matches_jax(tmp_path, monkeypatch, capsys, start, num_steps,
 
 def test_trace_file_names_the_traced_ops(tmp_path):
     d = str(tmp_path / 'profile')
-    prof = StepProfiler(trace_dir=d, start=2, num_steps=3)
+    prof = StepProfiler(trace_dir=d, start=2, num_steps=3, device='cpu')
     x = torch.ones(8, 8)
     for it in range(8):
         prof.step(it)
@@ -108,7 +126,7 @@ def test_trace_file_names_the_traced_ops(tmp_path):
 
 def test_close_stops_open_trace(tmp_path):
     d = str(tmp_path / 'profile2')
-    prof = StepProfiler(trace_dir=d, start=0, num_steps=100)
+    prof = StepProfiler(trace_dir=d, start=0, num_steps=100, device='cpu')
     prof.step(0)
     assert prof.active
     torch.ones(4, 4).sum()

@@ -35,6 +35,7 @@ from lstm_ctc_ocr_torch.config import load_cfg
 from lstm_ctc_ocr_torch.data import records
 from lstm_ctc_ocr_torch.engine import checkpoint, train
 from lstm_ctc_ocr_torch.models.factory import get_network
+from lstm_ctc_ocr_torch.models.network import Network
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YML = os.path.join(REPO, 'lstm', 'lstm.yml')
@@ -424,15 +425,30 @@ def test_solver_cadence_and_resume(tiny_records, tmp_path, capsys):
     assert 'lstm_ctc_iter_3.ckpt.npz' in os.listdir(str(tmp_path / 'low'))
 
 
-@pytest.mark.parametrize('overrides,pre_train,match', [
-    ([], 'weights.npy', 'npy'),
+class _DropoutNet(Network):
+    """A model-DSL net with a dropout layer in training."""
+
+    def setup(self):
+        (self.feed('data').conv_single(3, 3, 4, 1, 1, name='conv1')
+         .max_pool(4, 32, 4, 32, padding='VALID', name='pool')
+         .reshape_squeeze_layer(d=4, name='seq')
+         .dropout(0.5, name='drop'))
+        self.feed('drop', 'time_step_len').bi_lstm(8, 1, name='logits')
+
+
+@pytest.mark.parametrize('overrides,match', [
+    (['TRAIN.STEPS_PER_DISPATCH', '3'], 'dropout'),
 ])
 def test_unported_options_raise_by_name(tiny_records, tmp_path, overrides,
-                                        pre_train, match):
+                                        match):
+    """What the solver does not do raises ``NotImplementedError`` naming
+    it: a DSL net's dropout under a K-step dispatch (a CUDA graph would
+    replay one mask). ``.npy`` pre-train dicts, once listed here, now load
+    (``tests/test_torch_npy_pretrained.py``)."""
     cfg = _solver_cfg(tiny_records, *overrides)
-    net = get_network('LSTM_train', cfg)
+    net = _DropoutNet(cfg)
     with pytest.raises(NotImplementedError, match=match):
-        train.train_net(net, {}, pre_train, str(tmp_path / 'out'),
+        train.train_net(net, {}, None, str(tmp_path / 'out'),
                         str(tmp_path / 'log'), cfg, max_iters=3,
                         device='cpu')
 
