@@ -238,13 +238,39 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     printed beside it); these comparison launches count on no path.
     ``python3 chip_smoke.py --phase 12`` runs the build and this phase
     alone (its reference strings from the fixed model's eval, made there).
+13. Shifted phase: ``CONV_IMPL shifted`` (``ops/conv.py``, conv2 to conv5
+    as one GEMM over the taps) at full width, bf16, batch 64. (a) conv2 to
+    conv5 at W=96 and W=160 against ``F.conv2d`` (cuDNN): f32 forward
+    within rtol 2e-4 / atol 2e-5, both gradients within rtol 1e-4 / atol
+    1e-4; each lowering's bf16 forward within rtol 2^-8 / atol 1e-2 of the
+    f32 conv of the same bf16 values (the sum both round once), the share
+    of outputs where the two differ; CUDA-event ms of both lowerings in
+    both dtypes
+    and the kernels a call launches. (b) ``test_net`` of ``lstm_ctc`` under
+    ``shifted``: at least 483/500, the strings that differ from the eval
+    phase's counted, one ``bilstm_fwd`` launch and six shifted convs a
+    decode call. (c) 20 ``train_net`` steps on phase 5's records file,
+    ``shifted`` against ``xla`` from one init: losses finite and falling,
+    the f32 pair within 1e-4 relative (the bf16 distance printed), kernels
+    1-4 20 launches a run; eager steps/s of both on the store. (d) The
+    store as one 8-step CUDA graph under ``shifted``: against 8 eager steps
+    bit for bit (or within two eager runs' difference, printed), steps/s
+    and device ms a step beside the ``xla`` graph's (this phase's and phase
+    8's). (e) ``attrib_step``'s ``conv=shifted`` line (phase 11's) against
+    its default step. (f) A DSL net with dropout (keep_prob 0.5) on the
+    store: its 8-step graph against 8 eager steps, a ``train_net`` resumed
+    at step 4 drawing the uninterrupted run's masks, a mask on the card
+    equal to the CPU's for its key. (g) The TF tools: without tensorflow
+    each raises ``ImportError`` naming it; with it, export then import of
+    ``data/val`` gives its records file byte for byte. ``python3
+    chip_smoke.py --phase 13`` runs the build and this phase alone.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 seven kernels (and the rates, the synthetic stream's, the serve, the
-dispatch, the data-parallel, the tools and the DSL phase's numbers); the last
-line is ``{"ok": true, "device": {...}}``. Per-image eval lines, the
-training runs', the serve phase's, the tools' and the DSL phase's output go to
-``chiprun_out/``.
+dispatch, the data-parallel, the tools, the DSL and the shifted phase's
+numbers); the last line is ``{"ok": true, "device": {...}}``. Per-image eval
+lines, the training runs', the serve phase's, the tools', the DSL and the
+shifted phase's output go to ``chiprun_out/``.
 """
 
 import contextlib
@@ -2989,17 +3015,17 @@ def tools_phase(mods, card, rec_path, train_rate, eval_p50_ms, log):
                      'ctc_fwd': 4 * rp, 'ctc_bwd': 2 * rp})
     out['profile_step'] = lines
 
-    # attrib_step: S steps a variant; the default variant launches each of
-    # kernels 1-4 once a step, ctc=plain and ctc=none the BiLSTM kernels,
-    # lstm=plain the CTC kernels
+    # attrib_step: S steps a variant; the default and conv=shifted variants
+    # launch each of kernels 1-4 once a step, ctc=plain and ctc=none the
+    # BiLSTM kernels, lstm=plain the CTC kernels
     warm, aw, ac = 20, 3, 20
     steps = warm + 1 + aw * ac
     lines, launches['attrib_step'] = run_tool(
         mods, 'attrib_step', ['--windows', str(aw), '--calls', str(ac),
                               '--warm', str(warm)] + pw + native, log)
     expect_launches('attrib_step', launches['attrib_step'],
-                    {'bilstm_fwd': 3 * steps, 'bilstm_bwd': 3 * steps,
-                     'ctc_fwd': 2 * steps, 'ctc_bwd': 2 * steps})
+                    {'bilstm_fwd': 4 * steps, 'bilstm_bwd': 4 * steps,
+                     'ctc_fwd': 3 * steps, 'ctc_bwd': 3 * steps})
     out['attrib_step'] = lines
     default_ms = next(x['ms_per_step'] for x in lines
                       if x.get('variant') == 'ctc=kernel lstm=kernel')
@@ -3550,11 +3576,521 @@ def dsl_phase(mods, card, rec_path, eval_predictions, log):
     return launches, out
 
 
-def phase12_alone(mods, card, kind):
-    """``python3 chip_smoke.py --phase 12``: the kernels' build, then phase
-    12 alone, its reference strings from the fixed model's eval of
-    ``lstm_ctc`` and its records file from ``data/val`` made here. For
-    working on the phase; the smoke run takes no arguments."""
+# ---- 13. the shifted-matmul conv lowering, dropout graphs, TF tools --------
+
+# the convs of the CRNN that take the shifted lowering, at a W bucket: (name,
+# C_in, C_out, kernel, padding, the bucket's divisor for the input's width,
+# the input's height)
+SHIFTED_CONVS = [('conv2', 64, 128, 3, 'SAME', 2, 16),
+                 ('conv3_1', 128, 256, 3, 'SAME', 4, 8),
+                 ('conv3_2', 256, 256, 3, 'SAME', 4, 8),
+                 ('conv4_1', 256, 512, 3, 'SAME', 4, 4),
+                 ('conv4_2', 512, 512, 3, 'SAME', 4, 4),
+                 ('conv5', 512, 512, 2, 'VALID', 4, 2)]
+
+
+def bar_worst(got, want, rtol, atol):
+    """Largest ``|got - want| / (atol + rtol * |want|)``: at most 1 where
+    ``assert_allclose(got, want, rtol, atol)`` holds."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def kernels_per_call(fn):
+    """Device kernels launched by one call of ``fn`` and their device ms,
+    from ``torch.profiler`` over 3 calls; (None, None) where the profiler
+    sees no device events."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        return None, None
+    return (sum(e.count for e in rows) / 3,
+            sum(e.self_device_time_total for e in rows) / 3e3)
+
+
+def shifted_geometries(layers, conv_mod, card):
+    """(a): conv2 to conv5 at batch 64, W=96 and W=160, the shifted lowering
+    against ``F.conv2d`` (``layers.conv2d_tf``, cuDNN): the layer's own
+    glorot weights, post-ReLU-like inputs U(0, 1), a normal cotangent of
+    standard deviation 1e-3. f32: the forward within rtol 2e-4 / atol 2e-5,
+    both gradients within rtol 1e-4 / atol 1e-4 (TF32 off). bf16: each
+    lowering's forward
+    within rtol 2^-8 / atol 1e-2 of the f32 conv of the same bf16 values,
+    the sum both round once (a tie between two f32 sums of another order
+    rounds one bf16 ulp apart, more than 2^-8 at the bottom of a binade);
+    the share of bf16 outputs where the two lowerings differ, and their
+    largest difference as a share of that bar. CUDA-event ms of
+    forward and forward+backward for both lowerings and both dtypes, and
+    the device kernels a bf16 forward+backward call launches."""
+    rows = {}
+    for w in (96, 160):
+        for name, ci, co, k, pad, div, h in SHIFTED_CONVS:
+            g = torch.Generator().manual_seed(13)
+            kernel = layers.ConvSingle(ci, co, k, padding=pad,
+                                       generator=g).kernel.detach().cuda()
+            x = torch.rand(64, ci, w // div, h, generator=g).cuda()
+            row = {'shape': [64, ci, w // div, h], 'c_out': co}
+            for dtype, tag in ((torch.float32, 'f32'),
+                               (torch.bfloat16, 'bf16')):
+                xd, kd = x.to(dtype), kernel.to(dtype)
+                def lib(a, b, pad=pad):
+                    return layers.conv2d_tf(a, b, (1, 1), pad)
+
+                def ours(a, b, pad=pad):
+                    return conv_mod.conv2d_shifted(a, b, (1, 1), pad)
+                outs, grads = {}, {}
+                ct = None
+                for which, fn in (('cudnn', lib), ('shifted', ours)):
+                    a = xd.clone().requires_grad_()
+                    b = kd.clone().requires_grad_()
+                    y = fn(a, b)
+                    if ct is None:
+                        ct = (1e-3 * torch.randn(y.shape, generator=g)).to(
+                            y.device, dtype)
+                    (y.float() * ct.float()).sum().backward()
+                    outs[which], grads[which] = y.detach(), (a.grad, b.grad)
+                if dtype == torch.float32:
+                    row['f32_fwd_worst'] = bar_worst(
+                        outs['shifted'], outs['cudnn'], 2e-4, 2e-5)
+                    row['f32_grad_worst'] = max(
+                        bar_worst(s, c, 1e-4, 1e-4) for s, c in
+                        zip(grads['shifted'], grads['cudnn']))
+                    check(row['f32_fwd_worst'] <= 1 and
+                          row['f32_grad_worst'] <= 1,
+                          'shifted {} W={} f32: forward {:.3g}, gradients '
+                          '{:.3g} of their bars'.format(
+                              name, w, row['f32_fwd_worst'],
+                              row['f32_grad_worst']))
+                else:
+                    exact = layers.conv2d_tf(xd.float(), kd.float(), (1, 1),
+                                             pad)
+                    row['bf16_fwd_worst'] = bar_worst(
+                        outs['shifted'], exact, 2 ** -8, 1e-2)
+                    row['bf16_cudnn_worst'] = bar_worst(
+                        outs['cudnn'], exact, 2 ** -8, 1e-2)
+                    row['bf16_share_differing_from_cudnn'] = float(
+                        (outs['shifted'] != outs['cudnn']).float().mean())
+                    row['bf16_worst_against_cudnn'] = bar_worst(
+                        outs['shifted'], outs['cudnn'], 2 ** -8, 1e-2)
+                    check(row['bf16_fwd_worst'] <= 1,
+                          'shifted {} W={} bf16: {:.3g} of the bar'.format(
+                              name, w, row['bf16_fwd_worst']))
+                for which, fn in (('cudnn', lib), ('shifted', ours)):
+                    a = xd.clone().requires_grad_()
+                    b = kd.clone().requires_grad_()
+
+                    def fwd_bwd(fn=fn, a=a, b=b):
+                        y = fn(a, b)
+                        torch.autograd.grad(y, (a, b), ct)
+                    with torch.no_grad():
+                        row['{}_{}_fwd_ms'.format(tag, which)] = median_ms(
+                            lambda fn=fn: fn(xd, kd), reps=20, warmup=3)
+                    row['{}_{}_fwd_bwd_ms'.format(tag, which)] = median_ms(
+                        fwd_bwd, reps=20, warmup=3)
+                    if dtype == torch.bfloat16 and w == 160:
+                        n, ms = kernels_per_call(fwd_bwd)
+                        row['bf16_{}_kernels_per_fwd_bwd'.format(which)] = n
+                        row['bf16_{}_device_ms_fwd_bwd'.format(which)] = ms
+            rows['{} W={}'.format(name, w)] = row
+            print('shifted (a) {} W={} {}: f32 forward {:.3g} / gradients '
+                  '{:.3g} of the bars; bf16 {:.3g} of the bar (cuDNN {:.3g}), '
+                  '{:.2%} of outputs differ from cuDNN\'s (by {:.3g} of the '
+                  'bar at most); '
+                  'ms fwd / fwd+bwd f32 cuDNN {:.3f} / {:.3f}, shifted {:.3f} '
+                  '/ {:.3f}; bf16 cuDNN {:.3f} / {:.3f}, shifted {:.3f} / '
+                  '{:.3f}{}'.format(
+                      name, w, row['shape'], row['f32_fwd_worst'],
+                      row['f32_grad_worst'], row['bf16_fwd_worst'],
+                      row['bf16_cudnn_worst'],
+                      row['bf16_share_differing_from_cudnn'],
+                      row['bf16_worst_against_cudnn'],
+                      row['f32_cudnn_fwd_ms'], row['f32_cudnn_fwd_bwd_ms'],
+                      row['f32_shifted_fwd_ms'],
+                      row['f32_shifted_fwd_bwd_ms'],
+                      row['bf16_cudnn_fwd_ms'], row['bf16_cudnn_fwd_bwd_ms'],
+                      row['bf16_shifted_fwd_ms'],
+                      row['bf16_shifted_fwd_bwd_ms'],
+                      '' if w != 160 else '; bf16 fwd+bwd kernels a call '
+                      'cuDNN {} ({} ms), shifted {} ({} ms)'.format(
+                          row['bf16_cudnn_kernels_per_fwd_bwd'],
+                          row['bf16_cudnn_device_ms_fwd_bwd'],
+                          row['bf16_shifted_kernels_per_fwd_bwd'],
+                          row['bf16_shifted_device_ms_fwd_bwd'])),
+                  flush=True)
+    print('shifted (a) on {}'.format(card), flush=True)
+    return rows
+
+
+@contextlib.contextmanager
+def counting_shifted(layers):
+    """Count the shifted lowering's calls from ``ConvSingle`` (eager
+    calls; a CUDA graph's replay runs no Python)."""
+    real = layers.conv2d_shifted
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+    layers.conv2d_shifted = counted
+    try:
+        yield calls
+    finally:
+        layers.conv2d_shifted = real
+
+
+@contextlib.contextmanager
+def recording_masks(layers):
+    """Record every dropout mask drawn (a copy), in order."""
+    real = layers.dropout_mask
+    masks = []
+
+    def recorded(*args, **kwargs):
+        m = real(*args, **kwargs)
+        masks.append(m.clone())
+        return m
+    layers.dropout_mask = recorded
+    try:
+        yield masks
+    finally:
+        layers.dropout_mask = real
+
+
+def tf_tools_phase(mods, rec_dir):
+    """(g): the three TF tools. Without tensorflow each raises ImportError
+    naming it and the tool; with it, export -> import of ``rec_dir`` gives
+    the records file ``data/records.py`` writes from it, byte for byte."""
+    from lstm_ctc_ocr_torch.tools import (export_tfrecords,
+                                         import_tf_checkpoint,
+                                         import_tfrecords)
+    work = os.path.join(REPO, 'output', 'chip_smoke_tf')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        import tensorflow  # noqa: F401
+        have_tf = True
+    except ImportError:
+        have_tf = False
+    out = {'tensorflow': have_tf}
+    if not have_tf:
+        calls = {
+            'import_tf_checkpoint': lambda: import_tf_checkpoint.main(
+                [os.path.join(work, 'x.ckpt')]),
+            'import_tfrecords': lambda: import_tfrecords.main(
+                [os.path.join(work, 'x.tfrecords'), '--out',
+                 os.path.join(work, 'x.records')]),
+            'export_tfrecords': lambda: export_tfrecords.main(
+                [rec_dir, '--out', os.path.join(work, 'x.tfrecords')])}
+        for tool, call in calls.items():
+            try:
+                call()
+                raised = None
+            except ImportError as e:
+                raised = str(e)
+            check(raised is not None and 'tensorflow' in raised
+                  and tool in raised,
+                  '{} without tensorflow: {}'.format(tool, raised))
+            out[tool] = raised
+            print('shifted (g) {} without tensorflow: ImportError: {}'.format(
+                tool, raised), flush=True)
+    else:
+        tfr = os.path.join(work, 'val.tfrecords')
+        back = os.path.join(work, 'back.records')
+        direct = os.path.join(work, 'direct.records')
+        n = export_tfrecords.export_tfrecords(rec_dir, tfr)
+        m = import_tfrecords.import_tfrecords(tfr, back)
+        mods['records'].write_image_annotation_pairs_to_records(rec_dir,
+                                                                direct)
+        with open(back, 'rb') as f, open(direct, 'rb') as g:
+            same = f.read() == g.read()
+        print('shifted (g) tensorflow imports: export -> import of {} '
+              'images, {} back, byte-identical to the direct records file: '
+              '{}'.format(n, m, same), flush=True)
+        check(n == m == 500 and same, 'TF round trip: {} / {}, identical '
+              '{}'.format(n, m, same))
+        out['round_trip'] = {'exported': n, 'imported': m, 'identical': same}
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def shifted_phase(mods, card, rec_path, eval_predictions, log,
+                  attrib_lines=None, phase8=None, dev=torch.device('cuda')):
+    """Phase 13: ``CONV_IMPL shifted`` (``ops/conv.py``) through the entry
+    points, a DSL net's dropout as a K-step graph and across a resume, and
+    the TF tools. Returns the launches by path and the phase's numbers."""
+    from lstm_ctc_ocr_torch.models import layers
+    from lstm_ctc_ocr_torch.models.network import Network
+    from lstm_ctc_ocr_torch.ops import conv as conv_mod
+    load_cfg, train, test_mod = mods['load_cfg'], mods['train'], mods['test']
+    rnn_cuda, ctc_cuda = mods['rnn_cuda'], mods['ctc_cuda']
+    get_network = mods['get_network']
+    t_phase = time.perf_counter()
+    yml = os.path.join(REPO, 'lstm', 'lstm.yml')
+    shifted = ['CONV_IMPL', "'shifted'"]
+    launches, out = {}, {'card': card}
+
+    # (a) each geometry against F.conv2d
+    out['geometries'] = shifted_geometries(layers, conv_mod, card)
+
+    # (b) eval of the lstm_ctc release under shifted
+    cfg = load_cfg(yml, ['TEST.BATCH_SIZE', '64', 'BN_EVAL', "'batch'",
+                         'TRAIN.DTYPE', "'bfloat16'", 'DECODER', "'greedy'"]
+                   + shifted)
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
+    echoed = []
+    t0 = time.perf_counter()
+    with counting_shifted(layers) as calls:
+        r = test_mod.test_net(cfg, os.path.join(REPO, 'data', 'val'),
+                              os.path.join(REPO, 'checkpoints', cfg.EXP_DIR),
+                              device='cuda', echo=echoed.append)
+    eval_s = time.perf_counter() - t0
+    log.write('== (b) lstm_ctc under CONV_IMPL shifted\n'
+              + '\n'.join(echoed) + '\n')
+    launches['shifted_eval'] = launch_counts(rnn_cuda, ctc_cuda)
+    want = eval_predictions['lstm_ctc/batch']
+    differ = sorted(f for f, s in want.items() if r.predictions.get(f) != s)
+    print('shifted (b) lstm_ctc release under CONV_IMPL shifted, test_net on '
+          'data/val (bf16, batch 64): {}/{} correct, {} of {} strings differ '
+          'from the cuDNN eval\'s {}, {} decode calls, bilstm_fwd {} '
+          'launches, shifted convs {} calls, {:.1f} s'.format(
+              r.correct, r.total, len(differ), len(want), differ[:8],
+              r.decode_calls, launches['shifted_eval']['bilstm_fwd'],
+              calls[0], eval_s), flush=True)
+    check(r.total == 500 and r.correct >= 483,
+          'shifted eval: {}/{} correct'.format(r.correct, r.total))
+    check(launches['shifted_eval']['bilstm_fwd'] == r.decode_calls > 0
+          and calls[0] == 6 * r.decode_calls,
+          'shifted eval: {} launches and {} shifted convs for {} decode '
+          'calls'.format(launches['shifted_eval']['bilstm_fwd'], calls[0],
+                         r.decode_calls))
+    out['eval'] = {'correct': r.correct, 'total': r.total,
+                   'strings_differing_from_cudnn': len(differ),
+                   'decode_calls': r.decode_calls, 'seconds': eval_s}
+
+    # (c) 20 train_net steps from one init, shifted against xla, f32 and
+    # bf16, on phase 5's records file
+    steps = 20
+    runs = {}
+    for tag, dt in (('f32', "'float32'"), ('bf16', "'bfloat16'")):
+        exp = 'chip_smoke_shifted_' + tag
+        base = dsl_train_overrides(rec_path, exp, steps) + ['TRAIN.DTYPE', dt]
+        cfgs = [load_cfg(yml, base), load_cfg(yml, base + shifted)]
+
+        def make(i, cfgs=cfgs):
+            return get_network('LSTM_train', cfgs[i],
+                               generator=torch.Generator().manual_seed(
+                                   int(cfgs[i].RNG_SEED)))
+        t0 = time.perf_counter()
+        with counting_shifted(layers) as calls:
+            pair = train_pair(mods, make, cfgs[0], exp, steps, log)
+        secs = time.perf_counter() - t0
+        (lx, _, cx), (ls, _, cs) = pair
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ls, lx))
+        want_counts = {'bilstm_fwd': steps, 'bilstm_bwd': steps,
+                       'lstm_fwd': 0, 'lstm_bwd': 0, 'ctc_fwd': steps,
+                       'ctc_bwd': steps}
+        for what, losses, counts in (('xla', lx, cx), ('shifted', ls, cs)):
+            check(len(losses) == steps and bool(np.isfinite(losses).all())
+                  and np.mean(losses[-5:]) < np.mean(losses[:5]),
+                  'shifted (c) {} {}: losses {}'.format(tag, what, losses))
+            check(counts == want_counts, 'shifted (c) {} {}: launches {}, '
+                  'expected {}'.format(tag, what, counts, want_counts))
+        check(calls[0] == 6 * steps, 'shifted (c) {}: {} shifted conv calls '
+              'in {} steps'.format(tag, calls[0], steps))
+        if tag == 'f32':
+            check(rel <= 1e-4, 'shifted (c) f32: losses {} against {}, '
+                  '{:.3g} relative'.format(ls, lx, rel))
+        launches['shifted_train_' + tag] = {k: cx[k] + cs[k] for k in cx}
+        runs[tag] = {'xla_losses': lx, 'shifted_losses': ls,
+                     'max_rel_distance': rel, 'seconds_both': secs}
+        print('shifted (c) {}: train_net {} steps from one init, cuDNN {:.4f}'
+              ' -> {:.4f}, shifted {:.4f} -> {:.4f}, largest relative '
+              'distance {:.3g}{}, launches {} a run, {:.1f} s for both'.format(
+                  tag, steps, lx[0], lx[-1], ls[0], ls[-1], rel,
+                  ' (bar 1e-4)' if tag == 'f32' else '', json.dumps(cs),
+                  secs), flush=True)
+    out['train'] = runs
+
+    # (c) rates and (d) the 8-step graph on the records store, bf16
+    k = 8
+    cfg = load_cfg(yml, train_overrides(rec_path, 'chip_smoke_shifted') + [
+        'TRAIN.STEPS_PER_DISPATCH', str(k), 'DATA_DEVICE', "'on'"])
+    cfg_s = load_cfg(yml, train_overrides(rec_path, 'chip_smoke_shifted') + [
+        'TRAIN.STEPS_PER_DISPATCH', str(k), 'DATA_DEVICE', "'on'"] + shifted)
+    dtype = train.compute_dtype(cfg)
+    n = int(cfg.TRAIN.BATCH_SIZE)
+    with contextlib.redirect_stdout(log):
+        feed = mods['device_store'].make_device_feed(cfg, dev)
+    store = feed.store
+    rates, graphs = {}, {}
+    for what, c in (('xla', cfg), ('shifted', cfg_s)):
+        model = get_network('LSTM_train', c, generator=torch.Generator()
+                            .manual_seed(int(c.RNG_SEED))).to(dev).train()
+        optimizer = train.make_optimizer(model, c)
+        step1 = train.make_train_step_gather(model, optimizer, c, dtype)
+        rates[what + '_eager'] = group_rate(
+            '{} convs, records store, K=1 eager (bucket {})'.format(
+                what, store.w_bucket),
+            lambda: step1(*store.arrays, feed.step_indices(n)), 1, card,
+            warm=8, graph=False)
+        chunk = train.make_train_chunk(model, optimizer, c, dtype, k,
+                                       gather=True)
+        chunk(*store.arrays, feed.chunk_indices(n, k))   # eager, captured
+        idx = feed.chunk_indices(n, k)
+        graphs[what] = graph_against_eager(
+            model, optimizer, lambda: chunk(*store.arrays, idx)[0],
+            lambda: torch.stack([step1(*store.arrays, idx[j])[0]
+                                 for j in range(k)]))
+        rates[what + '_graph'] = group_rate(
+            '{} convs, records store, K=8 graph (bucket {})'.format(
+                what, store.w_bucket),
+            lambda: chunk(*store.arrays, feed.chunk_indices(n, k)), k, card)
+        del model, optimizer, chunk
+    g, e = graphs['shifted']
+    print('shifted (d) the store\'s 8-step graph under shifted against 8 '
+          'eager steps from one state: largest |graph - eager| {}, |eager - '
+          'eager| {}; steps/s and device ms a step: shifted {:.2f} / {}, '
+          'cuDNN {:.2f} / {} (this phase), phase 8\'s cuDNN graph {}; eager '
+          'K=1 steps/s shifted {:.2f}, cuDNN {:.2f}, on {}'.format(
+              g, e, rates['shifted_graph']['steps_per_s'],
+              rates['shifted_graph']['replay_device_ms_per_step'],
+              rates['xla_graph']['steps_per_s'],
+              rates['xla_graph']['replay_device_ms_per_step'],
+              None if phase8 is None else [
+                  round(phase8['steps_per_s'], 2),
+                  phase8['replay_device_ms_per_step']],
+              rates['shifted_eager']['steps_per_s'],
+              rates['xla_eager']['steps_per_s'], card), flush=True)
+    check(g <= e, 'shifted graph differs from eager by {}, two eager runs '
+          'by {}'.format(g, e))
+    out['store'] = {'bucket': store.w_bucket, 'rates': rates,
+                    'graph_vs_eager': {w: v[0] for w, v in graphs.items()},
+                    'eager_vs_eager': {w: v[1] for w, v in graphs.items()}}
+
+    # (e) attrib_step's conv=shifted variant against its default step
+    if attrib_lines is None:
+        attrib_lines, launches['shifted_attrib'] = run_tool(
+            mods, 'attrib_step', ['--windows', '3', '--calls', '20',
+                                  '--warm', '20', '--width', '128', '--set',
+                                  'RENDERER', 'native'], log)
+    ms = {x['variant']: x['ms_per_step'] for x in attrib_lines
+          if 'variant' in x}
+    check('conv=shifted' in ms, 'attrib_step has no conv=shifted line')
+    out['attrib'] = {'default_ms': ms['ctc=kernel lstm=kernel'],
+                     'shifted_ms': ms['conv=shifted'],
+                     'delta_conv_shifted_vs_default_ms':
+                         ms['conv=shifted'] - ms['ctc=kernel lstm=kernel']}
+    print('shifted (e) attrib_step (W=128): conv=shifted {:.3f} ms a step, '
+          'default {:.3f}, delta {:+.3f} ms'.format(
+              ms['conv=shifted'], ms['ctc=kernel lstm=kernel'],
+              out['attrib']['delta_conv_shifted_vs_default_ms']), flush=True)
+
+    # (f) a DSL net with dropout (keep_prob 0.5): the store's 8-step graph
+    # against 8 eager steps, and a run resumed at step 4 against the whole
+    LSTMTrainDSL = dsl_classes(Network)[0]
+
+    class DropDSL(LSTMTrainDSL):
+        def setup(self):
+            super().setup()
+            spec = self.specs.pop()
+            self.layer_order.pop()
+            self.feed('reshaped_layer').dropout(0.5, name='drop')
+            self.feed('drop', 'time_step_len').bi_lstm(
+                spec.kwargs['num_hids'], 2, name='logits')
+    key = layers.dropout_key(int(cfg.RNG_SEED), 0,
+                             torch.tensor(5, device=dev))
+    same_device = torch.equal(
+        layers.dropout_mask((64, 39, 512), 0.5, key, dev).cpu(),
+        layers.dropout_mask((64, 39, 512), 0.5, key.cpu(), 'cpu'))
+    model = DropDSL(cfg, generator=torch.Generator().manual_seed(
+        int(cfg.RNG_SEED))).to(dev).train()
+    optimizer = train.make_optimizer(model, cfg)
+    step1 = train.make_train_step_gather(model, optimizer, cfg, dtype)
+    chunk = train.make_train_chunk(model, optimizer, cfg, dtype, k,
+                                   gather=True)
+    chunk(*store.arrays, feed.chunk_indices(n, k))
+    idx = feed.chunk_indices(n, k)
+    drop_g, drop_e = graph_against_eager(
+        model, optimizer, lambda: chunk(*store.arrays, idx)[0],
+        lambda: torch.stack([step1(*store.arrays, idx[j])[0]
+                             for j in range(k)]))
+    del model, optimizer, chunk
+    snap, total = 4, 12
+    runs = {}
+    for what, max_iters, restore in (('whole', total + 1, False),
+                                     ('cut', snap + 1, False),
+                                     ('resumed', total + 1, True)):
+        exp = 'chip_smoke_dropout_' + ('whole' if what == 'whole' else 'cut')
+        if not restore:
+            shutil.rmtree(os.path.join(REPO, 'output', exp),
+                          ignore_errors=True)
+        c = load_cfg(yml, dsl_train_overrides(rec_path, exp, total) + [
+            'DATA_DEVICE', "'on'", 'TRAIN.SNAPSHOT_ITERS', str(snap)])
+        net = DropDSL(c, generator=torch.Generator().manual_seed(
+            int(c.RNG_SEED)))
+        launch_counts(rnn_cuda, ctc_cuda, reset=True)
+        with recording_masks(layers) as masks, \
+                contextlib.redirect_stdout(log):
+            _, _, losses = train.train_net(
+                net, {'name': 'chip_smoke'}, None,
+                os.path.join(REPO, 'output', exp),
+                os.path.join(REPO, 'logs', exp), c, max_iters=max_iters,
+                restore=restore, device=str(dev))
+        torch.cuda.synchronize()
+        launches['dropout_' + what] = launch_counts(rnn_cuda, ctc_cuda)
+        runs[what] = (losses, masks)
+    whole, resumed = runs['whole'][1], runs['resumed'][1]
+    same_masks = len(resumed) == total - snap + 1 and all(
+        torch.equal(a, b) for a, b in zip(resumed, whole[snap - 1:]))
+    kept = float(whole[0].float().mean())
+    moved = not torch.equal(whole[0], whole[1])
+    for what, steps_run in (('whole', total), ('cut', snap),
+                            ('resumed', total - snap + 1)):
+        counts = launches['dropout_' + what]
+        check(counts['bilstm_fwd'] == counts['ctc_bwd'] == steps_run
+              == len(runs[what][0]), 'dropout {} run: {} losses, launches '
+              '{}'.format(what, len(runs[what][0]), counts))
+    print('shifted (f) DSL net with dropout 0.5 on the store (bf16): 8-step '
+          'graph against 8 eager steps, largest |graph - eager| {}, |eager - '
+          'eager| {}; train_net resumed at step {}: {} masks, equal to the '
+          'uninterrupted run\'s from step {}: {} (kept share {:.4f}, masks '
+          'move step to step {}); a mask on the card equals the CPU\'s for '
+          'the same key: {}; losses whole {:.4f} -> {:.4f}'.format(
+              drop_g, drop_e, snap, len(resumed), snap, same_masks, kept,
+              moved, same_device, runs['whole'][0][0],
+              runs['whole'][0][-1]), flush=True)
+    check(drop_g <= drop_e, 'dropout graph differs from eager by {}, two '
+          'eager runs by {}'.format(drop_g, drop_e))
+    check(same_masks and moved and same_device and 0.45 < kept < 0.55,
+          'dropout masks: resumed equal {}, moved {}, card = CPU {}, kept '
+          '{}'.format(same_masks, moved, same_device, kept))
+    check(all(np.isfinite(l).all() for l, _ in runs.values()),
+          'dropout runs: non-finite losses')
+    out['dropout'] = {'graph_vs_eager': drop_g, 'eager_vs_eager': drop_e,
+                      'resumed_masks_equal': same_masks, 'kept_share': kept,
+                      'card_mask_equals_cpu': same_device}
+
+    # (g) the TF tools
+    out['tf_tools'] = tf_tools_phase(mods, os.path.join(REPO, 'data', 'val'))
+    out['seconds'] = time.perf_counter() - t_phase
+    print('shifted: phase took {:.1f} s on {}'.format(out['seconds'], card),
+          flush=True)
+    return launches, out
+
+
+def phase_alone(mods, card, kind, phase):
+    """``python3 chip_smoke.py --phase 12`` or ``--phase 13``: the kernels'
+    build, then that phase alone, its reference strings from the fixed
+    model's eval of ``lstm_ctc`` and its records file from ``data/val`` made
+    here. For working on a phase; the smoke run takes no arguments."""
     cfg = mods['load_cfg'](os.path.join(REPO, 'lstm', 'lstm.yml'),
                            ['TEST.BATCH_SIZE', '64', 'BN_EVAL', "'batch'",
                             'TRAIN.DTYPE', "'bfloat16'", 'DECODER',
@@ -3566,11 +4102,13 @@ def phase12_alone(mods, card, kind):
     os.makedirs(os.path.dirname(rec_path), exist_ok=True)
     mods['records'].write_image_annotation_pairs_to_records(
         os.path.join(REPO, 'data', 'val'), rec_path)
-    with open(os.path.join(REPO, 'chiprun_out', 'chip_smoke_dsl.log'),
-              'w') as log:
-        _, dsl = dsl_phase(mods, card, rec_path,
-                           {'lstm_ctc/batch': r.predictions}, log)
-    print(json.dumps({'dsl': dsl}), flush=True)
+    name, run = {'12': ('dsl', dsl_phase),
+                 '13': ('shifted', shifted_phase)}[phase]
+    with open(os.path.join(REPO, 'chiprun_out',
+                           'chip_smoke_{}.log'.format(name)), 'w') as log:
+        _, result = run(mods, card, rec_path,
+                        {'lstm_ctc/batch': r.predictions}, log)
+    print(json.dumps({name: result}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)
@@ -3677,8 +4215,10 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print('ptxas {}: {}'.format(name, line.strip()), flush=True)
 
-    if sys.argv[1:3] == ['--phase', '12']:      # phase 12 alone
-        return phase12_alone(mods, card, kind)
+    if sys.argv[1:2] == ['--phase']:            # phase 12 or 13 alone
+        check(sys.argv[2:] in (['12'], ['13']),
+              '--phase takes 12 or 13, got {}'.format(sys.argv[2:]))
+        return phase_alone(mods, card, kind, sys.argv[2])
 
     errs, timings = bilstm_fwd_phase(rnn_cuda, _build)
     bwd_errs, bwd_timings = bilstm_bwd_phase(rnn_cuda, _build)
@@ -3712,6 +4252,11 @@ def main():
     with open(os.path.join(out_dir, 'chip_smoke_dsl.log'), 'w') as log:
         dsl_launches, dsl = dsl_phase(mods, card, rec_path, eval_predictions,
                                       log)
+    with open(os.path.join(out_dir, 'chip_smoke_shifted.log'), 'w') as log:
+        shifted_launches, shifted = shifted_phase(
+            mods, card, rec_path, eval_predictions, log,
+            attrib_lines=tools['attrib_step'],
+            phase8=dispatch['rates']['store_graph'])
     print('train rate on {}: synthetic feed {:.2f} steps/s ({} fork workers, '
           'os.cpu_count() {}), records feed {:.2f} steps/s; device busy ms '
           'per step {} and {}'.format(
@@ -3732,11 +4277,12 @@ def main():
     check(all(dp_launches[p]['bilstm_fwd'] > 0 for p in dp_launches),
           'bilstm_fwd was not launched on every DP path')
 
-    # the paths of the later phases: data parallelism, the tools, and the
-    # model DSL and the offline surface
+    # the paths of the later phases: data parallelism, the tools, the model
+    # DSL and the offline surface, and the shifted conv lowering
     later = dict(dp_launches, **{'tool ' + k: v
                                  for k, v in tool_launches.items()})
     later.update({'dsl ' + k: v for k, v in dsl_launches.items()})
+    later.update({'shifted ' + k: v for k, v in shifted_launches.items()})
 
     def later_total(name):
         return sum(v[name] for v in later.values())
@@ -3746,6 +4292,11 @@ def main():
     for name in ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd', 'ctc_bwd'):
         check(dsl_launches['dsl_train'][name] > 0,
               '{} was not launched on the DSL train path'.format(name))
+    for name in ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd', 'ctc_bwd'):
+        check(shifted_launches['shifted_train_bf16'][name] > 0,
+              '{} was not launched on the shifted train path'.format(name))
+    check(shifted_launches['shifted_eval']['bilstm_fwd'] > 0,
+          'bilstm_fwd was not launched on the shifted eval path')
     for name in ('lstm_fwd', 'lstm_bwd'):
         check(dsl_launches['dsl_stacked_train'][name] > 0,
               '{} was not launched on the DSL stacked path'.format(name))
@@ -3960,7 +4511,7 @@ def main():
         'by_shape': conv_timings,
     })], 'train': rate, 'stacked_lstm_train': stacked_rate,
         'synthetic_stream': synth, 'dispatch': dispatch, 'serve': served,
-        'data_parallel': dp, 'tools': tools, 'dsl': dsl,
+        'data_parallel': dp, 'tools': tools, 'dsl': dsl, 'shifted': shifted,
         'seconds': time.perf_counter() - t_start}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -14,9 +14,9 @@ Two differences from the JAX package:
 * YAML files are read by :func:`load_yaml`, a reader for the subset the
   tracked configs use, because PyYAML is not a dependency of the port.
 
-Keys the port does not read yet (parallelism, the device-resident feed,
-profiling) are kept with their defaults so that every config file still
-merges.
+Keys the port does not read (``CTC_IMPL`` and ``LSTM_IMPL``: the port runs
+its kernels on CUDA tensors and their plain versions on the CPU) are kept
+with their defaults so that every config file still merges.
 """
 
 from __future__ import annotations
@@ -98,7 +98,7 @@ def default_cfg() -> AttrDict:
     # every batch is right-padded to the smallest width bucket that fits
     c.BUCKETS = [64, 96, 128, 160, 192, 224, 256]
     c.CTC_IMPL = 'jax'
-    c.CONV_IMPL = 'xla'
+    c.CONV_IMPL = 'xla'            # 'xla' (F.conv2d) | 'shifted' (ops/conv.py)
     c.LSTM_IMPL = 'pallas'
     c.DECODER = 'greedy'           # 'greedy' | 'beam' (ops/beam.py)
     c.BEAM_WIDTH = 16

@@ -39,7 +39,11 @@ package's optax chain flattens to: ``opt_state/1/0/.mu/<path>``,
 ``opt_state/1/1/.count``. A moment has its parameter's shape and goes
 through the same bridge (:func:`opt_state_to_flat`,
 :func:`opt_state_from_flat`), so a snapshot written by either package
-restores in the other, optimizer state included.
+restores in the other, optimizer state included. The legacy layers' frozen
+``bn_moving_{mean,var}`` are buffers of the port, which its solver does
+not update, and parameters of the JAX tree, whose optax state holds their
+moments (zeros: their gradient is stopped); a port snapshot writes those
+zeros, and a JAX snapshot's are read and left out.
 """
 
 from __future__ import annotations
@@ -242,13 +246,19 @@ _OPT = 'opt_state/1/0/'
 _OPT_COUNT = ('opt_state/1/0/.count', 'opt_state/1/1/.count')
 
 
-def opt_state_to_flat(optimizer) -> Dict[str, np.ndarray]:
+def opt_state_to_flat(optimizer, model=None) -> Dict[str, np.ndarray]:
     """The solver's state (``engine/train.py:Optimizer``: ``moments``, a
     dict of per-parameter tensors for each of its slots, and ``count``)
-    under the JAX snapshot keys."""
+    under the JAX snapshot keys; with ``model``, also the zero moments of
+    its buffers that are parameters of the JAX tree (the legacy layers'
+    frozen statistics)."""
+    frozen = {}
+    if model is not None:
+        frozen = {k: torch.zeros_like(b) for k, b in model.named_buffers()
+                  if not k.endswith(('.bn_mean', '.bn_var'))}
     out: Dict[str, np.ndarray] = {}
     for slot, tensors in optimizer.moments.items():
-        for key, arr in flat_from_params(tensors).items():
+        for key, arr in flat_from_params(dict(tensors, **frozen)).items():
             out['{}.{}/{}'.format(_OPT, slot, key[len('params/'):])] = arr
     counts = _OPT_COUNT if 'mu' in optimizer.moments else _OPT_COUNT[1:]
     for key in counts:
@@ -319,7 +329,7 @@ def save(model, optimizer, output_dir: str, step: int, cfg,
     os.makedirs(output_dir, exist_ok=True)
     fname = os.path.join(output_dir, snapshot_name(cfg, step))
     flat = flat_from_params(model.state_dict())
-    flat.update(opt_state_to_flat(optimizer))
+    flat.update(opt_state_to_flat(optimizer, model))
     write_npz(fname, flat)
     ckpts = sorted(_family_checkpoints(cfg, output_dir), key=lambda x: x[1])
     prunable = [c for c in ckpts

@@ -67,10 +67,11 @@ with ``ignore_missing`` as the JAX solver loads it
 (``checkpoint.load_npy_pretrained``).
 
 ``network`` is any model with the CRNN's call contract: ``models/crnn.py``'s
-fixed modules or a ``models/network.py`` DSL subclass. A DSL net with a
-dropout layer draws its masks in training mode from the network's own
-generator; it raises ``NotImplementedError`` under
-``TRAIN.STEPS_PER_DISPATCH > 1`` (a CUDA graph would replay one mask).
+fixed modules or a ``models/network.py`` DSL subclass. A DSL net's dropout
+masks are keyed by ``RNG_SEED``, the layer and the step's index, read from
+the solver's update count on the device (the JAX solver's ``fold_in(base,
+it)``): K steps a dispatch, eager or as a CUDA graph, draw the masks of K
+single steps, and a resumed run those of an uninterrupted one.
 """
 
 from __future__ import annotations
@@ -220,13 +221,15 @@ def compute_dtype(cfg):
     return _DTYPES.get(str(cfg.TRAIN.DTYPE))
 
 
-def make_loss_fn(model, cfg, dtype, mesh=None, ctc_loss=None):
+def make_loss_fn(model, cfg, dtype, mesh=None, ctc_loss=None, count=None):
     """``loss_fn(image, label, label_len, time_step) -> (total, ctc,
     bn_batch)``: the mean CTC loss over the feasible examples plus the L2
     collection, and the BN layers' batch statistics. ``ctc_loss`` gives the
     per-example losses (``ops/ctc.py:ctc_loss``'s contract); None is the
     kernels' ``ctc_cuda.ctc_loss``, a comparison passes the plain version
-    (``tools/attrib_step.py``).
+    (``tools/attrib_step.py``). ``count``: the solver's update count on the
+    device (``Optimizer.count_t``), read at each call; a model with dropout
+    keys its masks by ``count + 1``, the step's index in the JAX solver.
 
     With a ``mesh`` (``parallel/mesh.py``) the batch is this rank's rows of
     the global batch: the BN statistics are the global batch's, and the CTC
@@ -237,11 +240,14 @@ def make_loss_fn(model, cfg, dtype, mesh=None, ctc_loss=None):
     every rank would add the same one; its value counts on every rank."""
     weight_decay = float(cfg.TRAIN.WEIGHT_DECAY)
     group = mesh.group if mesh is not None else None
+    keyed = count is not None and getattr(model, 'has_dropout',
+                                          lambda: False)()
 
     def loss_fn(image, label, label_len, time_step):
         bn_batch = []      # bn=True convs deposit their batch mean/var here
+        extra = {'dropout_step': count + 1} if keyed else {}
         logits = model(image, time_step, dtype=dtype, bn_collect=bn_batch,
-                       bn_group=group)
+                       bn_group=group, **extra)
         losses = (ctc_loss or ctc_cuda.ctc_loss)(
             logits.transpose(0, 1), label, label_len, time_step)
         # an infeasible alignment (input too short for the label) carries
@@ -288,7 +294,8 @@ def make_train_step(model, optimizer, cfg, dtype, mesh=None, loss_fn=None):
     before the solver's clip (:func:`make_loss_fn`). ``loss_fn`` replaces
     :func:`make_loss_fn`'s (same contract), for a comparison."""
     if loss_fn is None:
-        loss_fn = make_loss_fn(model, cfg, dtype, mesh)
+        loss_fn = make_loss_fn(model, cfg, dtype, mesh,
+                               count=optimizer.count_t)
     momentum = float(cfg.BN_MOMENTUM)
 
     def train_step(image, label, label_len, time_step):
@@ -385,6 +392,8 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
     capture that fails raises; nothing falls back to eager steps. Replays
     add the launches their capture recorded to the wrappers' counters and
     ``k`` to ``optimizer.count``. On the CPU the ``k`` steps run eagerly.
+    A DSL net's dropout keys its masks by the update count on the device,
+    so a replay draws the masks of ``k`` single steps.
 
     With a ``mesh`` the steps are :func:`make_train_step`'s with it, on
     this rank's rows. A graph holds their NCCL collectives; the eager
@@ -392,11 +401,6 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
     capture. A gloo group on CUDA raises (:func:`check_graph_collectives`).
     """
     check_graph_collectives(mesh, next(model.parameters()).device)
-    if getattr(model, 'has_dropout', lambda: False)():
-        raise NotImplementedError(
-            'TRAIN.STEPS_PER_DISPATCH > 1 with dropout in training: a '
-            'K-step CUDA graph would replay one dropout mask; set '
-            'TRAIN.STEPS_PER_DISPATCH 1')
     train_step = make_train_step(model, optimizer, cfg, dtype, mesh)
     k = int(k)
 

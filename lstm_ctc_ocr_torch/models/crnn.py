@@ -20,7 +20,9 @@ instead of ``.bi_lstm(...)``; the stacked unidirectional model is::
             return LSTM(512, num_hid, 2, nclasses, generator)
 
 and goes to ``engine.train.train_net(network, ...)`` and
-``engine.test.test_net(..., model=network)`` as it is.
+``engine.test.test_net(..., model=network)`` as it is; it takes the conv
+lowering as the base class does, ``StackedLSTM(..., conv_impl=
+str(cfg.CONV_IMPL))``.
 """
 
 from __future__ import annotations
@@ -34,17 +36,22 @@ from .layers import BiLSTM, ConvSingle, max_pool, reshape_squeeze
 class LSTM_train(nn.Module):
     """Training graph; the eval graph ``LSTM_test`` is identical."""
 
-    def __init__(self, nchannels=1, num_hid=512, nclasses=64, generator=None):
+    def __init__(self, nchannels=1, num_hid=512, nclasses=64, generator=None,
+                 conv_impl='xla'):
+        """``conv_impl`` is ``CONV_IMPL``: ``'shifted'`` lowers conv2 to
+        conv5 to shifted matmuls (``models/layers.py:ConvSingle``)."""
         super().__init__()
-        g = generator
-        self.conv1 = ConvSingle(nchannels, 64, 3, generator=g)
-        self.conv2 = ConvSingle(64, 128, 3, generator=g)
-        self.conv3_1 = ConvSingle(128, 256, 3, generator=g)
-        self.conv3_2 = ConvSingle(256, 256, 3, generator=g)
-        self.conv4_1 = ConvSingle(256, 512, 3, bn=True, generator=g)
-        self.conv4_2 = ConvSingle(512, 512, 3, bn=True, generator=g)
+        g, c = generator, conv_impl
+        self.conv1 = ConvSingle(nchannels, 64, 3, generator=g, conv_impl=c)
+        self.conv2 = ConvSingle(64, 128, 3, generator=g, conv_impl=c)
+        self.conv3_1 = ConvSingle(128, 256, 3, generator=g, conv_impl=c)
+        self.conv3_2 = ConvSingle(256, 256, 3, generator=g, conv_impl=c)
+        self.conv4_1 = ConvSingle(256, 512, 3, bn=True, generator=g,
+                                  conv_impl=c)
+        self.conv4_2 = ConvSingle(512, 512, 3, bn=True, generator=g,
+                                  conv_impl=c)
         self.conv5 = ConvSingle(512, 512, 2, relu=False, padding='VALID',
-                                generator=g)
+                                generator=g, conv_impl=c)
         self.logits = self.make_head(num_hid, nclasses, g)
 
     def make_head(self, num_hid, nclasses, generator):

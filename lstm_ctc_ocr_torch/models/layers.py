@@ -7,6 +7,14 @@ projection, the stacked unidirectional ``lstm`` variant, and the layers
 only the model DSL uses (``models/network.py``): ``fc``, ``softmax`` and
 ``dropout``.
 
+Conv lowering (``CONV_IMPL``, the JAX ``conv_single_apply``): ``'xla'``
+(the default) is ``F.conv2d`` (cuDNN on the card); ``'shifted'`` takes
+``ops/conv.py:conv2d_shifted``, the tap sum as one GEMM, for every
+``ConvSingle`` whose contraction ``k * k2 * c_i`` is at least 256 — in the
+CRNN all but conv1. Another value raises ``ValueError`` by name. The
+legacy layers (``models/layers_legacy.py``) keep ``F.conv2d``, as the JAX
+legacy layers keep XLA's conv.
+
 Layout: the JAX package runs images as ``[N, W, H, C]`` with HWIO kernels
 whose *first* spatial axis runs over image width. The port runs
 ``[N, C, W, H]`` — the same two spatial axes in the same order — with
@@ -44,6 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import rnn
+from ..ops.conv import (CONV_IMPLS, MIN_CONTRACTION, conv2d_shifted,
+                        pad_amount)
 
 BN_EPS = 1e-3
 
@@ -73,8 +83,7 @@ def out_dim(size, k, s, padding):
 
 def same_pads(size, k, s):
     """TF ``SAME`` padding of one axis: (before, after), the odd one after."""
-    total = max((out_dim(size, k, s, 'SAME') - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
+    return pad_amount(size, k, s, 'SAME')[:2]
 
 
 def _tf_pads(x, k, s, padding):
@@ -132,13 +141,20 @@ class ConvSingle(nn.Module):
     (s, s2); ``padding`` TF's ``SAME`` or ``VALID``. ``kernel_init``:
     ``'xavier'`` (glorot uniform), ``'zero'``, or a float, the factor of a
     fan-average truncated-normal variance scaling (the legacy convs).
+    ``conv_impl``: ``'xla'`` or ``'shifted'`` (``CONV_IMPL``); ``shifted``
+    is ``True`` where the layer takes the shifted-matmul lowering.
     """
 
     def __init__(self, c_i, c_o, k, bn=False, relu=True, padding='SAME',
                  generator=None, k2=None, stride=(1, 1), biased=True,
-                 kernel_init='xavier'):
+                 kernel_init='xavier', conv_impl='xla'):
         super().__init__()
         k2 = k if k2 is None else k2
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError('CONV_IMPL={!r}: expected one of {}'.format(
+                conv_impl, CONV_IMPLS))
+        self.shifted = conv_impl == 'shifted' \
+            and k * k2 * c_i >= MIN_CONTRACTION
         self.bn, self.relu = bn, relu
         self.stride, self.pad_mode = tuple(stride), padding
         # the main path's geometry keeps its symmetric int padding
@@ -171,7 +187,10 @@ class ConvSingle(nn.Module):
         it, for the train step's moving-statistics update. ``bn_group``: a
         process group whose ranks' rows share the batch statistics."""
         x = _cast(x, dtype)
-        if self.padding is not None:
+        if self.shifted:
+            y = conv2d_shifted(x, _cast(self.kernel, dtype), self.stride,
+                               self.pad_mode)
+        elif self.padding is not None:
             y = F.conv2d(x, _cast(self.kernel, dtype), padding=self.padding)
         else:
             y = conv2d_tf(x, _cast(self.kernel, dtype), self.stride,
@@ -266,15 +285,52 @@ def softmax(x):
     return torch.softmax(x, dim=channel_dim(x))
 
 
-def dropout(x, keep_prob, training, generator):
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A bijective hash of 32-bit values (xor-shift-multiply rounds), on
+    Python ints or int64 tensors holding values below ``2**32``: each
+    multiplier is below ``2**31``, so no product passes ``2**63``."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def dropout_key(seed, layer, step):
+    """The key of one dropout layer's masks at one step: a hash of the
+    seed (``RNG_SEED``), the layer's place among the net's dropout layers
+    and the step (an int, or an integer tensor on the device, such as the
+    solver's update count), as the JAX solver's ``fold_in(PRNGKey(seed),
+    step)`` split once a dropout layer. An int64 tensor on ``step``'s
+    device when ``step`` is a tensor."""
+    base = _mix32(_mix32(int(seed) & _M32) ^ int(layer))
+    if torch.is_tensor(step):
+        return _mix32((step.to(torch.int64) & _M32) ^ base)
+    return torch.tensor(_mix32((int(step) & _M32) ^ base), dtype=torch.int64)
+
+
+def dropout_mask(shape, keep_prob, key, device):
+    """Bool mask of ``shape``, each element True with probability
+    ``keep_prob``: a counter-based hash of ``key`` and the element's flat
+    index, so the same key gives the same mask on any device, eagerly or
+    replayed from a CUDA graph."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    h = _mix32(_mix32(idx) ^ key.to(device))
+    return (h < int(round(keep_prob * 2.0 ** 32))).view(shape)
+
+
+def dropout(x, keep_prob, training, key):
     """Inverted dropout: each element kept with probability ``keep_prob``
     and scaled by ``1 / keep_prob``; the identity outside training or at
-    ``keep_prob >= 1``. The mask comes from ``generator`` (on ``x``'s
-    device), so a seed fixes it; it cannot match ``jax.random``'s."""
+    ``keep_prob >= 1``. The mask is :func:`dropout_mask` of ``key``
+    (:func:`dropout_key`); it cannot match ``jax.random``'s."""
     if not training or keep_prob >= 1.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < keep_prob
+    keep = dropout_mask(tuple(x.shape), keep_prob, key, x.device)
     return torch.where(keep, x / keep_prob, 0.0).to(x.dtype)
 
 

@@ -33,7 +33,8 @@ State-dict keys are the JAX tree's paths with dots (``conv1.kernel``,
 module. ``conv_single`` and ``max_pool`` at the CRNN's geometry are
 ``layers.ConvSingle`` and ``layers.max_pool``, so the JAX ``LSTM_train``
 chain computes ``models/crnn.py:LSTM_train`` bit for bit, from the same
-generator too.
+generator too; ``conv_single`` takes ``cfg.CONV_IMPL``'s lowering, as the
+JAX chain takes its global cfg's.
 
 Layout: a 4-D tensor is ``[N, C, A1, A2]`` (``models/layers.py``); the JAX
 package's ``[N, A1, A2, C]`` is ``x.permute(0, 2, 3, 1)`` of it, and a 4-D
@@ -45,9 +46,15 @@ input is fed in the port's layout. 3-D tensors (``[N, W, H]`` data,
 the ``'logits'`` layer's output (the last layer's where there is none):
 the contract of ``engine/train.py``, ``engine/test.py`` and
 ``engine/serve.py``. :meth:`Network.outputs` returns every named layer's
-output, as JAX ``apply`` does. ``dropout`` acts only in training mode, from
-a generator the network owns on each device, seeded ``dropout_seed``
-(``RNG_SEED`` by default).
+output, as JAX ``apply`` does. ``dropout`` acts only in training mode. Its
+masks are a hash of ``dropout_seed`` (``RNG_SEED`` by default), the layer's
+place among the dropout layers and a step (``layers.dropout_key``), as the
+JAX masks are ``fold_in(PRNGKey(RNG_SEED), step)`` split once a layer: the
+solver passes the step it takes (``dropout_step``, from its update count
+on the device), so K steps in one dispatch, eager or as a CUDA graph, and
+a run resumed at step n draw what single steps and an uninterrupted run
+draw; a call without ``dropout_step`` takes the network's own count of
+such calls.
 
 The JAX quirks the JAX tests pin are kept: a duplicate layer name
 overwrites in the outputs but not in the chain (``LSTM_train``'s two
@@ -117,7 +124,7 @@ class Network(nn.Module):
         # (layer, attribute path, coefficient); None = the weight decay
         self.reg_paths: List[Tuple[str, Tuple[str, ...], Any]] = []
         self.dropout_seed = int(self.cfg.RNG_SEED)
-        self._dropout_generators: Dict[torch.device, torch.Generator] = {}
+        self._dropout_calls = 0
         self.setup()
         if input_shapes is None:
             if tuple(self.input_names) != ('data', 'time_step_len'):
@@ -386,7 +393,8 @@ class Network(nn.Module):
                                  relu=kw['relu'], padding=kw['padding'],
                                  generator=g, k2=kw['k_w'],
                                  stride=(kw['s_h'], kw['s_w']),
-                                 biased=kw['biased']),
+                                 biased=kw['biased'],
+                                 conv_impl=str(self.cfg.CONV_IMPL)),
                     (s[0], L.out_dim(s[1], kw['k_h'], kw['s_h'],
                                      kw['padding']),
                      L.out_dim(s[2], kw['k_w'], kw['s_w'], kw['padding']),
@@ -418,21 +426,11 @@ class Network(nn.Module):
 
     # -- forward ----------------------------------------------------------------
 
-    def dropout_generator(self, device) -> torch.Generator:
-        """The network's dropout generator on ``device``, seeded
-        ``dropout_seed`` when first used there."""
-        device = torch.device(device)
-        gen = self._dropout_generators.get(device)
-        if gen is None:
-            gen = torch.Generator(device=device)
-            gen.manual_seed(self.dropout_seed)
-            self._dropout_generators[device] = gen
-        return gen
-
     def seed_dropout(self, seed: int) -> None:
-        """Reseed the dropout generators (each device's starts again)."""
+        """Reseed the dropout masks; the count of calls without a step
+        starts again."""
         self.dropout_seed = int(seed)
-        self._dropout_generators = {}
+        self._dropout_calls = 0
 
     def has_dropout(self) -> bool:
         """Whether a dropout layer would draw in training mode."""
@@ -440,14 +438,17 @@ class Network(nn.Module):
                    for s in self.specs)
 
     def outputs(self, *inputs, dtype=None, moving_bn=False, bn_collect=None,
-                bn_group=None) -> Dict[str, torch.Tensor]:
+                bn_group=None, dropout_step=None) -> Dict[str, torch.Tensor]:
         """Every named layer's output (and the inputs), the JAX ``apply``.
 
         ``inputs``: tensors in ``input_names``' order, or one dict by name.
         ``dtype``: the compute dtype (None: f32); ``moving_bn``: the
         ``bn=True`` convs take their moving statistics; ``bn_collect`` (a
         list) receives their batch statistics; ``bn_group``: the process
-        group whose ranks' rows share them (``models/layers.py``)."""
+        group whose ranks' rows share them (``models/layers.py``).
+        ``dropout_step``: the step that keys the dropout masks in training
+        (an int or an integer tensor, the JAX ``fold_in`` step); None takes
+        the count of such calls, which then moves on by one."""
         if len(inputs) == 1 and isinstance(inputs[0], dict):
             feeds = dict(inputs[0])
         else:
@@ -455,9 +456,19 @@ class Network(nn.Module):
         out = {k: (v.float() / 255.0 if v.dtype == torch.uint8 else v)
                for k, v in feeds.items()}
         bn = (moving_bn, bn_collect, bn_group)
+        # each dropout layer's place in the chain keys its masks
+        order = {id(s): i for i, s in enumerate(
+            s for s in self.specs if s.kind == 'dropout')}
+        step = dropout_step
+        if step is None and self.training and self.has_dropout():
+            step = self._dropout_calls
+            self._dropout_calls += 1
         for spec in self.specs:
             xs = [out[n] for n in spec.inputs]
-            out[spec.name] = self._apply_layer(spec, xs, dtype, bn)
+            key = None
+            if id(spec) in order and step is not None:
+                key = L.dropout_key(self.dropout_seed, order[id(spec)], step)
+            out[spec.name] = self._apply_layer(spec, xs, dtype, bn, key)
         return out
 
     def forward(self, *inputs, **kwargs) -> torch.Tensor:
@@ -467,7 +478,7 @@ class Network(nn.Module):
             else self.layer_order[-1]
         return self.outputs(*inputs, **kwargs)[name]
 
-    def _apply_layer(self, spec, xs, dtype, bn):
+    def _apply_layer(self, spec, xs, dtype, bn, key=None):
         kw = spec.kwargs
         module = self._modules.get(spec.name)
         x = xs[0]
@@ -490,10 +501,7 @@ class Network(nn.Module):
         if spec.kind == 'softmax':
             return L.softmax(x)
         if spec.kind == 'dropout':
-            train = self.training and kw['keep_prob'] < 1.0
-            return L.dropout(x, kw['keep_prob'], self.training,
-                             self.dropout_generator(x.device)
-                             if train else None)
+            return L.dropout(x, kw['keep_prob'], self.training, key)
         return LL.apply(spec.kind, module, xs, kw, dtype)
 
     # -- losses ------------------------------------------------------------------

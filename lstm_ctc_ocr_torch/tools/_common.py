@@ -2,11 +2,13 @@
 the JAX package's tools take from the repo-root ``bench.py``
 (:func:`build_batches`, the peak lookup :func:`peak_flops_for`), the timing
 discipline of those tools (:func:`timed_ms`), the FLOP count of a call
-(:func:`count_flops`) and the kernel launch counters (:func:`launch_counts`).
+(:func:`count_flops`), the kernel launch counters (:func:`launch_counts`)
+and the TF interop tools' import of tensorflow (:func:`import_tensorflow`).
 """
 
 from __future__ import annotations
 
+import os
 import random
 import time
 
@@ -138,3 +140,17 @@ def count_flops(fn, *args, per_launch=None):
     extra = sum((per_launch or {}).get(k, 0) * (after[k] - before[k])
                 for k in after)
     return counter.get_total_flops() + extra
+
+
+def import_tensorflow(tool: str):
+    """``tensorflow``, imported when a TF interop tool needs it (its C++
+    logs quieted, as the JAX tools do); where it does not import, an
+    ``ImportError`` that names it and ``tool``."""
+    os.environ.setdefault('TF_CPP_MIN_LOG_LEVEL', '3')
+    try:
+        import tensorflow
+    except ImportError as e:
+        raise ImportError(
+            '{} needs tensorflow, which does not import here ({}); install '
+            'tensorflow to read or write TF files'.format(tool, e)) from e
+    return tensorflow

@@ -14,7 +14,12 @@ identical windows, and reports the deltas, in which those costs cancel:
   built with ``layers.BiLSTM(recurrence=ops/rnn.py:bilstm_scan_pair)``);
 * ``ctc=none lstm=kernel``: the CTC loss replaced by the JAX tool's dummy,
   ``mean(logits^2)`` + the L2 term (:func:`dummy_loss_fn`), with no BN
-  moving-statistics update, as the JAX dummy step keeps ``bn`` unchanged.
+  moving-statistics update, as the JAX dummy step keeps ``bn`` unchanged;
+* ``conv=shifted``: the kernels' step with conv2 to conv5 lowered to
+  shifted matmuls (``CONV_IMPL: shifted``, ``ops/conv.py``).
+
+The first four take the config's ``CONV_IMPL`` (``'xla'``, cuDNN, by
+default), as the JAX tool's do.
 
 Every variant starts from the same weights with a fresh solver, takes
 ``--warm`` steps (200, the JAX tool's count) and then ``--windows`` windows
@@ -24,11 +29,10 @@ keys, whose ``pallas`` here means the hand kernels and ``scan`` the plain
 PyTorch versions: ``delta_ctc_pallas_vs_scan_ms`` is the kernels' step less
 the plain-CTC step, ``delta_ctc_pallas_vs_none_ms`` the kernels' step less
 the dummy-loss step, ``delta_lstm_pallas_vs_scan_ms`` the kernels' step less
-the plain-BiLSTM step. The JAX tool's ``conv=shifted`` variant has no
-counterpart: the port reads no ``CONV_IMPL``, and the JAX package's
-``shifted`` lowering computes XLA's conv exactly
-(``lstm_ctc_ocr_tpu/ops/conv.py``). The batch is rendered by
-``cfg.RENDERER`` (``--set RENDERER native`` without Pillow). Run::
+the plain-BiLSTM step. As in the JAX tool, ``conv=shifted`` has its
+variant line and no delta key: its delta is its step less the first
+variant's. The batch is rendered by ``cfg.RENDERER`` (``--set RENDERER
+native`` without Pillow). Run::
 
     python -m lstm_ctc_ocr_torch.tools.attrib_step [--batch 64 --width 96]
         [--device cpu] [--set KEY VALUE ...]
@@ -79,10 +83,11 @@ def variants(base, cfg, dtype):
     """``[(name, model, make_step)]``: each variant's model (a copy of
     ``base``'s weights) and the factory of its step, ``make_step(model,
     optimizer)``."""
-    plain_head = _PlainBiLSTM(int(cfg.NCHANNELS), int(cfg.TRAIN.NUM_HID),
-                              int(cfg.NCLASSES))
-    plain_head.load_state_dict(base.state_dict())
-    plain_head.to(next(base.parameters()).device).train()
+    def copy_of(kind, conv_impl):
+        m = kind(int(cfg.NCHANNELS), int(cfg.TRAIN.NUM_HID),
+                 int(cfg.NCLASSES), conv_impl=conv_impl)
+        m.load_state_dict(base.state_dict())
+        return m.to(next(base.parameters()).device).train()
 
     def kernels(m, o):
         return make_train_step(m, o, cfg, dtype)
@@ -94,10 +99,13 @@ def variants(base, cfg, dtype):
     def no_ctc(m, o):
         return make_train_step(m, o, cfg, dtype,
                                loss_fn=dummy_loss_fn(m, cfg, dtype))
+    conv_impl = str(cfg.CONV_IMPL)
     return [('ctc=kernel lstm=kernel', copy.deepcopy(base), kernels),
             ('ctc=plain lstm=kernel', copy.deepcopy(base), plain_ctc),
-            ('ctc=kernel lstm=plain', plain_head, kernels),
-            ('ctc=none lstm=kernel', copy.deepcopy(base), no_ctc)]
+            ('ctc=kernel lstm=plain', copy_of(_PlainBiLSTM, conv_impl),
+             kernels),
+            ('ctc=none lstm=kernel', copy.deepcopy(base), no_ctc),
+            ('conv=shifted', copy_of(LSTM_train, 'shifted'), kernels)]
 
 
 @full_f32()

@@ -41,7 +41,8 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.native.ctc_ref',
     'lstm_ctc_ocr_torch.native.synth', 'lstm_ctc_ocr_torch.ops',
     'lstm_ctc_ocr_torch.ops._build', 'lstm_ctc_ocr_torch.ops.beam',
-    'lstm_ctc_ocr_torch.ops.conv_bn_cuda', 'lstm_ctc_ocr_torch.ops.ctc',
+    'lstm_ctc_ocr_torch.ops.conv', 'lstm_ctc_ocr_torch.ops.conv_bn_cuda',
+    'lstm_ctc_ocr_torch.ops.ctc',
     'lstm_ctc_ocr_torch.ops.ctc_cuda', 'lstm_ctc_ocr_torch.ops.custom_ops',
     'lstm_ctc_ocr_torch.ops.decoder',
     'lstm_ctc_ocr_torch.ops.rnn', 'lstm_ctc_ocr_torch.ops.rnn_cuda',
@@ -62,6 +63,9 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.tools.calibrate_bn',
     'lstm_ctc_ocr_torch.tools.convert_ckpt2npy',
     'lstm_ctc_ocr_torch.tools.export_model',
+    'lstm_ctc_ocr_torch.tools.export_tfrecords',
+    'lstm_ctc_ocr_torch.tools.import_tf_checkpoint',
+    'lstm_ctc_ocr_torch.tools.import_tfrecords',
     'lstm_ctc_ocr_torch.tools.profile_step',
     'lstm_ctc_ocr_torch.tools.release_ckpt',
     'lstm_ctc_ocr_torch.tools.vis_batch',

@@ -226,3 +226,55 @@ def test_frozen_statistics_stay_frozen(tmp_path, solver):
     checkpoint.load_into(fresh, path, need_bn_state=False)
     for k, b in fresh.named_buffers():
         assert torch.equal(b, frozen[k]), k
+
+
+@pytest.mark.parametrize('solver', ['Adam', 'Momentum'])
+def test_port_snapshot_restores_in_jax_with_its_optimizer_state(tmp_path,
+                                                                solver):
+    """A port snapshot of a net with frozen batch-norm statistics holds the
+    moments the JAX optax state has for them (zeros), so the JAX package's
+    ``checkpoint.restore`` takes it whole, optimizer state included, into
+    its own state tree; the port reads the JAX snapshot back the same."""
+    from lstm_ctc_ocr_tpu.engine import checkpoint as jcheckpoint
+    from lstm_ctc_ocr_tpu.engine import train as jtrain
+    from torch_dsl_cases import JaxCfg, JChain, perturbed_params, \
+        port_from_jax
+    steps = [(('data',), 'conv', (3, 3, 8, 1, 1), {'name': 'c'}),
+             (None, 'batch_normalization', (), {'name': 'bn'}),
+             (None, 'pva_negation_block', (3, 3, 4, 1, 1), {'name': 'nb'})]
+    shapes = {'data': (2, 6, 5, 3)}
+    cfg = load_cfg(None, ['TRAIN.SOLVER', repr(solver)])
+    with JaxCfg(TRAIN__SOLVER=solver):
+        jnet = JChain(steps)
+        params = perturbed_params(jnet, shapes)
+        template = {'params': params, 'bn_state': jnet.init_bn_state(),
+                    'opt_state': jtrain.make_optimizer().init(params)}
+        net = port_from_jax(PChain(steps, shapes, cfg=cfg), params)
+        opt = train.make_optimizer(net, cfg)
+        for _ in range(2):
+            net.zero_grad()
+            (net(torch.randn(2, 3, 6, 5)) ** 2).mean().backward()
+            opt.step()
+        path = checkpoint.save(net, opt, str(tmp_path / 'port'), 3, cfg)
+        state = jcheckpoint.restore(template, path)
+    flat = jcheckpoint.flatten_state(state)
+    written = checkpoint.read_flat(path)
+    assert set(flat) == set(written)
+    for key, arr in flat.items():
+        np.testing.assert_array_equal(np.asarray(arr), written[key], key)
+    frozen = [k for k in flat if k.startswith('opt_state/')
+              and 'bn_moving_' in k]
+    assert len(frozen) == 4 * len(opt.moments)
+    assert all(not np.asarray(flat[k]).any() for k in frozen)
+    assert any(np.asarray(flat[k]).any() for k in flat
+               if k.startswith('opt_state/') and k not in frozen
+               and not k.endswith('.count'))
+
+    theirs = jcheckpoint.save(state, str(tmp_path / 'jax'), 3)
+    net2 = PChain(steps, shapes, cfg=cfg)
+    opt2 = train.make_optimizer(net2, cfg)
+    checkpoint.restore(net2, opt2, theirs)
+    assert opt2.count == opt.count == 2
+    for slot, tensors in opt.moments.items():
+        for name, t in tensors.items():
+            assert torch.equal(t, opt2.moments[slot][name]), slot + name

@@ -16,8 +16,9 @@ modules and against the JAX package's ``Network``.
   (f32; ``LSTM_IMPL: jax``, the plain scan, on the JAX side).
 * ``fc``, ``softmax`` and ``avg_pool`` (SAME and VALID, odd and even
   windows, stride 2) likewise; ``dropout``'s semantics (identity outside
-  training and at ``keep_prob`` 1, inverted scaling, seeded masks, a
-  K-step dispatch refused by name); ``regularization_loss`` against the
+  training and at ``keep_prob`` 1, inverted scaling, seeded masks, masks
+  keyed by the step and the layer, a K-step dispatch taken);
+  ``regularization_loss`` against the
   JAX ``reg_paths``; the ``pool2`` quirk, unnamed layers, the
   ``reshape_squeeze`` and 3-D ``c_i`` asserts and unknown names as in JAX.
 """
@@ -308,12 +309,32 @@ def test_dropout_semantics():
 
 
 def test_dropout_refuses_k_step_dispatch():
+    """No longer refused: the masks are a function of (seed, layer, step),
+    whatever the order of the calls, an int step or a tensor one, on any
+    device, so a K-step dispatch builds (``tests/test_torch_train.py``
+    holds its masks to single steps')."""
     cfg = _cfg()
-    net = PChain([(('data',), 'dropout', (0.5,), {}),
-                  (None, 'fc', (3,), {})], {'data': (2, 5)}, cfg=cfg)
+    net = PChain([(('data',), 'dropout', (0.5,), {'name': 'd1'}),
+                  (None, 'dropout', (0.5,), {'name': 'd2'}),
+                  (None, 'fc', (3,), {})], {'data': (2, 5)}, cfg=cfg).train()
     opt = train.make_optimizer(net, cfg)
-    with pytest.raises(NotImplementedError, match='dropout'):
-        train.make_train_chunk(net, opt, cfg, None, 3)
+    assert callable(train.make_train_chunk(net, opt, cfg, None, 3))
+    x = torch.rand(64, 5) + 1.0
+
+    def masks(step):
+        outs = net.outputs(x, dropout_step=step)
+        return (outs['d1'] != 0), (outs['d2'] != 0) | (outs['d1'] == 0)
+    later = masks(torch.tensor(5, dtype=torch.int32))
+    first = masks(4)
+    assert all(torch.equal(a, b) for a, b in zip(masks(5), later))
+    assert all(torch.equal(a, b) for a, b in zip(masks(4), first))
+    assert not torch.equal(first[0], later[0])      # steps differ
+    d1, d2 = layers.dropout_key(cfg.RNG_SEED, 0, 4), \
+        layers.dropout_key(cfg.RNG_SEED, 1, 4)
+    assert int(d1) != int(d2)                       # and so do the layers
+    kept = layers.dropout_mask((64, 5), 0.5, d1, 'cpu')
+    assert torch.equal(kept, first[0])
+    assert 0.4 < kept.float().mean().item() < 0.6
 
 
 def test_decode_runs_in_eval_mode():

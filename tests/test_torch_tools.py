@@ -158,11 +158,11 @@ def test_attrib_step_lines(capsys):
     lines = _lines(attrib_step.main, ONE + [
         '--batch', '2', '--width', '64', '--warm', '1', '--set'] + TINY_MODEL,
         capsys)
-    assert _keys(lines) == [JAX_KEYS['attrib_variant']] * 4 \
+    assert _keys(lines) == [JAX_KEYS['attrib_variant']] * 5 \
         + [JAX_KEYS['attrib_delta']]
-    assert [r['variant'] for r in lines[:4]] == [
+    assert [r['variant'] for r in lines[:5]] == [
         'ctc=kernel lstm=kernel', 'ctc=plain lstm=kernel',
-        'ctc=kernel lstm=plain', 'ctc=none lstm=kernel']
+        'ctc=kernel lstm=plain', 'ctc=none lstm=kernel', 'conv=shifted']
     assert lines[-1]['device'] == 'cpu'
 
 

@@ -12,7 +12,8 @@
 * Snapshots written by either package restore in the other, optimizer
   state included, for all three solvers.
 * ``SolverWrapper`` on the CPU: snapshot names, the low-loss snapshot, the
-  resume step, and what raises ``NotImplementedError`` by name.
+  resume step, and a DSL net's dropout masks, the same under a K-step
+  dispatch and after a resume as in single steps of one run.
 """
 
 import copy
@@ -34,6 +35,7 @@ from lstm_ctc_ocr_tpu.models.factory import get_network as jget_network
 from lstm_ctc_ocr_torch.config import load_cfg
 from lstm_ctc_ocr_torch.data import records
 from lstm_ctc_ocr_torch.engine import checkpoint, train
+from lstm_ctc_ocr_torch.models import layers
 from lstm_ctc_ocr_torch.models.factory import get_network
 from lstm_ctc_ocr_torch.models.network import Network
 
@@ -436,21 +438,70 @@ class _DropoutNet(Network):
         self.feed('drop', 'time_step_len').bi_lstm(8, 1, name='logits')
 
 
+def _masked_run(monkeypatch, cfg, out, log, max_iters, restore=False):
+    """``train_net`` of a fresh ``_DropoutNet``; returns its losses and the
+    dropout masks it drew, in order."""
+    drawn = []
+    real = layers.dropout_mask
+
+    def spy(*args, **kwargs):
+        mask = real(*args, **kwargs)
+        drawn.append(mask.clone())
+        return mask
+    monkeypatch.setattr(layers, 'dropout_mask', spy)
+    net = _DropoutNet(cfg, generator=torch.Generator().manual_seed(3))
+    _, _, losses = train.train_net(net, {}, None, out, log, cfg,
+                                   max_iters=max_iters, restore=restore,
+                                   device='cpu')
+    monkeypatch.setattr(layers, 'dropout_mask', real)
+    return losses, drawn
+
+
 @pytest.mark.parametrize('overrides,match', [
     (['TRAIN.STEPS_PER_DISPATCH', '3'], 'dropout'),
 ])
-def test_unported_options_raise_by_name(tiny_records, tmp_path, overrides,
-                                        match):
-    """What the solver does not do raises ``NotImplementedError`` naming
-    it: a DSL net's dropout under a K-step dispatch (a CUDA graph would
-    replay one mask). ``.npy`` pre-train dicts, once listed here, now load
-    (``tests/test_torch_npy_pretrained.py``)."""
-    cfg = _solver_cfg(tiny_records, *overrides)
-    net = _DropoutNet(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        train.train_net(net, {}, None, str(tmp_path / 'out'),
-                        str(tmp_path / 'log'), cfg, max_iters=3,
-                        device='cpu')
+def test_unported_options_raise_by_name(tiny_records, tmp_path, monkeypatch,
+                                        overrides, match):
+    """Once refused by name, now ported: a DSL net's dropout under a K-step
+    dispatch draws the masks of K single steps (they are keyed by the
+    step's index, read from the solver's update count), so K=3 and three
+    K=1 steps give the same losses and masks bit for bit."""
+    runs = {}
+    for k in ('1', '3'):
+        cfg = _solver_cfg(tiny_records, *overrides[:-1], k,
+                          'TRAIN.SNAPSHOT_ITERS', '100', 'VAL.VAL_STEP',
+                          '100')
+        chunks = []
+        real = train.make_train_chunk
+        monkeypatch.setattr(train, 'make_train_chunk', lambda *a, **kw: (
+            chunks.append(a[4]) or real(*a, **kw)))
+        runs[k] = _masked_run(monkeypatch, cfg, str(tmp_path / k),
+                              str(tmp_path / ('log' + k)), 4)
+        monkeypatch.setattr(train, 'make_train_chunk', real)
+        assert chunks == ([3] if k == '3' else []), match
+    (loss1, masks1), (loss3, masks3) = runs['1'], runs['3']
+    assert len(loss1) == len(masks1) == 3 and np.isfinite(loss1).all()
+    assert loss3 == loss1
+    assert all(torch.equal(a, b) for a, b in zip(masks3, masks1))
+    assert not torch.equal(masks1[0], masks1[1])
+
+
+def test_resumed_dropout_draws_the_uninterrupted_masks(tiny_records,
+                                                       tmp_path, monkeypatch):
+    """A run resumed from the snapshot at step 3 draws, from step 3 on, the
+    masks of the run that was not interrupted, as the JAX solver's
+    ``fold_in(base, it)`` keys do."""
+    cfg = _solver_cfg(tiny_records, 'VAL.VAL_STEP', '100')
+    _, whole = _masked_run(monkeypatch, cfg, str(tmp_path / 'whole'),
+                           str(tmp_path / 'log'), 7)
+    _masked_run(monkeypatch, cfg, str(tmp_path / 'cut'),
+                str(tmp_path / 'log'), 4)
+    assert 'lstm_ctc_iter_3.ckpt.npz' in os.listdir(str(tmp_path / 'cut'))
+    losses, resumed = _masked_run(monkeypatch, cfg, str(tmp_path / 'cut'),
+                                  str(tmp_path / 'log'), 7, restore=True)
+    assert len(whole) == 6 and len(resumed) == len(losses) == 4
+    assert all(torch.equal(a, b) for a, b in zip(resumed, whole[2:]))
+    assert not torch.equal(whole[2], whole[3])
 
 
 def test_solver_validation_decodes_with_beam(tiny_records, tmp_path, capsys):
