@@ -32,7 +32,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    and (checked, not timed) with L=15/16 and L=31/32 (both sides of each
    path boundary of both kernels: one warp per example with one or two
    states a lane up to S=64, one block per example past it), L=64 and
-   L=511, the longest label one block of threads holds, L=0 alone, T=1,
+   L=511 (one thread a state; phase 14 goes past it), L=0 alone, T=1,
    T=15/16/17 and 31/32/33 (around one and two chunks of the warp kernels'
    ring) and batch 1, each batch ragged with an empty label, an infeasible
    example and a one-frame example where it is long enough: ``ctc_fwd``'s
@@ -115,11 +115,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ms per step.
 7. Serve phase: the serving export (``engine/serve.py``) and the release
    tools, batch 64, bf16. (a) Every release of the eval phase exported
-   with ``export_decoder``, one ``torch.export`` program per bucket its val
-   set falls in — except ``longline``, exported at its most populous
-   bucket only (W=384, 131 of its 200 files), because each of its three
-   beam buckets takes about a minute of host time to export and load —
-   and the stacked-LSTM snapshot of phase 6 at ``data/val``'s buckets;
+   with ``export_decoder``: a greedy release one ``torch.export`` program
+   per bucket its val set falls in, a beam release its most populous
+   bucket only (a beam export takes ~1 s of host time a frame to export and
+   ~0.3 s to load: ``longline`` at W=384, 131 of its 200 files), and the
+   stacked-LSTM snapshot of phase 6 at ``data/val``'s buckets;
    the seconds of each bucket's export and the artifacts' MB are printed.
    (b) A fresh process that imports ``lstm_ctc_ocr_torch`` and nothing
    else of the repo (no ``jax``, no ``lstm_ctc_ocr_tpu`` in its
@@ -264,6 +264,31 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     each raises ``ImportError`` naming it; with it, export then import of
     ``data/val`` gives its records file byte for byte. ``python3
     chip_smoke.py --phase 13`` runs the build and this phase alone.
+14. Width phase: every hidden width and label length the JAX package
+    runs. (a) ``bilstm_fwd``/``bilstm_bwd``/``lstm_fwd``/``lstm_bwd``
+    against their plain versions at H in 50 (zero-padded to the kernels'
+    step), 300, 512 (the bf16 clusters' limit), 768 and 1024 (the wide
+    recurrence) per direction, f32 and bf16, at batch 64 with T=23 and
+    T=111, a ragged batch of 37 with empty rows and T=1 at batch 3: phase
+    2's bars (f32 1e-4, the backwards relative to each output's largest
+    entry; bf16 4 ulps of the reference's magnitude), two calls bit for
+    bit, outputs zero past ``lens``; the kernels' ptxas reports and the
+    BiLSTM's bf16 clusters at H=512; CUDA-event ms of each wrapper at
+    H=512, 768 and 1024 (batch 64, T=23) beside cuDNN's ``nn.LSTM`` at the
+    same H and the bound. (b) ``lstm/lstm.yml`` with ``TRAIN.NUM_HID
+    1024`` (H=512 a direction): ``train_net`` 60 steps on phase 5's
+    records file (finite, falling loss; kernels 1-4 once a step), one f32
+    step's gradients against the plain versions (phase 5(c)'s bar),
+    ``test_net`` on the snapshot (counts, no bar), its most populous
+    bucket exported and served from a fresh process (strings equal to
+    ``test_net``'s), then 20 steps of the stacked head at ``.lstm(1024,
+    2)`` (kernels 5-6 once a layer a step). (c) The CTC kernels at L=512,
+    600 and 1024, T=2L+9, batch 16 with an empty label, an infeasible and
+    a one-frame example: logZ and alphas bit for bit, the gradient <=
+    1e-5, two calls bit for bit. (d) ``conv3x3_bn_relu`` at C_in 1 and 24
+    (zero channels up to 16) against its plain version at phase 2's bars.
+    ``python3 chip_smoke.py --phase 14`` runs the build and this phase
+    alone.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 seven kernels (and the rates, the synthetic stream's, the serve, the
@@ -271,6 +296,8 @@ dispatch, the data-parallel, the tools, the DSL and the shifted phase's
 numbers); the last line is ``{"ok": true, "device": {...}}``. Per-image eval
 lines, the training runs', the serve phase's, the tools', the DSL and the
 shifted phase's output go to ``chiprun_out/``.
+The width phase's numbers join the JSON line, and its training output goes
+to ``chip_smoke_width.log`` beside the others.
 """
 
 import contextlib
@@ -1806,10 +1833,9 @@ def stacked_phase(mods, card, rec_path, log):
     return counts, rate, r.predictions
 
 
-# the served releases' export buckets: every bucket its val set falls in,
-# except longline, whose three beam buckets (T=79, 95, 111) would take
-# minutes of host time to export and load: its most populous bucket only
-SERVE_ONLY_BUCKET = {'longline/beam': 384}
+# the served releases' export buckets: a greedy release every bucket its
+# val set falls in, a beam release its most populous bucket only (a beam
+# export takes ~1 s of host time a frame to export and ~0.3 s to load)
 
 # runs in a fresh process that imports lstm_ctc_ocr_torch and nothing else
 # of the repo: loads each artifact directory, decodes its files in the given
@@ -1949,9 +1975,10 @@ def serve_phase(mods, card, eval_predictions, stacked_predictions, log):
             os.path.join(REPO, 'checkpoints', cfg.EXP_DIR))[0],
             bn_eval == 'moving')
         val = os.path.join(REPO, val_dir)
-        buckets = sorted(files_by_bucket(mods, cfg, val))
-        if label in SERVE_ONLY_BUCKET:
-            buckets = [SERVE_ONLY_BUCKET[label]]
+        groups = files_by_bucket(mods, cfg, val)
+        buckets = sorted(groups)
+        if decoder == 'beam':
+            buckets = [max(buckets, key=lambda b: len(groups[b]))]
         out_dir = export(label, model, cfg, val, buckets)
         wanted[label] = (eval_predictions[label], total, least, 'bilstm_fwd')
         if label == 'lstm_ctc/batch':
@@ -4086,8 +4113,458 @@ def shifted_phase(mods, card, rec_path, eval_predictions, log,
     return launches, out
 
 
+# --- phase 14: every hidden width and label length the JAX package runs ----
+
+# hidden sizes of phase 14 (a), per direction: no multiple of 8 (padded), the
+# f32 wide path and the bf16 cluster's limit, past one cluster
+WIDTHS = (50, 300, 512, 768, 1024)
+# (label, T, N, ragged) of phase 14 (a), each at every width and type
+WIDTH_CASES = [('N=64 T=23', 23, 64, False), ('N=64 T=111', 111, 64, False),
+               ('ragged N=37 T=23', 23, 37, True), ('N=3 T=1', 1, 3, False)]
+WIDE_HID = 1024          # TRAIN.NUM_HID of phase 14 (b): H = 512 a direction
+
+
+def width_kernels(rnn_cuda, label, c, uni, dtype):
+    """Phase 14 (a) at one case: the four LSTM wrappers against their plain
+    versions, each kernel called twice (bit for bit), the forwards with
+    residuals. Returns the worst shares of the bars by kernel."""
+    args = kernel_args(c)
+    h = c['uf'].shape[0]
+    fwd = rnn_cuda.bilstm_fwd(*args, save_residuals=True)
+    fwd2 = rnn_cuda.bilstm_fwd(*args, save_residuals=True)
+    want = rnn_cuda.bilstm_fwd_reference(*args, save_residuals=True)
+    g = torch.Generator().manual_seed(h)
+    dof, dob = ((torch.randn(fwd[2].shape, generator=g) * 0.1).cuda()
+                .to(dtype) for _ in range(2))
+    res = fwd[1:4] + fwd[5:8]
+    bwd_args = (dof, dob) + res + (c['uf'], c['ub'], c['lens'])
+    bwd = rnn_cuda.bilstm_bwd(*bwd_args)
+    bwd2 = rnn_cuda.bilstm_bwd(*bwd_args)
+    want_b = rnn_cuda.bilstm_bwd_reference(*bwd_args)
+    uargs = (uni['xp'], uni['u'], uni['b'], uni['lens'])
+    ufwd = rnn_cuda.lstm_fwd(*uargs, save_residuals=True)
+    ufwd2 = rnn_cuda.lstm_fwd(*uargs, save_residuals=True)
+    want_u = rnn_cuda.lstm_fwd_reference(*uargs, save_residuals=True)
+    ubargs = (dof,) + tuple(ufwd[1:]) + (uni['u'], uni['lens'])
+    ubwd = rnn_cuda.lstm_bwd(*ubargs)
+    ubwd2 = rnn_cuda.lstm_bwd(*ubargs)
+    want_ub = rnn_cuda.lstm_bwd_reference(*ubargs)
+    torch.cuda.synchronize()
+    out = {}
+    for name, got, again, ref, backward, lens in (
+            ('bilstm_fwd', fwd, fwd2, want, False, c['lens']),
+            ('bilstm_bwd', bwd, bwd2, want_b, True, c['lens']),
+            ('lstm_fwd', ufwd, ufwd2, want_u, False, uni['lens']),
+            ('lstm_bwd', ubwd, ubwd2, want_ub, True, uni['lens'])):
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if backward:      # phase 2's backward bar: of each output's largest
+            err, share, ok = rel_err(got, ref, dtype)
+            share /= 1e-4 if dtype == torch.float32 else 4 / 256
+        else:
+            err, ok = max_err(got, ref, dtype)
+            share = max(
+                float((a.float() - r.float()).abs().max())
+                / (1e-4 if dtype == torch.float32
+                   else 4 * (float(r.float().abs().max()) or 1.0) / 256)
+                for a, r in zip(got, ref))
+        dead = torch.arange(got[0].shape[0], device='cuda')[:, None] \
+            >= lens[None, :]
+        zero = backward or not got[0][dead].any()
+        check(ok and same and zero and all(
+            a.shape == r.shape for a, r in zip(got, ref)),
+            'phase 14 {} H={} {} {}: max|diff| {}, bit for bit {}, zero past '
+            'lens {}'.format(name, h, label, dtype, err, same, zero))
+        out[name] = share
+    return out
+
+
+def width_timing(rnn_cuda, h, dtype):
+    """Phase 14 (a)'s times at one width (batch 64, T=23): each wrapper
+    beside cuDNN's ``nn.LSTM`` at the same H (forward, and backward alone)
+    and its bound; median CUDA-event ms."""
+    c = bilstm_case(23, 64, dtype, False, seed=h, h=h, d=512)
+    uni = lstm_case(23, 64, dtype, False, seed=h + 1, h=h, d=512)
+    reps = 10 if h > 512 else 30
+    bargs = bilstm_bwd_args(c, rnn_cuda, h)
+    ures = rnn_cuda.lstm_fwd(uni['xp'], uni['u'], uni['b'], uni['lens'],
+                             save_residuals=True)
+    g = torch.Generator().manual_seed(7)
+    dout = (torch.randn(ures[0].shape, generator=g) * 0.1).cuda().to(dtype)
+    uargs = (dout,) + tuple(ures[1:]) + (uni['u'], uni['lens'])
+    row = {}
+    bi_lstm, bi_packed = cudnn_yardstick(c)
+    uni_lstm, uni_packed = cudnn_yardstick(uni)
+    with torch.no_grad():
+        row['bilstm_fwd'] = {
+            'ms': median_ms(lambda: rnn_cuda.bilstm_fwd(*kernel_args(c)),
+                            reps=reps),
+            'library_ms': median_ms(lambda: bi_lstm(bi_packed), reps=reps)}
+        row['lstm_fwd'] = {
+            'ms': median_ms(lambda: rnn_cuda.lstm_fwd(
+                uni['xp'], uni['u'], uni['b'], uni['lens']), reps=reps),
+            'library_ms': median_ms(lambda: uni_lstm(uni_packed), reps=reps)}
+        row['bilstm_bwd'] = {
+            'ms': median_ms(lambda: rnn_cuda.bilstm_bwd(*bargs), reps=reps)}
+        row['lstm_bwd'] = {
+            'ms': median_ms(lambda: rnn_cuda.lstm_bwd(*uargs), reps=reps)}
+    row['bilstm_bwd']['library_ms'] = median_ms(cudnn_backward_yardstick(c),
+                                                reps=reps)
+    uni_c = dict(uni, xpf=uni['xp'])
+    row['lstm_bwd']['library_ms'] = median_ms(
+        cudnn_backward_yardstick(uni_c), reps=reps)
+    row['bilstm_fwd']['bound_ms'], row['bilstm_fwd']['bound_by'] = \
+        bound_ms(c, dtype)
+    row['bilstm_bwd']['bound_ms'], row['bilstm_bwd']['bound_by'] = \
+        bilstm_bwd_bound_ms(c, dtype)
+    row['lstm_fwd']['bound_ms'], row['lstm_fwd']['bound_by'] = \
+        lstm_bound_ms(uni, dtype, False)
+    row['lstm_bwd']['bound_ms'], row['lstm_bwd']['bound_by'] = \
+        lstm_bound_ms(uni, dtype, True)
+    row['path'] = rnn_cuda.kernel_path(dtype, h)
+    return row
+
+
+def ctc_long_phase(ctc, ctc_cuda):
+    """Phase 14 (c): the CTC kernels past 511 characters, one block per
+    example walking several states a thread, against their plain versions:
+    logZ and alphas bit for bit, the gradient f32 <= 1e-5, two calls of each
+    bit for bit; ragged, with an empty label, an infeasible and a one-frame
+    example. Also each kernel's time at L=600."""
+    out = {}
+    for l_max in (512, 600, 1024):
+        t_len = 2 * l_max + 9
+        case = ctc_case(ctc, t_len, l_max, seed=l_max, n=16)
+        g, (skip, valid, final) = case['g'], case['masks']
+        check(g.shape[2] == 2 * l_max + 1, 'CTC case S {}'.format(g.shape))
+        logz, alphas = ctc_cuda.ctc_forward(g, skip, valid, final)
+        again = ctc_cuda.ctc_forward(g, skip, valid, final)
+        want_z, want_a = ctc.ctc_forward_reference(g, skip, valid, final)
+        grad = ctc_cuda.ctc_backward(g, skip, valid, final, want_a, want_z,
+                                     case['logit_lens'])
+        grad2 = ctc_cuda.ctc_backward(g, skip, valid, final, want_a, want_z,
+                                      case['logit_lens'])
+        want_g = ctc.ctc_backward_reference(g, skip, valid, final, want_a,
+                                            want_z, case['logit_lens'])
+        torch.cuda.synchronize()
+        bits = torch.equal(logz, want_z) and torch.equal(alphas, want_a)
+        same = torch.equal(logz, again[0]) and torch.equal(alphas, again[1]) \
+            and torch.equal(grad, grad2)
+        err = float((grad - want_g).abs().max())
+        infeasible = float(logz[2]) <= ctc.NEG_INF / 2 and not grad[2].any()
+        print('phase 14 ctc L={} T={} S={} N=16: logZ and alphas bit for bit '
+              '{}, grad max|diff| {:.3e} (bar 1e-5), two calls bit for bit {}, '
+              'infeasible example zero {}'.format(
+                  l_max, t_len, g.shape[2], bits, err, same, infeasible),
+              flush=True)
+        check(bits and same and err <= 1e-5 and infeasible,
+              'phase 14 ctc L={}: bit for bit {}, grad {}, same {}'.format(
+                  l_max, bits, err, same))
+        row = {'t': t_len, 's': int(g.shape[2]), 'grad_max_abs_err': err}
+        if l_max == 600:
+            row['fwd_ms'] = median_ms(
+                lambda: ctc_cuda.ctc_forward(g, skip, valid, final), reps=10)
+            row['bwd_ms'] = median_ms(
+                lambda: ctc_cuda.ctc_backward(g, skip, valid, final, want_a,
+                                              want_z, case['logit_lens']),
+                reps=10)
+            row['fwd_plain_ms'] = median_ms(
+                lambda: ctc.ctc_forward_reference(g, skip, valid, final),
+                reps=3, warmup=1)
+            row['fwd_bound_ms'], row['fwd_bound_by'] = ctc_bound_ms(case,
+                                                                    False)
+            row['bwd_bound_ms'], row['bwd_bound_by'] = ctc_bound_ms(case, True)
+        out['L={}'.format(l_max)] = row
+    return out
+
+
+def conv_bn_any_phase(conv_bn_cuda):
+    """Phase 14 (d): ``conv3x3_bn_relu`` at C_in 1 (a first conv layer, W=96
+    by 32) and 24 (W=24 by 4), batch 64, against its plain version at phase
+    2's bars (f32 2e-5, bf16 2e-2, absolute + relative), two runs bit for
+    bit."""
+    out = {}
+    g = torch.Generator().manual_seed(14)
+    for ci, co, w, h in ((1, 64, 96, 32), (24, 128, 24, 4)):
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            def rnd(*shape, scale=1.0, shift=0.0):
+                return (torch.randn(*shape, generator=g) * scale + shift
+                        ).cuda()
+            x = rnd(64, ci, w, h).to(dtype)
+            args = (rnd(co, ci, 3, 3, scale=(9 * ci) ** -0.5),
+                    rnd(co, scale=0.1), rnd(co, scale=0.1, shift=1.0),
+                    rnd(co, scale=0.1))
+            with torch.no_grad():
+                got = conv_bn_cuda.conv3x3_bn_relu(x, *args)
+                again = conv_bn_cuda.conv3x3_bn_relu(x, *args)
+                want = conv_bn_cuda.conv3x3_bn_relu_reference(x, *args)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            share = float((d / (tol + tol * want.float().abs())).max())
+            same = torch.equal(got, again)
+            label = 'C_in={} {}'.format(ci, 'f32' if dtype == torch.float32
+                                        else 'bf16')
+            print('phase 14 conv_bn {} [64, {}, {}, {}] -> {}: max|diff| '
+                  '{:.3e} ({:.0%} of the bar), two runs bit for bit {}'.format(
+                      label, ci, w, h, co, float(d.max()), share, same),
+                  flush=True)
+            check(share <= 1.0 and same
+                  and tuple(got.shape) == (64, co, w, h),
+                  'phase 14 conv_bn {}: {} of the bar, same {}'.format(
+                      label, share, same))
+            out[label] = float(d.max())
+    return out
+
+
+def wide_stacked_model(mods, cfg):
+    """The CRNN with the stacked head at ``.lstm(1024, 2)``: two layers of
+    1024 units, past one cluster's shared memory (the wide recurrence)."""
+    crnn, layers = mods['crnn'], mods['layers']
+
+    class WideStacked(crnn.LSTM_train):
+        def make_head(self, num_hid, nclasses, generator):
+            return layers.LSTM(512, WIDE_HID, STACKED_LAYERS, nclasses,
+                               generator)
+    return WideStacked(
+        nchannels=int(cfg.NCHANNELS), num_hid=int(cfg.TRAIN.NUM_HID),
+        nclasses=int(cfg.NCLASSES),
+        generator=torch.Generator().manual_seed(int(cfg.RNG_SEED)))
+
+
+def wide_path_phase(mods, card, rec_path, log):
+    """Phase 14 (b): ``lstm/lstm.yml`` with ``TRAIN.NUM_HID 1024`` through
+    the entry points -- ``train_net`` 60 steps, one f32 step's gradients
+    against the plain versions, ``test_net`` on the snapshot, one exported
+    bucket served from a fresh process -- then 20 steps of the stacked head
+    at ``.lstm(1024, 2)``. Returns launches by path and the numbers."""
+    load_cfg, train, test_mod = mods['load_cfg'], mods['train'], mods['test']
+    rnn_cuda, ctc_cuda, serve = mods['rnn_cuda'], mods['ctc_cuda'], \
+        mods['serve']
+    yml = os.path.join(REPO, 'lstm', 'lstm.yml')
+    exp = 'chip_smoke_wide'
+    out_dir = os.path.join(REPO, 'output', exp)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    steps, val_step = 60, 50
+    wide = ['TRAIN.NUM_HID', str(WIDE_HID)]
+    cfg = load_cfg(yml, train_overrides(rec_path, exp) + wide + [
+        'VAL.VAL_STEP', str(val_step), 'TRAIN.DISPLAY', '10',
+        'TRAIN.SNAPSHOT_ITERS', str(steps), 'TRAIN.LOSS_MIN_SNAPSHOT', '0.0'])
+    net = mods['get_network']('LSTM_train', cfg, generator=torch.Generator()
+                              .manual_seed(int(cfg.RNG_SEED)))
+    check(tuple(net.logits.cells['fw'].u.shape) == (512, 2048),
+          'the BiLSTM is not 512 units a direction')
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        model, optimizer, losses = train.train_net(
+            net, {'name': 'chip_smoke'}, None, out_dir,
+            os.path.join(REPO, 'logs', exp), cfg, max_iters=steps + 1,
+            device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(rnn_cuda, ctc_cuda)
+    val_calls = sum(1 for it in range(1, steps + 1)
+                    if (it + 1) % val_step == 0)
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    print('phase 14 NUM_HID {} train: {} steps in {:.1f} s (start-up '
+          'included), total loss first 10 {:.4f} -> last 10 {:.4f}, launches '
+          '{}, {} validation decode(s) on {}'.format(
+              WIDE_HID, len(losses), wall, first, last, json.dumps(counts),
+              val_calls, card), flush=True)
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          'expected {} finite losses, got {}'.format(steps, losses))
+    check(last < first, 'the loss did not fall: {} -> {}'.format(first, last))
+    want = {'bilstm_fwd': steps + val_calls, 'bilstm_bwd': steps,
+            'lstm_fwd': 0, 'lstm_bwd': 0, 'ctc_fwd': steps, 'ctc_bwd': steps}
+    check(counts == want, 'launches {} over {} steps, expected {}'.format(
+        counts, steps, want))
+    paths = {'wide_train': counts}
+
+    # one f32 step: gradients with the kernels vs with the plain versions
+    cfg32 = load_cfg(yml, train_overrides(rec_path, exp) + wide
+                     + ['TRAIN.DTYPE', "'float32'"])
+    net32 = mods['get_network']('LSTM_train', cfg32, generator=torch
+                                .Generator().manual_seed(
+                                    int(cfg32.RNG_SEED))).cuda().train()
+    worst, n_tensors = compare_gradients(
+        mods, net32, cfg32, rec_path,
+        {'bilstm_fwd': 1, 'bilstm_bwd': 1, 'lstm_fwd': 0, 'lstm_bwd': 0,
+         'ctc_fwd': 1, 'ctc_bwd': 1})
+    print('phase 14 NUM_HID {} gradients, one f32 step: kernels vs plain '
+          'versions agree to {:.2e} of each tensor\'s largest entry ({} '
+          'tensors)'.format(WIDE_HID, worst, n_tensors), flush=True)
+    del net32
+
+    # test_net on the snapshot: it runs and counts (no release at this width)
+    snap = os.path.join(out_dir, 'lstm_ctc_iter_{}.ckpt.npz'.format(steps))
+    check(os.path.isfile(snap), 'no snapshot at {}'.format(snap))
+    eval_cfg = load_cfg(yml, wide + [
+        'TEST.BATCH_SIZE', '64', 'DECODER', "'greedy'", 'TRAIN.DTYPE',
+        "'bfloat16'", 'EXP_DIR', exp])
+    echoed = []
+    before = launch_counts(rnn_cuda, ctc_cuda)
+    val = os.path.join(REPO, 'data', 'val')
+    r = test_mod.test_net(eval_cfg, val, device='cuda', echo=echoed.append)
+    log.write('\n'.join(echoed) + '\n')
+    eval_launches = launch_counts(rnn_cuda, ctc_cuda)['bilstm_fwd'] \
+        - before['bilstm_fwd']
+    check(any(snap in line for line in echoed if line.startswith('Restored')),
+          'the evaluation did not restore {}'.format(snap))
+    check(r.total == 500 and len(r.predictions) == 500
+          and eval_launches == r.decode_calls,
+          'NUM_HID {} eval: {} images, {} launches for {} decode calls'
+          .format(WIDE_HID, r.total, eval_launches, r.decode_calls))
+    print('phase 14 NUM_HID {} test_net on the {}-step snapshot: {}/{} on '
+          'data/val (no bar), {} decode calls, {} bilstm_fwd launches'.format(
+              WIDE_HID, steps - 1, r.correct, r.total, r.decode_calls,
+              eval_launches), flush=True)
+    paths['wide_eval'] = dict({k: 0 for k in before},
+                              bilstm_fwd=eval_launches)
+
+    # one exported bucket (the most populous), served from a fresh process
+    groups = files_by_bucket(mods, eval_cfg, val)
+    bucket = max(groups, key=lambda b: len(groups[b]))
+    model = mods['get_network']('LSTM_test', eval_cfg)
+    mods['checkpoint'].load_into(model, snap, False)
+    export_dir = os.path.join(out_dir, 'export')
+    t0 = time.perf_counter()
+    serve.export_decoder(model, eval_cfg, export_dir, buckets=[bucket],
+                         batch=64, device='cuda')
+    export_s = time.perf_counter() - t0
+    files = sorted(groups[bucket])
+    spec_path = os.path.join(out_dir, 'spec.json')
+    res_path = os.path.join(out_dir, 'served.json')
+    with open(spec_path, 'w') as f:
+        json.dump([{'label': 'wide', 'export_dir': export_dir,
+                    'val_dir': val, 'files': files}], f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-c', SERVE_WORKER, spec_path,
+                           res_path], cwd=REPO, capture_output=True,
+                          text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    worker_s = time.perf_counter() - t0
+    log.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, 'phase 14 serving process failed ({}):\n{}'
+          .format(proc.returncode, proc.stderr[-4000:]))
+    with open(res_path) as f:
+        served = json.load(f)
+    got = served['releases']['wide']
+    diff = [f for f in files if got['predictions'][f] != r.predictions[f]]
+    print('phase 14 NUM_HID {} served bucket W={} ({} images) from a fresh '
+          'process: {} strings differ from test_net, {} calls, {} bilstm_fwd '
+          'launches; export {:.1f} s, serving process {:.1f} s'.format(
+              WIDE_HID, bucket, len(files), len(diff), got['calls'],
+              got['bilstm_fwd'], export_s, worker_s), flush=True)
+    check(not diff and served['foreign_modules'] == []
+          and got['bilstm_fwd'] == got['calls'] > 0,
+          'phase 14 served: {} differ, modules {}, launches {} for {} calls'
+          .format(diff[:10], served['foreign_modules'], got['bilstm_fwd'],
+                  got['calls']))
+    paths['wide_serve'] = dict({k: 0 for k in before},
+                               bilstm_fwd=got['bilstm_fwd'])
+    shutil.rmtree(export_dir)
+
+    # the stacked head at .lstm(1024, 2): 20 steps
+    stacked_steps = 20
+    cfg_s = load_cfg(yml, train_overrides(rec_path, exp + '_stacked') + wide
+                     + ['VAL.VAL_STEP', '1000', 'TRAIN.DISPLAY', '5'])
+    snet = wide_stacked_model(mods, cfg_s)
+    check(tuple(snet.logits.cells[1].u.shape) == (WIDE_HID, 4 * WIDE_HID),
+          'the stacked head is not 2 x LSTM {}'.format(WIDE_HID))
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
+    shutil.rmtree(os.path.join(REPO, 'output', exp + '_stacked'),
+                  ignore_errors=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        _, _, s_losses = train.train_net(
+            snet, {'name': 'chip_smoke'}, None,
+            os.path.join(REPO, 'output', exp + '_stacked'),
+            os.path.join(REPO, 'logs', exp + '_stacked'), cfg_s,
+            max_iters=stacked_steps + 1, device='cuda')
+    torch.cuda.synchronize()
+    s_wall = time.perf_counter() - t0
+    s_counts = launch_counts(rnn_cuda, ctc_cuda)
+    s_first = float(np.mean(s_losses[:5]))
+    s_last = float(np.mean(s_losses[-5:]))
+    print('phase 14 .lstm({}, {}) train: {} steps in {:.1f} s, total loss '
+          'first 5 {:.4f} -> last 5 {:.4f}, launches {} on {}'.format(
+              WIDE_HID, STACKED_LAYERS, len(s_losses), s_wall, s_first,
+              s_last, json.dumps(s_counts), card), flush=True)
+    want = {'bilstm_fwd': 0, 'bilstm_bwd': 0,
+            'lstm_fwd': STACKED_LAYERS * stacked_steps,
+            'lstm_bwd': STACKED_LAYERS * stacked_steps,
+            'ctc_fwd': stacked_steps, 'ctc_bwd': stacked_steps}
+    check(len(s_losses) == stacked_steps
+          and bool(np.isfinite(s_losses).all()) and s_counts == want,
+          '.lstm({}, 2): losses {}, launches {}, expected {}'.format(
+              WIDE_HID, s_losses, s_counts, want))
+    paths['wide_stacked_train'] = s_counts
+    return paths, {'train_loss_first10': first, 'train_loss_last10': last,
+                   'train_s': wall, 'gradient_worst': worst,
+                   'eval_correct': r.correct, 'eval_total': r.total,
+                   'served_bucket': bucket, 'served_images': len(files),
+                   'served_differ': len(diff), 'export_s': export_s,
+                   'worker_s': worker_s,
+                   'stacked_loss_first5': s_first,
+                   'stacked_loss_last5': s_last, 'stacked_s': s_wall}
+
+
+def width_phase(mods, card, rec_path, log):
+    """Phase 14: (a) the four LSTM kernels at every width of ``WIDTHS``
+    against their plain versions, with times beside cuDNN; (b) the
+    NUM_HID 1024 path; (c) CTC past 511 characters; (d) conv_bn at any
+    C_in. Returns the launches by path of (b) and the phase's numbers."""
+    rnn_cuda, ctc_cuda, ctc = mods['rnn_cuda'], mods['ctc_cuda'], mods['ctc']
+    build = mods['build']
+    t_phase = time.perf_counter()
+    ptxas = {}
+    for name in ('bilstm_fwd', 'bilstm_bwd', 'lstm_fwd', 'lstm_bwd'):
+        ptxas[name] = ptxas_report(build, name, [name + '_wide_kernel'])
+    for name in ('bilstm_fwd', 'bilstm_bwd'):
+        ptxas[name]['cluster_h512'] = rnn_cuda.cluster_report(
+            name, 512, rnn_cuda.units_per_block(512))
+        print('phase 14 {} bf16 cluster at H=512: {}'.format(
+            name, json.dumps(ptxas[name]['cluster_h512'])), flush=True)
+    shares = {}
+    for h in WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = '{} H={}'.format('f32' if dtype == torch.float32 else 'bf16',
+                                   h)
+            worst = {}
+            for label, t_len, n, ragged in WIDTH_CASES:
+                seed = h + t_len + n
+                c = bilstm_case(t_len, n, dtype, ragged, seed, h=h, d=64)
+                uni = lstm_case(t_len, n, dtype, ragged, seed + 1, h=h, d=64)
+                for k, v in width_kernels(rnn_cuda, label, c, uni,
+                                          dtype).items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+            print('phase 14 {}: worst share of the bar over {} cases {}, '
+                  'the {} kernels, two calls bit for bit'.format(
+                      tag, len(WIDTH_CASES), json.dumps(
+                          {k: round(v, 4) for k, v in worst.items()}),
+                      rnn_cuda.kernel_path(dtype, h)), flush=True)
+            shares[tag] = worst
+    timings = {}
+    for h in (512, 768, 1024):
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = '{} H={}'.format('f32' if dtype == torch.float32 else 'bf16',
+                                   h)
+            timings[tag] = width_timing(rnn_cuda, h, dtype)
+            print('phase 14 timing {} (N=64 T=23) on {}: {}'.format(
+                tag, card, json.dumps(timings[tag])), flush=True)
+    t_a = time.perf_counter() - t_phase
+    launches, wide = wide_path_phase(mods, card, rec_path, log)
+    ctc_long = ctc_long_phase(ctc, ctc_cuda)
+    conv_any = conv_bn_any_phase(mods['conv_bn_cuda'])
+    seconds = time.perf_counter() - t_phase
+    print('phase 14: took {:.1f} s ((a) {:.1f} s) on {}'.format(
+        seconds, t_a, card), flush=True)
+    return launches, {'shares': shares, 'timings': timings, 'ptxas': ptxas,
+                      'wide_path': wide, 'ctc_long': ctc_long,
+                      'conv_bn_any_c_in': conv_any, 'seconds': seconds}
+
+
 def phase_alone(mods, card, kind, phase):
-    """``python3 chip_smoke.py --phase 12`` or ``--phase 13``: the kernels'
+    """``python3 chip_smoke.py --phase 12``, ``13`` or ``14``: the kernels'
     build, then that phase alone, its reference strings from the fixed
     model's eval of ``lstm_ctc`` and its records file from ``data/val`` made
     here. For working on a phase; the smoke run takes no arguments."""
@@ -4103,11 +4580,15 @@ def phase_alone(mods, card, kind, phase):
     mods['records'].write_image_annotation_pairs_to_records(
         os.path.join(REPO, 'data', 'val'), rec_path)
     name, run = {'12': ('dsl', dsl_phase),
-                 '13': ('shifted', shifted_phase)}[phase]
+                 '13': ('shifted', shifted_phase),
+                 '14': ('width', width_phase)}[phase]
     with open(os.path.join(REPO, 'chiprun_out',
                            'chip_smoke_{}.log'.format(name)), 'w') as log:
-        _, result = run(mods, card, rec_path,
-                        {'lstm_ctc/batch': r.predictions}, log)
+        if phase == '14':
+            _, result = run(mods, card, rec_path, log)
+        else:
+            _, result = run(mods, card, rec_path,
+                            {'lstm_ctc/batch': r.predictions}, log)
     print(json.dumps({name: result}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
@@ -4188,7 +4669,8 @@ def main():
             'layers': layers, 'gen': gen, 'image': image,
             'device_store': device_store, 'serve': serve,
             'checkpoint': checkpoint, 'calibrate_bn': calibrate_bn,
-            'release_ckpt': release_ckpt, 'pmesh': pmesh,
+            'release_ckpt': release_ckpt, 'pmesh': pmesh, 'build': _build,
+            'conv_bn_cuda': conv_bn_cuda,
             'tools': {'bench_ctc': bench_ctc, 'bench_rnn': bench_rnn,
                       'bench_decode': bench_decode,
                       'profile_step': profile_step,
@@ -4215,9 +4697,9 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print('ptxas {}: {}'.format(name, line.strip()), flush=True)
 
-    if sys.argv[1:2] == ['--phase']:            # phase 12 or 13 alone
-        check(sys.argv[2:] in (['12'], ['13']),
-              '--phase takes 12 or 13, got {}'.format(sys.argv[2:]))
+    if sys.argv[1:2] == ['--phase']:            # phase 12, 13 or 14 alone
+        check(sys.argv[2:] in (['12'], ['13'], ['14']),
+              '--phase takes 12, 13 or 14, got {}'.format(sys.argv[2:]))
         return phase_alone(mods, card, kind, sys.argv[2])
 
     errs, timings = bilstm_fwd_phase(rnn_cuda, _build)
@@ -4257,6 +4739,8 @@ def main():
             mods, card, rec_path, eval_predictions, log,
             attrib_lines=tools['attrib_step'],
             phase8=dispatch['rates']['store_graph'])
+    with open(os.path.join(out_dir, 'chip_smoke_width.log'), 'w') as log:
+        width_launches, width = width_phase(mods, card, rec_path, log)
     print('train rate on {}: synthetic feed {:.2f} steps/s ({} fork workers, '
           'os.cpu_count() {}), records feed {:.2f} steps/s; device busy ms '
           'per step {} and {}'.format(
@@ -4283,6 +4767,7 @@ def main():
                                  for k, v in tool_launches.items()})
     later.update({'dsl ' + k: v for k, v in dsl_launches.items()})
     later.update({'shifted ' + k: v for k, v in shifted_launches.items()})
+    later.update({'width ' + k: v for k, v in width_launches.items()})
 
     def later_total(name):
         return sum(v[name] for v in later.values())
@@ -4297,6 +4782,13 @@ def main():
               '{} was not launched on the shifted train path'.format(name))
     check(shifted_launches['shifted_eval']['bilstm_fwd'] > 0,
           'bilstm_fwd was not launched on the shifted eval path')
+    for name in ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd', 'ctc_bwd'):
+        check(width_launches['wide_train'][name] > 0,
+              '{} was not launched on the NUM_HID 1024 train path'.format(
+                  name))
+    for name in ('lstm_fwd', 'lstm_bwd'):
+        check(width_launches['wide_stacked_train'][name] > 0,
+              '{} was not launched on the .lstm(1024, 2) path'.format(name))
     for name in ('lstm_fwd', 'lstm_bwd'):
         check(dsl_launches['dsl_stacked_train'][name] > 0,
               '{} was not launched on the DSL stacked path'.format(name))
@@ -4512,7 +5004,8 @@ def main():
     })], 'train': rate, 'stacked_lstm_train': stacked_rate,
         'synthetic_stream': synth, 'dispatch': dispatch, 'serve': served,
         'data_parallel': dp, 'tools': tools, 'dsl': dsl, 'shifted': shifted,
-        'seconds': time.perf_counter() - t_start}), flush=True)
+        'width': width, 'seconds': time.perf_counter() - t_start}),
+        flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)

@@ -30,7 +30,8 @@
 // kernels launched by the one entry point, all deterministic (fixed
 // summation order, no atomics). Dispatch by type is explicit:
 //
-// bf16 (the training type) -- U on chip, rows in one tensor-core product:
+// bf16 (the training type) up to H = 512 -- U on chip, rows in one
+// tensor-core product:
 //  1. bilstm_bwd_cluster_kernel, the cluster recurrence of
 //     lstm_bwd_cluster.cuh that kernel 6 (lstm_bwd.cu) runs too, for both
 //     directions along the grid's z: one non-portable thread-block cluster
@@ -55,20 +56,24 @@
 //     (fw) or last (bw) time step, whose carry is zero, drops out.
 //  3. bilstm_bwd_db_kernel, db = sum over n of db_part, per direction.
 //
-// f32 -- one block per (batch row, direction) (its 1 MB of U^T a direction
-// fits no cluster):
-//  1. bilstm_bwd_rec_kernel, H threads; thread k owns hidden unit k: the
-//     gate derivatives, dc and dh of that unit are thread-local. The
-//     rounded dg row (4H values) goes through shared memory, and
-//     dh_prev[k] is its dot product with row k of U. The wrapper hands U^T
-//     packed as [4H/4][H][4], so a thread's 16-byte load brings four
-//     consecutive entries of its row and a warp's loads cover 512
-//     contiguous bytes; four accumulators break the FMA chain. A dead step
-//     (uniform over the block) writes zeros and skips the product. Each
-//     block sums its row's dg over time in registers and writes it to
-//     db_part[dir][n][4H].
-//  2. bilstm_bwd_du_kernel, the FP32 tiled product lstm_common::du_tile.
+// f32 (the type of the tests and the gradient checks) at every H, and bf16
+// past H = 512 -- the wide recurrence of lstm_wide.cuh, one block per
+// (batch row, direction), U^T packed [4H/VEC][H][VEC] by the wrapper and
+// streamed from L2 every step, then the dU and db launches: one entry
+// point, three kernels.
+//  1. bilstm_bwd_wide_kernel: each thread walks its units (one a unit up
+//     to 1024 threads); a unit's gate derivatives, dc and dh are the
+//     thread's. The rounded dg row (4H values) goes through shared memory,
+//     and dh_prev[k] is its dot product with row k of U; four accumulators
+//     break the FMA chain. A dead step (uniform over the block) writes
+//     zeros and skips the product. Each block sums its row's dg over time
+//     into db_part[dir][n][4H].
+//  2. dU: bilstm_bwd_du_mma_kernel in bf16, bilstm_bwd_du_kernel (the FP32
+//     tiled product lstm_common::du_tile) in f32.
 //  3. bilstm_bwd_db_kernel as above.
+// Right, not fast: every block reads all of U every step. It took the
+// place of the first f32 recurrence, the same design with one thread a
+// unit and H <= 256.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
@@ -77,12 +82,13 @@
 
 #include "lstm_bwd_cluster.cuh"
 #include "lstm_common.cuh"
+#include "lstm_wide.cuh"
 
 namespace {
 
 using lstm_common::kTile;
 
-constexpr int kMaxHidden = 256;   // H: threads per f32 recurrence block
+constexpr int kMaxClusterHidden = 512;   // H of the bf16 cluster recurrence
 
 // --- bf16: the cluster recurrence (lstm_bwd_cluster.cuh) -------------------
 
@@ -120,96 +126,6 @@ bilstm_bwd_du_mma_kernel(const __nv_bfloat16* __restrict__ hf,
       dir ? dxb : dxf + (long long)n_rows * four_h, dir ? dub : duf,
       (long long)(t_len - 1) * n_rows, hid, four_h, blockIdx.y * kTile,
       blockIdx.x * kTile);
-}
-
-// --- f32: one block per batch row and direction ----------------------------
-
-__global__ void __launch_bounds__(kMaxHidden)
-bilstm_bwd_rec_kernel(const float* __restrict__ dof,
-                      const float* __restrict__ dob,
-                      const float* __restrict__ gf,
-                      const float* __restrict__ gb,
-                      const float* __restrict__ cf,
-                      const float* __restrict__ cb,
-                      const float* __restrict__ utf,
-                      const float* __restrict__ utb,
-                      const int* __restrict__ lens, float* __restrict__ dxf,
-                      float* __restrict__ dxb, float* __restrict__ db_part,
-                      int t_len, int n_rows, int hid) {
-  constexpr int VEC = 4;                         // 16 bytes of f32
-  const int dir = blockIdx.y;                    // 0: forward, 1: backward
-  const float* __restrict__ dout = dir ? dob : dof;
-  const float* __restrict__ gates = dir ? gb : gf;
-  const float* __restrict__ c_res = dir ? cb : cf;
-  const float* __restrict__ ut = dir ? utb : utf;
-  float* __restrict__ dx = dir ? dxb : dxf;
-
-  const int k = threadIdx.x;                     // hidden unit
-  const int n = blockIdx.x;                      // batch row
-  const int four_h = 4 * hid;
-  const int len = lens[n];
-
-  extern __shared__ float dg_row[];              // [4H]
-
-  float dh = 0.0f, dc = 0.0f;
-  float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-  for (int s = 0; s < t_len; ++s) {
-    const int t = dir ? s : t_len - 1 - s;       // reverse scan order
-    const long long row = (long long)t * n_rows + n;
-    float* dx_row = dx + row * four_h;
-    if (len <= t) {                              // dead step, block-uniform
-#pragma unroll
-      for (int q = 0; q < 4; ++q) dx_row[q * hid + k] = 0.0f;
-      continue;
-    }
-    const float* g_row = gates + row * four_h;
-    const float gi = g_row[k];
-    const float gj = g_row[hid + k];
-    const float gfo = g_row[2 * hid + k];
-    const float go = g_row[3 * hid + k];
-    const int tp = dir ? t + 1 : t - 1;          // the step's incoming carry
-    const bool has_prev = dir ? (t < t_len - 1) : (t > 0);
-    const float c_prev =
-        has_prev ? c_res[((long long)tp * n_rows + n) * hid + k] : 0.0f;
-
-    const float tanh_c = tanhf(gfo * c_prev + gi * gj);
-    const float g_hnew = dh + dout[row * hid + k];
-    const float do_ = g_hnew * tanh_c;
-    const float dc_tot = dc + g_hnew * go * (1.0f - tanh_c * tanh_c);
-    float dg[4];
-    dg[0] = dc_tot * gj * gi * (1.0f - gi);
-    dg[1] = dc_tot * gi * (1.0f - gj * gj);
-    dg[2] = dc_tot * c_prev * gfo * (1.0f - gfo);
-    dg[3] = do_ * go * (1.0f - go);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      db_acc[q] += dg[q];
-      dx_row[q * hid + k] = dg[q];
-      dg_row[q * hid + k] = dg[q];
-    }
-    dc = dc_tot * gfo;
-    __syncthreads();
-
-    // dh[k] = sum_m dg_row[m] * U[k][m], U^T packed [4H/VEC][H][VEC]
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int mb = 0; mb < four_h / VEC; ++mb) {
-      const float4 uv = __ldg(reinterpret_cast<const float4*>(
-          ut + ((long long)mb * hid + k) * VEC));
-      const float* dgv = dg_row + mb * VEC;
-      acc[0] = fmaf(dgv[0], uv.x, acc[0]);
-      acc[1] = fmaf(dgv[1], uv.y, acc[1]);
-      acc[2] = fmaf(dgv[2], uv.z, acc[2]);
-      acc[3] = fmaf(dgv[3], uv.w, acc[3]);
-    }
-    dh = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-    __syncthreads();                             // dg_row is free again
-  }
-
-  float* part = db_part + ((long long)dir * n_rows + n) * four_h;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) part[q * hid + k] = db_acc[q];
 }
 
 // dU of one direction per blockIdx.z: du = h_prev^T dx over the rows (t, n).
@@ -254,6 +170,26 @@ int launch_db(const void* db_part, void* dbf, void* dbb, int n_rows, int hid,
   return (int)cudaGetLastError();
 }
 
+// --- f32, and bf16 past the cluster: lstm_wide.cuh -----------------------
+
+// Batch row blockIdx.x, direction blockIdx.y (0 forward, 1 backward).
+template <typename T>
+__global__ void __launch_bounds__(lstm_wide::kMaxThreads)
+bilstm_bwd_wide_kernel(const T* __restrict__ dof, const T* __restrict__ dob,
+                       const T* __restrict__ gf, const T* __restrict__ gb,
+                       const T* __restrict__ cf, const T* __restrict__ cb,
+                       const T* __restrict__ utf, const T* __restrict__ utb,
+                       const int* __restrict__ lens, T* __restrict__ dxf,
+                       T* __restrict__ dxb, float* __restrict__ db_part,
+                       int t_len, int n_rows, int hid) {
+  const int n = blockIdx.x;
+  const int dir = blockIdx.y;
+  lstm_wide::bwd_row<T>(
+      dir ? dob : dof, dir ? gb : gf, dir ? cb : cf, dir ? utb : utf, lens[n],
+      dir ? dxb : dxf, db_part + ((long long)dir * n_rows + n) * 4 * hid,
+      t_len, n_rows, n, hid, dir == 1);
+}
+
 }  // namespace
 
 // Dynamic shared memory of one bf16 cluster block at (H, units), in bytes
@@ -275,7 +211,7 @@ extern "C" int bilstm_bwd_max_clusters(int hid, int units) {
 // uf/ub: U [H, 4H] as it is; lens: [N] int32; duf/dub (outputs): [H, 4H]
 // f32; dbf/dbb (outputs): [4H] f32; db_part: scratch [2, N, 4H] f32; units:
 // hidden units a cluster block owns (a multiple of 8, ceil(H / units) <=
-// 16). H a multiple of 8, <= 256. Returns a cudaError_t
+// 16). H a multiple of 8, <= 512. Returns a cudaError_t
 // (cudaErrorInvalidConfiguration when no cluster of ceil(H / units) blocks
 // fits on the card).
 extern "C" int bilstm_bwd_bf16(const void* dof, const void* dob,
@@ -287,7 +223,7 @@ extern "C" int bilstm_bwd_bf16(const void* dof, const void* dob,
                                void* db_part, int t_len, int n_rows, int hid,
                                int units, void* stream_ptr) {
   using bf16 = __nv_bfloat16;
-  if (t_len <= 0 || n_rows <= 0 || hid > kMaxHidden)
+  if (t_len <= 0 || n_rows <= 0 || hid > kMaxClusterHidden)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   static int checked[2] = {-1, -1};
@@ -311,35 +247,76 @@ extern "C" int bilstm_bwd_bf16(const void* dof, const void* dob,
   return launch_db(db_part, dbf, dbb, n_rows, hid, stream);
 }
 
-// As bilstm_bwd_bf16 without units, with utf/utb: U^T packed as
-// [4H/4][H][4]; H a multiple of 4. Returns a cudaError_t.
-extern "C" int bilstm_bwd_f32(const void* dof, const void* dob, const void* gf,
-                              const void* gb, const void* hf, const void* hb,
-                              const void* cf, const void* cb, const void* utf,
-                              const void* utb, const void* lens, void* dxf,
-                              void* dxb, void* duf, void* dub, void* dbf,
-                              void* dbb, void* db_part, int t_len, int n_rows,
-                              int hid, void* stream_ptr) {
-  if (t_len <= 0 || n_rows <= 0 || hid <= 0 || hid > kMaxHidden || hid % 4)
+// The wide recurrence (lstm_wide.cuh): f32 at every H, bf16 past the
+// cluster's 512. Arguments as bilstm_bwd_bf16 without units, with utf/utb:
+// U^T packed as [4H/VEC][H][VEC] (VEC = 8 in bf16, 4 in f32); H a multiple
+// of VEC, <= 8192. dU then runs on tensor cores in bf16 and as FP32 FMAs in
+// f32. Returns a cudaError_t.
+template <typename T>
+int launch_wide(const void* dof, const void* dob, const void* gf,
+                const void* gb, const void* hf, const void* hb, const void* cf,
+                const void* cb, const void* utf, const void* utb,
+                const void* lens, void* dxf, void* dxb, void* duf, void* dub,
+                void* dbf, void* dbb, void* db_part, int t_len, int n_rows,
+                int hid, void* stream_ptr) {
+  if (t_len <= 0 || n_rows <= 0 || !lstm_wide::shape_ok<T>(hid))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int four_h = 4 * hid;
-  bilstm_bwd_rec_kernel<<<dim3(n_rows, 2), hid, sizeof(float) * four_h,
-                          stream>>>(
-      static_cast<const float*>(dof), static_cast<const float*>(dob),
-      static_cast<const float*>(gf), static_cast<const float*>(gb),
-      static_cast<const float*>(cf), static_cast<const float*>(cb),
-      static_cast<const float*>(utf), static_cast<const float*>(utb),
-      static_cast<const int*>(lens), static_cast<float*>(dxf),
-      static_cast<float*>(dxb), static_cast<float*>(db_part), t_len, n_rows,
-      hid);
-  cudaError_t err = cudaGetLastError();
+  const size_t smem = lstm_wide::bwd_smem(hid);
+  cudaError_t err = lstm_wide::allow_smem(bilstm_bwd_wide_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  bilstm_bwd_du_kernel<<<du_grid(hid), 256, 0, stream>>>(
-      static_cast<const float*>(hf), static_cast<const float*>(hb),
-      static_cast<const float*>(dxf), static_cast<const float*>(dxb),
-      static_cast<float*>(duf), static_cast<float*>(dub), t_len, n_rows, hid);
+  bilstm_bwd_wide_kernel<T><<<dim3(n_rows, 2), lstm_wide::threads(hid), smem,
+                              stream>>>(
+      static_cast<const T*>(dof), static_cast<const T*>(dob),
+      static_cast<const T*>(gf), static_cast<const T*>(gb),
+      static_cast<const T*>(cf), static_cast<const T*>(cb),
+      static_cast<const T*>(utf), static_cast<const T*>(utb),
+      static_cast<const int*>(lens), static_cast<T*>(dxf),
+      static_cast<T*>(dxb), static_cast<float*>(db_part), t_len, n_rows, hid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (sizeof(T) == 2)
+    bilstm_bwd_du_mma_kernel<<<du_grid(hid), lstm_common::kDuThreads, 0,
+                               stream>>>(
+        static_cast<const T*>(hf), static_cast<const T*>(hb),
+        static_cast<const T*>(dxf), static_cast<const T*>(dxb),
+        static_cast<float*>(duf), static_cast<float*>(dub), t_len, n_rows,
+        hid);
+  else
+    bilstm_bwd_du_kernel<<<du_grid(hid), 256, 0, stream>>>(
+        static_cast<const T*>(hf), static_cast<const T*>(hb),
+        static_cast<const T*>(dxf), static_cast<const T*>(dxb),
+        static_cast<float*>(duf), static_cast<float*>(dub), t_len, n_rows,
+        hid);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_db(db_part, dbf, dbb, n_rows, hid, stream);
+}
+
+extern "C" int bilstm_bwd_wide_bf16(const void* dof, const void* dob,
+                                    const void* gf, const void* gb,
+                                    const void* hf, const void* hb,
+                                    const void* cf, const void* cb,
+                                    const void* utf, const void* utb,
+                                    const void* lens, void* dxf, void* dxb,
+                                    void* duf, void* dub, void* dbf, void* dbb,
+                                    void* db_part, int t_len, int n_rows,
+                                    int hid, void* stream_ptr) {
+  return launch_wide<__nv_bfloat16>(dof, dob, gf, gb, hf, hb, cf, cb, utf,
+                                    utb, lens, dxf, dxb, duf, dub, dbf, dbb,
+                                    db_part, t_len, n_rows, hid, stream_ptr);
+}
+
+extern "C" int bilstm_bwd_wide_f32(const void* dof, const void* dob,
+                                   const void* gf, const void* gb,
+                                   const void* hf, const void* hb,
+                                   const void* cf, const void* cb,
+                                   const void* utf, const void* utb,
+                                   const void* lens, void* dxf, void* dxb,
+                                   void* duf, void* dub, void* dbf, void* dbb,
+                                   void* db_part, int t_len, int n_rows,
+                                   int hid, void* stream_ptr) {
+  return launch_wide<float>(dof, dob, gf, gb, hf, hb, cf, cb, utf, utb, lens,
+                            dxf, dxb, duf, dub, dbf, dbb, db_part, t_len,
+                            n_rows, hid, stream_ptr);
 }

@@ -21,7 +21,7 @@
 // costs time is how often U crosses from L2 and how long one step's
 // dependent chain is. Dispatch by type is explicit:
 //
-// bf16 (the type both models train and decode in) --
+// bf16 (the type both models train and decode in) up to H = 512 --
 // bilstm_fwd_cluster_kernel, the cluster recurrence of lstm_fwd_cluster.cuh
 // that kernel 5 (lstm_fwd.cu) runs too: one thread-block cluster of CS
 // blocks per 16 batch rows and direction (blockIdx.z), each block's 4 UB
@@ -43,21 +43,15 @@
 // fits (the wrapper raises); it never degrades to another kernel. The
 // wrapper hands both U as they are, so no call packs them with torch ops.
 //
-// f32 -- bilstm_fwd_kernel (f32 U is 1 MB a direction; a tensor-core
-// product would be TF32): one block per (batch tile of NB rows, direction),
-// H threads: thread k owns hidden unit k, computes its four gate columns
-// k, H+k, 2H+k, 3H+k for the tile's rows, and keeps that unit's h and c in
-// registers, so the gate math and the state update are thread-local. The
-// tile's h sits in shared memory, with two __syncthreads per step. The
-// wrapper hands U in a packed layout [H/VEC][4H][VEC] (VEC = 4 floats, 16
-// bytes), so one 16-byte load per thread and gate brings VEC
-// consecutive rows of U and a warp's loads cover 512 contiguous bytes; the
-// loop over those loads is unrolled 4 deep to keep several in flight.
-// NB = 1 spreads batch 64 over 128 blocks (both directions) of H = 256
-// threads, which spreads the FMAs over nearly all 132 SMs, at the price of
-// every block pulling all of U from L2 each step (a sweep over NB in
-// {1, 2, 4, 8}, launch bounds and unrolling on an H100 chose these values
-// for its first, bf16 version).
+// f32 (the type of the tests and the gradient checks) at every H, and bf16
+// past H = 512 -- bilstm_fwd_wide_kernel, the wide recurrence of
+// lstm_wide.cuh: one block a batch row and direction, its threads walking
+// the units (one a unit up to 1024), U packed [H/VEC][4H][VEC] by the
+// wrapper and streamed from L2 every step, the product as FP32 FMAs (f32
+// U is 1 MB a direction at H = 256, and a tensor-core product would be
+// TF32). Right, not fast: every block reads all of U every step. It took
+// the place of the first f32 kernel, the same design with one thread a
+// unit and H <= 256.
 //
 // The TPU carried h/c in VMEM scratch across a sequential grid; on the GPU
 // blocks run in parallel and in no order, so the time loop lives inside the
@@ -70,13 +64,12 @@
 
 #include "lstm_common.cuh"
 #include "lstm_fwd_cluster.cuh"
+#include "lstm_wide.cuh"
 
 namespace {
 
-using lstm_common::sigmoid_f32;
 
-constexpr int kTileRows = 1;     // NB: batch rows per f32 block
-constexpr int kMaxHidden = 256;  // H: threads per f32 block
+constexpr int kMaxClusterHidden = 512;   // H of the bf16 cluster recurrence
 
 // --- bf16: the cluster recurrence (lstm_fwd_cluster.cuh) -------------------
 
@@ -100,121 +93,51 @@ bilstm_fwd_cluster_kernel(
                                units, forget_bias, bw);
 }
 
-// --- f32: one block per batch row and direction ----------------------------
+// --- f32, and bf16 past the cluster: lstm_wide.cuh -----------------------
 
-template <int NB>
-__global__ void __launch_bounds__(kMaxHidden)
-bilstm_fwd_kernel(const float* __restrict__ xpf, const float* __restrict__ xpb,
-                  long long x_row_stride,
-                  const float* __restrict__ uf, const float* __restrict__ ub,
-                  const float* __restrict__ bf, const float* __restrict__ bb,
-                  const int* __restrict__ lens,
-                  float* __restrict__ of, float* __restrict__ ob,
-                  float* __restrict__ gf, float* __restrict__ gb,
-                  float* __restrict__ hf, float* __restrict__ hb,
-                  float* __restrict__ cf, float* __restrict__ cb,
-                  int t_len, int n_rows, int hid, float forget_bias) {
-  constexpr int VEC = 4;                         // floats per 16 bytes
-  const int dir = blockIdx.y;                    // 0: forward, 1: backward
-  const float* __restrict__ xp = dir ? xpb : xpf;
-  const float* __restrict__ u = dir ? ub : uf;
-  const float* __restrict__ bias = dir ? bb : bf;
-  float* __restrict__ out = dir ? ob : of;
-  float* __restrict__ g_out = dir ? gb : gf;
-  float* __restrict__ h_out = dir ? hb : hf;
-  float* __restrict__ c_out = dir ? cb : cf;
-  const bool save = g_out != nullptr;
+// Batch row blockIdx.x, direction blockIdx.y (0 forward, 1 backward).
+template <typename T>
+__global__ void __launch_bounds__(lstm_wide::kMaxThreads)
+bilstm_fwd_wide_kernel(const T* __restrict__ xpf, const T* __restrict__ xpb,
+                       long long x_row_stride, const T* __restrict__ upf,
+                       const T* __restrict__ upb, const T* __restrict__ bf,
+                       const T* __restrict__ bb, const int* __restrict__ lens,
+                       T* __restrict__ of, T* __restrict__ ob,
+                       T* __restrict__ gf, T* __restrict__ gb,
+                       T* __restrict__ hf, T* __restrict__ hb,
+                       T* __restrict__ cf, T* __restrict__ cb, int t_len,
+                       int n_rows, int hid, float forget_bias) {
+  const int n = blockIdx.x;
+  const bool bw = blockIdx.y == 1;
+  lstm_wide::fwd_row<T>(bw ? xpb : xpf, x_row_stride, bw ? upb : upf,
+                        bw ? bb : bf, lens[n], bw ? ob : of, bw ? gb : gf,
+                        bw ? hb : hf, bw ? cb : cf, t_len, n_rows, n, hid,
+                        forget_bias, bw);
+}
 
-  const int k = threadIdx.x;                     // hidden unit
-  const int n0 = blockIdx.x * NB;
-  const int four_h = 4 * hid;
-
-  extern __shared__ float h_tile[];              // [NB][hid]
-
-  float h[NB], c[NB];
-  int len[NB];
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    h[r] = 0.0f;
-    c[r] = 0.0f;
-    len[r] = (n0 + r < n_rows) ? lens[n0 + r] : 0;
-    h_tile[r * hid + k] = 0.0f;
-  }
-  float b[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) b[g] = bias[g * hid + k];
-  __syncthreads();
-
-  for (int s = 0; s < t_len; ++s) {
-    const int t = dir ? t_len - 1 - s : s;
-    float acc[4][NB];
-#pragma unroll
-    for (int r = 0; r < NB; ++r) {
-      const int n = n0 + r;
-      const float* x_row = xp + ((long long)t * n_rows + n) * x_row_stride;
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        acc[g][r] = (n < n_rows) ? x_row[g * hid + k] : 0.0f;
-    }
-
-    // acc[g][r] += sum_kk h_tile[r][kk] * U[kk][g*hid + k]
-#pragma unroll 4
-    for (int kb = 0; kb < hid / VEC; ++kb) {
-      alignas(16) float uv[4][VEC];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            u + ((long long)kb * four_h + g * hid + k) * VEC);
-        *reinterpret_cast<uint4*>(uv[g]) = __ldg(src);
-      }
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        float uu[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) uu[g] = uv[g][v];
-#pragma unroll
-        for (int r = 0; r < NB; ++r) {
-          const float hv = h_tile[r * hid + kb * VEC + v];
-#pragma unroll
-          for (int g = 0; g < 4; ++g) acc[g][r] = fmaf(hv, uu[g], acc[g][r]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < NB; ++r) {
-      const int n = n0 + r;
-      const float gi = sigmoid_f32(acc[0][r] + b[0]);
-      const float gj = tanhf(acc[1][r] + b[1]);
-      const float gfo = sigmoid_f32(acc[2][r] + b[2] + forget_bias);
-      const float go = sigmoid_f32(acc[3][r] + b[3]);
-      const float c_new = gfo * c[r] + gi * gj;
-      const float h_new = go * tanhf(c_new);
-      const bool live = len[r] > t;
-      if (live) {
-        h[r] = h_new;
-        c[r] = c_new;
-      }
-      if (n < n_rows) {
-        const long long row = (long long)t * n_rows + n;
-        out[row * hid + k] = live ? h_new : 0.0f;
-        if (save) {
-          float* g_row = g_out + row * four_h;
-          g_row[k] = gi;
-          g_row[hid + k] = gj;
-          g_row[2 * hid + k] = gfo;
-          g_row[3 * hid + k] = go;
-          h_out[row * hid + k] = h[r];
-          c_out[row * hid + k] = c[r];
-        }
-      }
-    }
-    __syncthreads();                             // all reads of h_tile done
-#pragma unroll
-    for (int r = 0; r < NB; ++r)
-      h_tile[r * hid + k] = h[r];
-    __syncthreads();
-  }
+template <typename T>
+int launch_wide(const void* xpf, const void* xpb, long long x_row_stride,
+                const void* upf, const void* upb, const void* bf,
+                const void* bb, const void* lens, void* of, void* ob,
+                void* gf, void* gb, void* hf, void* hb, void* cf, void* cb,
+                int t_len, int n_rows, int hid, float forget_bias,
+                void* stream) {
+  if (t_len <= 0 || n_rows <= 0 || !lstm_wide::shape_ok<T>(hid))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = lstm_wide::fwd_smem(hid);
+  const cudaError_t err = lstm_wide::allow_smem(bilstm_fwd_wide_kernel<T>,
+                                                smem);
+  if (err != cudaSuccess) return (int)err;
+  bilstm_fwd_wide_kernel<T><<<dim3(n_rows, 2), lstm_wide::threads(hid), smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(xpf), static_cast<const T*>(xpb), x_row_stride,
+      static_cast<const T*>(upf), static_cast<const T*>(upb),
+      static_cast<const T*>(bf), static_cast<const T*>(bb),
+      static_cast<const int*>(lens), static_cast<T*>(of), static_cast<T*>(ob),
+      static_cast<T*>(gf), static_cast<T*>(gb), static_cast<T*>(hf),
+      static_cast<T*>(hb), static_cast<T*>(cf), static_cast<T*>(cb), t_len,
+      n_rows, hid, forget_bias);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -238,7 +161,7 @@ extern "C" int bilstm_fwd_max_clusters(int hid, int units) {
 // it is; bf/bb: [4H]; lens: [N] int32; of/ob: [T, N, H]. gf/gb ([T, N,
 // 4H]), hf/hb and cf/cb ([T, N, H]) are null unless residuals are saved.
 // units: hidden units a cluster block owns (a multiple of 8, ceil(H /
-// units) <= 16). H a multiple of 8, <= 256. Returns a cudaError_t
+// units) <= 16). H a multiple of 8, <= 512. Returns a cudaError_t
 // (cudaErrorInvalidConfiguration when no cluster of ceil(H / units) blocks
 // fits on the card).
 extern "C" int bilstm_fwd_bf16(const void* xpf, const void* xpb,
@@ -249,7 +172,7 @@ extern "C" int bilstm_fwd_bf16(const void* xpf, const void* xpb,
                                void* cb, int t_len, int n_rows, int hid,
                                int units, float forget_bias, void* stream) {
   using bf16 = __nv_bfloat16;
-  if (t_len <= 0 || n_rows <= 0 || hid > kMaxHidden)
+  if (t_len <= 0 || n_rows <= 0 || hid > kMaxClusterHidden)
     return (int)cudaErrorInvalidValue;
   static int checked[2] = {-1, -1};
   return lstm_fwd_cluster::launch(
@@ -264,29 +187,32 @@ extern "C" int bilstm_fwd_bf16(const void* xpf, const void* xpb,
       static_cast<bf16*>(cb), t_len, n_rows, hid, units, forget_bias);
 }
 
-// As bilstm_fwd_bf16 without units, with uf/ub: U packed as [H/4][4H][4].
-// Returns a cudaError_t.
-extern "C" int bilstm_fwd_f32(const void* xpf, const void* xpb,
-                              long long x_row_stride, const void* uf,
-                              const void* ub, const void* bf, const void* bb,
-                              const void* lens, void* of, void* ob, void* gf,
-                              void* gb, void* hf, void* hb, void* cf, void* cb,
-                              int t_len, int n_rows, int hid,
-                              float forget_bias, void* stream) {
-  if (t_len <= 0 || n_rows <= 0 || hid <= 0 || hid > kMaxHidden || hid % 4)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_rows + kTileRows - 1) / kTileRows, 2);
-  const size_t smem = sizeof(float) * kTileRows * hid;
-  bilstm_fwd_kernel<kTileRows>
-      <<<grid, hid, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(xpf), static_cast<const float*>(xpb),
-          x_row_stride, static_cast<const float*>(uf),
-          static_cast<const float*>(ub), static_cast<const float*>(bf),
-          static_cast<const float*>(bb), static_cast<const int*>(lens),
-          static_cast<float*>(of), static_cast<float*>(ob),
-          static_cast<float*>(gf), static_cast<float*>(gb),
-          static_cast<float*>(hf), static_cast<float*>(hb),
-          static_cast<float*>(cf), static_cast<float*>(cb), t_len, n_rows,
-          hid, forget_bias);
-  return (int)cudaGetLastError();
+// The wide recurrence (lstm_wide.cuh): f32 at every H, bf16 past the
+// cluster's 512. Arguments as bilstm_fwd_bf16 without units, with upf/upb:
+// U packed as [H/VEC][4H][VEC] (VEC = 8 in bf16, 4 in f32); H a multiple of
+// VEC, <= 8192. Returns a cudaError_t.
+extern "C" int bilstm_fwd_wide_bf16(const void* xpf, const void* xpb,
+                                    long long x_row_stride, const void* upf,
+                                    const void* upb, const void* bf,
+                                    const void* bb, const void* lens, void* of,
+                                    void* ob, void* gf, void* gb, void* hf,
+                                    void* hb, void* cf, void* cb, int t_len,
+                                    int n_rows, int hid, float forget_bias,
+                                    void* stream) {
+  return launch_wide<__nv_bfloat16>(xpf, xpb, x_row_stride, upf, upb, bf, bb,
+                                    lens, of, ob, gf, gb, hf, hb, cf, cb,
+                                    t_len, n_rows, hid, forget_bias, stream);
+}
+
+extern "C" int bilstm_fwd_wide_f32(const void* xpf, const void* xpb,
+                                   long long x_row_stride, const void* upf,
+                                   const void* upb, const void* bf,
+                                   const void* bb, const void* lens, void* of,
+                                   void* ob, void* gf, void* gb, void* hf,
+                                   void* hb, void* cf, void* cb, int t_len,
+                                   int n_rows, int hid, float forget_bias,
+                                   void* stream) {
+  return launch_wide<float>(xpf, xpb, x_row_stride, upf, upb, bf, bb, lens,
+                            of, ob, gf, gb, hf, hb, cf, cb, t_len, n_rows,
+                            hid, forget_bias, stream);
 }

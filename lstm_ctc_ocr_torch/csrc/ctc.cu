@@ -51,15 +51,16 @@
 // per-state arithmetic, its order and the masks are those of the block
 // kernels, so both forms give the same bits.
 //
-// Longer rows take ctc_fwd_kernel and ctc_bwd_kernel: one block of S
-// rounded up to a warp multiple (32..1024 threads) per example, thread s
-// keeping alpha[s] (beta[s]) in a register, the neighbours from a
-// double-buffered shared-memory row with two NEG pad cells, one
-// __syncthreads per step, the next step's g loaded before the current
-// step's math. Threads past S carry NEG and write nothing. A block holds
-// at most 1024 threads, so S <= 1023: labels of up to 511 characters,
-// where the TPU kernel's one 128-lane row stopped at 63. The batch needs
-// no padding in either form.
+// Longer rows take ctc_fwd_kernel and ctc_bwd_kernel: one block per
+// example of S rounded up to a warp multiple, at most 1024 threads; thread i
+// walks the states i, i + blockDim.x, ..., so any S runs (labels of any
+// length; the TPU kernel's one 128-lane row stopped at 63 characters). The
+// rows between steps go through global memory, where they stay in L1 and
+// L2: the forward reads row t-1 of its own alphas output, the backward two
+// rows of a beta scratch [N, 2, S] by the step's parity, one __syncthreads
+// a step in both. The per-state arithmetic, its order and the masks are
+// those of the warp kernels, so every form gives the same bits. The batch
+// needs no padding in either form.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
@@ -74,8 +75,7 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kMaxThreads = 1024;  // one thread per state, S <= 1023
-constexpr int kMaxStates = kMaxThreads - 1;   // labels up to 511 characters
+constexpr int kMaxThreads = 1024;  // threads of a block kernel's block
 constexpr int kWarpMaxStates = 64;    // the warp kernels: 32 lanes x K <= 2
 constexpr int kChunk = 16;            // time steps a ring stage holds
 
@@ -93,109 +93,97 @@ __device__ __forceinline__ float lse3(float a, float b, float c) {
   return m > 0.5f * kNeg ? out : kNeg;
 }
 
+// One block of up to kMaxThreads threads per example; thread i walks the
+// states i, i + blockDim.x, ... Row t of the alphas is computed from row t-1
+// of the output itself: every thread writes its states of row t-1 before
+// the step's __syncthreads and reads three of them after it.
 __global__ void __launch_bounds__(kMaxThreads)
 ctc_fwd_kernel(const float* __restrict__ g, const float* __restrict__ skip,
                const float* __restrict__ valid, const float* __restrict__ fin,
-               float* __restrict__ logz, float* __restrict__ alphas,
-               int t_len, int s_len) {
+               float* __restrict__ logz, float* alphas, int t_len,
+               int s_len) {
   const int n = blockIdx.x;
-  const int s = threadIdx.x;
-  const int width = blockDim.x + 2;              // two pad cells in front
-  const bool active = s < s_len;
-  extern __shared__ float row[];                 // [2][width]
-  if (s < 2) {
-    row[s] = kNeg;
-    row[width + s] = kNeg;
-  }
-  const float sk = active ? skip[(long long)n * s_len + s] : kNeg;
-  const float va = active ? valid[(long long)n * s_len + s] : kNeg;
-  const float fi = active ? fin[(long long)n * s_len + s] : kNeg;
+  const int tid = threadIdx.x;
+  const float* sk = skip + (long long)n * s_len;
+  const float* va = valid + (long long)n * s_len;
+  const float* fi = fin + (long long)n * s_len;
   const float* gn = g + (long long)n * t_len * s_len;
   float* an = alphas + (long long)n * t_len * s_len;
 
-  const float g0 = active ? gn[s] : kNeg;
-  float alpha = (s <= 1 ? g0 : kNeg) + va;
-  if (active) an[s] = alpha;
-  float g_next = (active && t_len > 1) ? gn[s_len + s] : kNeg;
+  for (int s = tid; s < s_len; s += blockDim.x)
+    an[s] = (s <= 1 ? gn[s] : kNeg) + va[s];
   for (int t = 1; t < t_len; ++t) {
-    const float gt = g_next;
-    if (active && t + 1 < t_len) g_next = gn[(long long)(t + 1) * s_len + s];
-    float* buf = row + (t & 1) * width;
-    buf[s + 2] = alpha;
-    __syncthreads();
-    const float one = buf[s + 1];
-    const float two = buf[s] + sk;
-    alpha = fmaxf(gt + lse3(alpha, one, two) + va, kNeg);
-    if (active) an[(long long)t * s_len + s] = alpha;
+    __syncthreads();                             // row t-1 is written
+    const float* prev = an + (long long)(t - 1) * s_len;
+    float* cur = an + (long long)t * s_len;
+    const float* gt = gn + (long long)t * s_len;
+    for (int s = tid; s < s_len; s += blockDim.x) {
+      const float one = s >= 1 ? prev[s - 1] : kNeg;
+      const float two = (s >= 2 ? prev[s - 2] : kNeg) + sk[s];
+      cur[s] = fmaxf(gt[s] + lse3(prev[s], one, two) + va[s], kNeg);
+    }
   }
 
   // logz over the final states: final is 0 on at most two states and NEG on
   // the rest, whose terms exp(. - ms) are exactly 0, so the first warp's
   // threads each sum a strided share of the row and thread 0 adds the 32
   __syncthreads();
-  row[s] = alpha + fi;
-  __syncthreads();
-  if (s < 32) {
+  if (tid < 32) {
+    const float* last = an + (long long)(t_len - 1) * s_len;
     float m = kNeg;
-    for (int i = s; i < s_len; i += 32) m = fmaxf(m, row[i]);
+    for (int i = tid; i < s_len; i += 32) m = fmaxf(m, last[i] + fi[i]);
     for (int d = 16; d > 0; d >>= 1)
       m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
     const float ms = fmaxf(m, kNeg);
     float sum = 0.0f;
-    for (int i = s; i < s_len; i += 32) sum += expf(row[i] - ms);
+    for (int i = tid; i < s_len; i += 32) sum += expf(last[i] + fi[i] - ms);
     for (int d = 16; d > 0; d >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, d);
-    if (s == 0) logz[n] = m > 0.5f * kNeg ? ms + logf(sum) : kNeg;
+    if (tid == 0) logz[n] = m > 0.5f * kNeg ? ms + logf(sum) : kNeg;
   }
 }
 
+// As ctc_fwd_kernel, walking t descending: beta rows go through the
+// example's two rows of `beta` [N][2][S] (scratch, by the step's parity),
+// and each thread writes the gradient of its states beside their beta.
 __global__ void __launch_bounds__(kMaxThreads)
 ctc_bwd_kernel(const float* __restrict__ g, const float* __restrict__ skip,
                const float* __restrict__ valid, const float* __restrict__ fin,
                const float* __restrict__ alphas,
                const float* __restrict__ logz, const int* __restrict__ lens,
-               float* __restrict__ grad, int t_len, int s_len) {
+               float* __restrict__ grad, float* beta, int t_len, int s_len) {
   const int n = blockIdx.x;
-  const int s = threadIdx.x;
-  const int width = blockDim.x + 2;              // two pad cells at the end
-  const bool active = s < s_len;
-  extern __shared__ float row[];                 // [2][width]
-  if (s < 2) {
-    row[blockDim.x + s] = kNeg;
-    row[width + blockDim.x + s] = kNeg;
-  }
-  // additive mask at source s for the s -> s+2 hop: skip[s+2]
-  const float sk_fwd =
-      (s + 2 < s_len) ? skip[(long long)n * s_len + s + 2] : kNeg;
-  const float va = active ? valid[(long long)n * s_len + s] : kNeg;
-  const float fi = active ? fin[(long long)n * s_len + s] : kNeg;
+  const int tid = threadIdx.x;
+  const float* sk = skip + (long long)n * s_len;
+  const float* va = valid + (long long)n * s_len;
+  const float* fi = fin + (long long)n * s_len;
   const float lz = logz[n];
   const float feasible = lz > 0.5f * kNeg ? 1.0f : 0.0f;
   const int len = lens[n];
   const float* gn = g + (long long)n * t_len * s_len;
   const float* an = alphas + (long long)n * t_len * s_len;
   float* dn = grad + (long long)n * t_len * s_len;
+  float* bn = beta + (long long)n * 2 * s_len;
 
-  float gt = active ? gn[(long long)(t_len - 1) * s_len + s] : kNeg;
-  float at = active ? an[(long long)(t_len - 1) * s_len + s] : kNeg;
-  float beta = fmaxf(gt + fi + va, kNeg);
   for (int t = t_len - 1; t >= 0; --t) {
-    if (t < t_len - 1) {
-      float* buf = row + (t & 1) * width;
-      buf[s] = beta;
-      __syncthreads();
-      const float one = buf[s + 1];
-      const float two = buf[s + 2] + sk_fwd;
-      beta = fmaxf(gt + lse3(beta, one, two) + va, kNeg);
-    }
-    const float g_cur = gt;
-    const float a_cur = at;
-    if (active && t > 0) {                       // next step's loads
-      gt = gn[(long long)(t - 1) * s_len + s];
-      at = an[(long long)(t - 1) * s_len + s];
-    }
-    if (active) {
-      const float lg = a_cur + beta - g_cur - lz;
+    const float* nxt = bn + ((t + 1) & 1) * s_len;
+    float* cur = bn + (t & 1) * s_len;
+    const float* gt = gn + (long long)t * s_len;
+    const float* at = an + (long long)t * s_len;
+    if (t < t_len - 1) __syncthreads();          // row t+1 is written
+    for (int s = tid; s < s_len; s += blockDim.x) {
+      float b;
+      if (t == t_len - 1) {
+        b = fmaxf(gt[s] + fi[s] + va[s], kNeg);
+      } else {
+        // additive mask at source s for the s -> s+2 hop: skip[s+2]
+        const float sk_fwd = s + 2 < s_len ? sk[s + 2] : kNeg;
+        const float one = s + 1 < s_len ? nxt[s + 1] : kNeg;
+        const float two = (s + 2 < s_len ? nxt[s + 2] : kNeg) + sk_fwd;
+        b = fmaxf(gt[s] + lse3(nxt[s], one, two) + va[s], kNeg);
+      }
+      cur[s] = b;
+      const float lg = at[s] + b - gt[s] - lz;
       const float post = lg > 0.5f * kNeg ? expf(fminf(lg, 0.0f)) : 0.0f;
       const float live = t < len ? 1.0f : 0.0f;
       dn[(long long)t * s_len + s] = -post * feasible * live;
@@ -553,7 +541,9 @@ ctc_bwd_warp_kernel(const float* __restrict__ g,
   emit(tp, grad_row, beta, gp, ap);              // step 0
 }
 
-int block_threads(int s_len) { return ((s_len + 31) / 32) * 32; }
+int block_threads(int s_len) {
+  return min(((s_len + 31) / 32) * 32, kMaxThreads);
+}
 
 template <int K>
 int launch_fwd_warp(const void* g, const void* skip, const void* valid,
@@ -589,7 +579,7 @@ int launch_bwd_warp(const void* g, const void* skip, const void* valid,
 extern "C" int ctc_fwd(const void* g, const void* skip, const void* valid,
                        const void* fin, void* logz, void* alphas, int n_rows,
                        int t_len, int s_len, void* stream) {
-  if (n_rows <= 0 || t_len <= 0 || s_len <= 0 || s_len > kMaxStates)
+  if (n_rows <= 0 || t_len <= 0 || s_len <= 0)
     return (int)cudaErrorInvalidValue;
   if (s_len <= kWarpMaxStates) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -599,23 +589,23 @@ extern "C" int ctc_fwd(const void* g, const void* skip, const void* valid,
                : launch_fwd_warp<2>(g, skip, valid, fin, logz, alphas, n_rows,
                                     t_len, s_len, st);
   }
-  const int threads = block_threads(s_len);
-  const size_t smem = sizeof(float) * 2 * (threads + 2);
-  ctc_fwd_kernel<<<n_rows, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  ctc_fwd_kernel<<<n_rows, block_threads(s_len), 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const float*>(skip),
       static_cast<const float*>(valid), static_cast<const float*>(fin),
       static_cast<float*>(logz), static_cast<float*>(alphas), t_len, s_len);
   return (int)cudaGetLastError();
 }
 
-// As ctc_fwd, plus lens: [N] int32 and grad: [N, T, S] f32 (output). S <=
-// 32 and S <= 64 run the warp kernel (K = 1, 2), longer rows the block
-// kernel.
+// As ctc_fwd, plus lens: [N] int32, grad: [N, T, S] f32 (output) and beta:
+// scratch [N, 2, S] f32 for the block kernel (null up to S = 64). S <= 32
+// and S <= 64 run the warp kernel (K = 1, 2), longer rows the block kernel.
 extern "C" int ctc_bwd(const void* g, const void* skip, const void* valid,
                        const void* fin, const void* alphas, const void* logz,
-                       const void* lens, void* grad, int n_rows, int t_len,
-                       int s_len, void* stream) {
-  if (n_rows <= 0 || t_len <= 0 || s_len <= 0 || s_len > kMaxStates)
+                       const void* lens, void* grad, void* beta, int n_rows,
+                       int t_len, int s_len, void* stream) {
+  if (n_rows <= 0 || t_len <= 0 || s_len <= 0 ||
+      (s_len > kWarpMaxStates && beta == nullptr))
     return (int)cudaErrorInvalidValue;
   if (s_len <= kWarpMaxStates) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -625,12 +615,12 @@ extern "C" int ctc_bwd(const void* g, const void* skip, const void* valid,
                : launch_bwd_warp<2>(g, skip, valid, fin, alphas, logz, lens,
                                     grad, n_rows, t_len, s_len, st);
   }
-  const int threads = block_threads(s_len);
-  const size_t smem = sizeof(float) * 2 * (threads + 2);
-  ctc_bwd_kernel<<<n_rows, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  ctc_bwd_kernel<<<n_rows, block_threads(s_len), 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(g), static_cast<const float*>(skip),
       static_cast<const float*>(valid), static_cast<const float*>(fin),
       static_cast<const float*>(alphas), static_cast<const float*>(logz),
-      static_cast<const int*>(lens), static_cast<float*>(grad), t_len, s_len);
+      static_cast<const int*>(lens), static_cast<float*>(grad),
+      static_cast<float*>(beta), t_len, s_len);
   return (int)cudaGetLastError();
 }

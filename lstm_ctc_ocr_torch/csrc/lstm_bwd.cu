@@ -29,7 +29,8 @@
 // all deterministic (fixed summation order, no atomics). Dispatch by type
 // is explicit:
 //
-// bf16 (the training type) -- U on chip, rows in one tensor-core product:
+// bf16 (the training type) up to H = 512 -- U on chip, rows in one
+// tensor-core product:
 //  1. lstm_bwd_cluster_kernel, the cluster recurrence of
 //     lstm_bwd_cluster.cuh that kernel 2 (bilstm_bwd.cu) runs too: one
 //     non-portable thread-block cluster of CS blocks per 16 batch rows
@@ -53,13 +54,19 @@
 //     rows, and the first time step (zero state) drops out.
 //  3. lstm_bwd_db_kernel, db = sum over n of db_part.
 //
-// f32 -- one block per batch row (its 4 MB of U^T fits no cluster):
-//  1. lstm_bwd_rec_kernel, one block per batch row, H threads; thread k owns
-//     hidden unit k; the rounded dg row goes through shared memory and
-//     dh_prev[k] is its dot product with row k of U, read from U^T packed
-//     [4H/VEC][H][VEC] (VEC = 16 bytes) in L2 every step.
-//  2. lstm_bwd_du_kernel, the FP32 tiled product lstm_common::du_tile.
+// f32 (the type of the tests and the gradient checks) at every H, and bf16
+// past H = 512 -- the wide recurrence of lstm_wide.cuh, then the dU and db
+// launches:
+//  1. lstm_bwd_wide_kernel, one block per batch row, its threads walking the
+//     units (one a unit up to 1024); the rounded dg row goes through shared
+//     memory and dh_prev[k] is its dot product with row k of U, read from
+//     U^T packed [4H/VEC][H][VEC] (VEC = 16 bytes) in L2 every step.
+//  2. dU: lstm_bwd_du_mma_kernel in bf16, lstm_bwd_du_kernel (the FP32 tiled
+//     product lstm_common::du_tile) in f32.
 //  3. lstm_bwd_db_kernel as above.
+// Right, not fast: every block reads all of U every step. It took the
+// place of the first f32 recurrence, the same design with one thread a
+// unit and H <= 512.
 //
 // Built with nvcc into a shared library with a plain C interface
 // (lstm_ctc_ocr_torch/ops/_build.py) and bound with ctypes
@@ -68,14 +75,13 @@
 
 #include "lstm_bwd_cluster.cuh"
 #include "lstm_common.cuh"
+#include "lstm_wide.cuh"
 
 namespace {
 
-using lstm_common::from_f32;
 using lstm_common::kTile;
-using lstm_common::to_f32;
 
-constexpr int kMaxHidden = 512;   // H: threads per f32 recurrence block
+constexpr int kMaxClusterHidden = 512;   // H of the bf16 cluster recurrence
 
 // --- bf16: the cluster recurrence (lstm_bwd_cluster.cuh) -------------------
 
@@ -104,83 +110,6 @@ lstm_bwd_du_mma_kernel(const __nv_bfloat16* __restrict__ hs,
                            blockIdx.y * kTile, blockIdx.x * kTile);
 }
 
-// --- f32: one block per batch row ------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxHidden)
-lstm_bwd_rec_kernel(const T* __restrict__ dout, const T* __restrict__ gates,
-                    const T* __restrict__ c_res, const T* __restrict__ ut,
-                    const int* __restrict__ lens, T* __restrict__ dx,
-                    float* __restrict__ db_part, int t_len, int n_rows,
-                    int hid) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int k = threadIdx.x;                     // hidden unit
-  const int n = blockIdx.x;                      // batch row
-  const int four_h = 4 * hid;
-  const int len = lens[n];
-
-  extern __shared__ float dg_row[];              // [4H], rounded dg
-
-  float dh = 0.0f, dc = 0.0f;
-  float db_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-  for (int t = t_len - 1; t >= 0; --t) {
-    const long long row = (long long)t * n_rows + n;
-    T* dx_row = dx + row * four_h;
-    if (len <= t) {                              // dead step, block-uniform
-      const T zero = from_f32<T>(0.0f);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) dx_row[q * hid + k] = zero;
-      continue;
-    }
-    const T* g_row = gates + row * four_h;
-    const float gi = to_f32(g_row[k]);
-    const float gj = to_f32(g_row[hid + k]);
-    const float gfo = to_f32(g_row[2 * hid + k]);
-    const float go = to_f32(g_row[3 * hid + k]);
-    const float c_prev =
-        t > 0 ? to_f32(c_res[((long long)(t - 1) * n_rows + n) * hid + k])
-              : 0.0f;
-
-    const float tanh_c = tanhf(gfo * c_prev + gi * gj);
-    const float g_hnew = dh + to_f32(dout[row * hid + k]);
-    const float do_ = g_hnew * tanh_c;
-    const float dc_tot = dc + g_hnew * go * (1.0f - tanh_c * tanh_c);
-    float dg[4];
-    dg[0] = dc_tot * gj * gi * (1.0f - gi);
-    dg[1] = dc_tot * gi * (1.0f - gj * gj);
-    dg[2] = dc_tot * c_prev * gfo * (1.0f - gfo);
-    dg[3] = do_ * go * (1.0f - go);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      db_acc[q] += dg[q];
-      const T r = from_f32<T>(dg[q]);
-      dx_row[q * hid + k] = r;
-      dg_row[q * hid + k] = to_f32(r);
-    }
-    dc = dc_tot * gfo;
-    __syncthreads();
-
-    // dh[k] = sum_m dg_row[m] * U[k][m], U^T packed [4H/VEC][H][VEC]
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int mb = 0; mb < four_h / VEC; ++mb) {
-      alignas(16) T uv[VEC];
-      *reinterpret_cast<uint4*>(uv) = __ldg(reinterpret_cast<const uint4*>(
-          ut + ((long long)mb * hid + k) * VEC));
-#pragma unroll
-      for (int v = 0; v < VEC; ++v)
-        acc[v & 3] = fmaf(dg_row[mb * VEC + v], to_f32(uv[v]), acc[v & 3]);
-    }
-    dh = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-    __syncthreads();                             // dg_row is free again
-  }
-
-  float* part = db_part + (long long)n * four_h;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) part[q * hid + k] = db_acc[q];
-}
-
 template <typename T>
 __global__ void __launch_bounds__(256)
 lstm_bwd_du_kernel(const T* __restrict__ hs, const T* __restrict__ dx,
@@ -196,6 +125,21 @@ __global__ void __launch_bounds__(256)
 lstm_bwd_db_kernel(const float* __restrict__ db_part, float* __restrict__ db,
                    int n_rows, int four_h) {
   lstm_common::db_sum(db_part, db, n_rows, four_h);
+}
+
+// --- f32, and bf16 past the cluster: lstm_wide.cuh -----------------------
+
+template <typename T>
+__global__ void __launch_bounds__(lstm_wide::kMaxThreads)
+lstm_bwd_wide_kernel(const T* __restrict__ dout, const T* __restrict__ gates,
+                     const T* __restrict__ c_res, const T* __restrict__ ut,
+                     const int* __restrict__ lens, T* __restrict__ dx,
+                     float* __restrict__ db_part, int t_len, int n_rows,
+                     int hid) {
+  const int n = blockIdx.x;
+  lstm_wide::bwd_row<T>(dout, gates, c_res, ut, lens[n], dx,
+                        db_part + (long long)n * 4 * hid, t_len, n_rows, n,
+                        hid, false);
 }
 
 int launch_db(const void* db_part, void* db, int n_rows, int hid,
@@ -236,7 +180,7 @@ extern "C" int lstm_bwd_bf16(const void* dout, const void* gates,
                              void* db_part, int t_len, int n_rows, int hid,
                              int ub, void* stream_ptr) {
   using bf16 = __nv_bfloat16;
-  if (t_len <= 0 || n_rows <= 0 || hid > kMaxHidden)
+  if (t_len <= 0 || n_rows <= 0 || hid > kMaxClusterHidden)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   static int checked[2] = {-1, -1};
@@ -259,32 +203,59 @@ extern "C" int lstm_bwd_bf16(const void* dout, const void* gates,
   return launch_db(db_part, db, n_rows, hid, stream);
 }
 
-// As lstm_bwd_bf16, with ut: U^T packed as [4H/4][H][4]. Returns a
-// cudaError_t.
-extern "C" int lstm_bwd_f32(const void* dout, const void* gates,
-                            const void* hs, const void* cs, const void* ut,
-                            const void* lens, void* dx, void* du, void* db,
-                            void* db_part, int t_len, int n_rows, int hid,
-                            void* stream_ptr) {
-  using T = float;
-  constexpr int VEC = 16 / sizeof(T);
-  if (t_len <= 0 || n_rows <= 0 || hid <= 0 || hid > kMaxHidden ||
-      hid % VEC != 0)
+// The wide recurrence (lstm_wide.cuh): f32 at every H, bf16 past the
+// cluster's 512. Arguments as lstm_bwd_bf16 without ub, with ut: U^T packed
+// as [4H/VEC][H][VEC] (VEC = 8 in bf16, 4 in f32); H a multiple of VEC,
+// <= 8192. dU then runs on tensor cores in bf16 and as FP32 FMAs in f32.
+// Returns a cudaError_t.
+template <typename T>
+int launch_wide(const void* dout, const void* gates, const void* hs,
+                const void* cs, const void* ut, const void* lens, void* dx,
+                void* du, void* db, void* db_part, int t_len, int n_rows,
+                int hid, void* stream_ptr) {
+  if (t_len <= 0 || n_rows <= 0 || !lstm_wide::shape_ok<T>(hid))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int four_h = 4 * hid;
-  lstm_bwd_rec_kernel<T><<<n_rows, hid, sizeof(float) * four_h, stream>>>(
+  const size_t smem = lstm_wide::bwd_smem(hid);
+  cudaError_t err = lstm_wide::allow_smem(lstm_bwd_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  lstm_bwd_wide_kernel<T><<<n_rows, lstm_wide::threads(hid), smem, stream>>>(
       static_cast<const T*>(dout), static_cast<const T*>(gates),
       static_cast<const T*>(cs), static_cast<const T*>(ut),
       static_cast<const int*>(lens), static_cast<T*>(dx),
       static_cast<float*>(db_part), t_len, n_rows, hid);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  lstm_bwd_du_kernel<T>
-      <<<dim3((four_h + kTile - 1) / kTile, (hid + kTile - 1) / kTile), 256, 0,
-         stream>>>(static_cast<const T*>(hs), static_cast<const T*>(dx),
-                   static_cast<float*>(du), t_len, n_rows, hid);
+  const int four_h = 4 * hid;
+  const dim3 grid((four_h + kTile - 1) / kTile, (hid + kTile - 1) / kTile);
+  if constexpr (sizeof(T) == 2)
+    lstm_bwd_du_mma_kernel<<<grid, lstm_common::kDuThreads, 0, stream>>>(
+        static_cast<const T*>(hs), static_cast<const T*>(dx),
+        static_cast<float*>(du), t_len, n_rows, hid);
+  else
+    lstm_bwd_du_kernel<T><<<grid, 256, 0, stream>>>(
+        static_cast<const T*>(hs), static_cast<const T*>(dx),
+        static_cast<float*>(du), t_len, n_rows, hid);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return launch_db(db_part, db, n_rows, hid, stream);
+}
+
+extern "C" int lstm_bwd_wide_bf16(const void* dout, const void* gates,
+                                  const void* hs, const void* cs,
+                                  const void* ut, const void* lens, void* dx,
+                                  void* du, void* db, void* db_part,
+                                  int t_len, int n_rows, int hid,
+                                  void* stream_ptr) {
+  return launch_wide<__nv_bfloat16>(dout, gates, hs, cs, ut, lens, dx, du, db,
+                                    db_part, t_len, n_rows, hid, stream_ptr);
+}
+
+extern "C" int lstm_bwd_wide_f32(const void* dout, const void* gates,
+                                 const void* hs, const void* cs,
+                                 const void* ut, const void* lens, void* dx,
+                                 void* du, void* db, void* db_part, int t_len,
+                                 int n_rows, int hid, void* stream_ptr) {
+  return launch_wide<float>(dout, gates, hs, cs, ut, lens, dx, du, db,
+                            db_part, t_len, n_rows, hid, stream_ptr);
 }

@@ -1,7 +1,8 @@
 // The bf16 recurrence shared by the two LSTM backward kernels for Hopper
-// (sm_90a): lstm_bwd.cu (kernel 6, one direction, H <= 512) and
-// bilstm_bwd.cu (kernel 2, both directions in one launch along the grid's
-// z, H <= 256). Their f32 paths keep their one-block-per-row kernels.
+// (sm_90a): lstm_bwd.cu (kernel 6, one direction) and bilstm_bwd.cu
+// (kernel 2, both directions in one launch along the grid's z), each up to
+// H = 512; wider H runs the wide recurrence of lstm_wide.cuh. Their f32
+// paths keep their one-block-per-row kernels.
 //
 // The step, per direction, walking the forward's scan order backwards (the
 // forward direction: t descending, with h_prev/c_prev the carry from row

@@ -21,7 +21,8 @@
 // time is how often U crosses from L2 and how long one step's dependent
 // chain is. Dispatch by type is explicit:
 //
-// bf16 (the type both models train and decode in) -- lstm_fwd_cluster_kernel,
+// bf16 (the type both models train and decode in) up to H = 512 --
+// lstm_fwd_cluster_kernel,
 // the cluster recurrence of lstm_fwd_cluster.cuh: one thread-block cluster
 // of CS <= 16 blocks per 16 batch rows, each block's 4 UB columns of U in
 // its shared memory for the whole sequence (128 KB at H = 512), each step's
@@ -43,17 +44,16 @@
 // each block's columns, so no call packs U with torch ops any more (the
 // one-block-per-row kernel needed a repacked U on every call).
 //
-// f32 -- lstm_fwd_kernel, one block per batch row (f32 U, 4 MB, fits no
-// cluster, and a tensor-core product would be TF32): H threads (up to 512,
-// so at most 128 registers a thread); thread k owns hidden unit k, computes
-// its four gate columns k, H+k, 2H+k, 3H+k, and keeps that unit's h and c
-// in registers, so the gate math and the state update are thread-local.
-// The row's h sits in shared memory, two __syncthreads per step. The
-// wrapper hands U packed as [H/VEC][4H][VEC] (VEC = 4 floats, 16 bytes),
-// so one 16-byte load per thread and gate brings VEC consecutive rows of U
-// and a warp's loads cover 512 contiguous bytes; the loop over those
-// loads is unrolled 4 deep to keep several in flight. Every block re-reads
-// U from L2 each step.
+// f32 (the type of the tests and the gradient checks) at every H, and bf16
+// past H = 512 -- lstm_fwd_wide_kernel, the wide recurrence of
+// lstm_wide.cuh: one block a batch row, its threads walking the units (one
+// a unit up to 1024), computing each unit's four gate columns k, H+k, 2H+k,
+// 3H+k as FP32 FMAs (f32 U is 4 MB at H = 512, and a tensor-core product
+// would be TF32). The wrapper hands U packed as [H/VEC][4H][VEC], so one
+// 16-byte load per thread and gate brings VEC consecutive rows of U and a
+// warp's loads cover 512 contiguous bytes; every block re-reads U from L2
+// each step. Right, not fast. It took the place of the first f32 kernel, the
+// same design with one thread a unit and H <= 512.
 //
 // The TPU carried h/c in VMEM scratch across a sequential grid of time
 // blocks, with the time and batch axes padded to its tiles; here the time
@@ -66,12 +66,12 @@
 
 #include "lstm_common.cuh"
 #include "lstm_fwd_cluster.cuh"
+#include "lstm_wide.cuh"
 
 namespace {
 
-using lstm_common::sigmoid_f32;
 
-constexpr int kMaxHidden = 512;  // H: threads per f32 block
+constexpr int kMaxClusterHidden = 512;   // H of the bf16 cluster recurrence
 
 // --- bf16: the cluster recurrence (lstm_fwd_cluster.cuh) -------------------
 
@@ -90,81 +90,37 @@ lstm_fwd_cluster_kernel(const __nv_bfloat16* __restrict__ xp,
                                forget_bias, false);
 }
 
-// --- f32: one block per batch row ------------------------------------------
+// --- f32, and bf16 past the cluster: lstm_wide.cuh -----------------------
 
-__global__ void __launch_bounds__(kMaxHidden)
-lstm_fwd_kernel(const float* __restrict__ xp, const float* __restrict__ u,
-                const float* __restrict__ bias, const int* __restrict__ lens,
-                float* __restrict__ out, float* __restrict__ g_out,
-                float* __restrict__ h_out, float* __restrict__ c_out,
-                int t_len, int n_rows, int hid, float forget_bias) {
-  constexpr int VEC = 4;                         // floats per 16 bytes
-  const bool save = g_out != nullptr;
-  const int k = threadIdx.x;                     // hidden unit
-  const int n = blockIdx.x;                      // batch row
-  const int four_h = 4 * hid;
-  const int len = lens[n];
+template <typename T>
+__global__ void __launch_bounds__(lstm_wide::kMaxThreads)
+lstm_fwd_wide_kernel(const T* __restrict__ xp, const T* __restrict__ up,
+                     const T* __restrict__ bias, const int* __restrict__ lens,
+                     T* __restrict__ out, T* __restrict__ g_out,
+                     T* __restrict__ h_out, T* __restrict__ c_out, int t_len,
+                     int n_rows, int hid, float forget_bias) {
+  const int n = blockIdx.x;
+  lstm_wide::fwd_row<T>(xp, 4LL * hid, up, bias, lens[n], out, g_out, h_out,
+                        c_out, t_len, n_rows, n, hid, forget_bias, false);
+}
 
-  extern __shared__ float h_row[];               // [hid]
-
-  float h = 0.0f, c = 0.0f;
-  h_row[k] = 0.0f;
-  float b[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) b[g] = bias[g * hid + k];
-  __syncthreads();
-
-  for (int t = 0; t < t_len; ++t) {
-    const long long row = (long long)t * n_rows + n;
-    const float* x_row = xp + row * four_h;
-    float acc[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) acc[g] = x_row[g * hid + k];
-
-    // acc[g] += sum_kk h_row[kk] * U[kk][g*hid + k]
-#pragma unroll 4
-    for (int kb = 0; kb < hid / VEC; ++kb) {
-      alignas(16) float uv[4][VEC];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const uint4* src = reinterpret_cast<const uint4*>(
-            u + ((long long)kb * four_h + g * hid + k) * VEC);
-        *reinterpret_cast<uint4*>(uv[g]) = __ldg(src);
-      }
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        const float hv = h_row[kb * VEC + v];
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          acc[g] = fmaf(hv, uv[g][v], acc[g]);
-      }
-    }
-
-    const float gi = sigmoid_f32(acc[0] + b[0]);
-    const float gj = tanhf(acc[1] + b[1]);
-    const float gfo = sigmoid_f32(acc[2] + b[2] + forget_bias);
-    const float go = sigmoid_f32(acc[3] + b[3]);
-    const float c_new = gfo * c + gi * gj;
-    const float h_new = go * tanhf(c_new);
-    const bool live = len > t;
-    if (live) {
-      h = h_new;
-      c = c_new;
-    }
-    out[row * hid + k] = live ? h_new : 0.0f;
-    if (save) {
-      float* g_row = g_out + row * four_h;
-      g_row[k] = gi;
-      g_row[hid + k] = gj;
-      g_row[2 * hid + k] = gfo;
-      g_row[3 * hid + k] = go;
-      h_out[row * hid + k] = h;
-      c_out[row * hid + k] = c;
-    }
-    __syncthreads();                             // all reads of h_row done
-    h_row[k] = h;
-    __syncthreads();
-  }
+template <typename T>
+int launch_wide(const void* xp, const void* up, const void* bias,
+                const void* lens, void* out, void* g_out, void* h_out,
+                void* c_out, int t_len, int n_rows, int hid, float forget_bias,
+                void* stream) {
+  if (t_len <= 0 || n_rows <= 0 || !lstm_wide::shape_ok<T>(hid))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = lstm_wide::fwd_smem(hid);
+  const cudaError_t err = lstm_wide::allow_smem(lstm_fwd_wide_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  lstm_fwd_wide_kernel<T><<<n_rows, lstm_wide::threads(hid), smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(xp), static_cast<const T*>(up),
+      static_cast<const T*>(bias), static_cast<const int*>(lens),
+      static_cast<T*>(out), static_cast<T*>(g_out), static_cast<T*>(h_out),
+      static_cast<T*>(c_out), t_len, n_rows, hid, forget_bias);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -196,7 +152,7 @@ extern "C" int lstm_fwd_bf16(const void* xp, const void* u, const void* bias,
                              int hid, int ub, float forget_bias,
                              void* stream) {
   using bf16 = __nv_bfloat16;
-  if (t_len <= 0 || n_rows <= 0 || hid > kMaxHidden)
+  if (t_len <= 0 || n_rows <= 0 || hid > kMaxClusterHidden)
     return (int)cudaErrorInvalidValue;
   static int checked[2] = {-1, -1};
   return lstm_fwd_cluster::launch(
@@ -208,20 +164,25 @@ extern "C" int lstm_fwd_bf16(const void* xp, const void* u, const void* bias,
       static_cast<bf16*>(c_out), t_len, n_rows, hid, ub, forget_bias);
 }
 
-// As lstm_fwd_bf16 without ub, with u: U packed as [H/4][4H][4]. Returns a
-// cudaError_t.
-extern "C" int lstm_fwd_f32(const void* xp, const void* u, const void* bias,
-                            const void* lens, void* out, void* g_out,
-                            void* h_out, void* c_out, int t_len, int n_rows,
-                            int hid, float forget_bias, void* stream) {
-  if (t_len <= 0 || n_rows <= 0 || hid <= 0 || hid > kMaxHidden || hid % 4)
-    return (int)cudaErrorInvalidValue;
-  lstm_fwd_kernel<<<n_rows, hid, sizeof(float) * hid,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xp), static_cast<const float*>(u),
-      static_cast<const float*>(bias), static_cast<const int*>(lens),
-      static_cast<float*>(out), static_cast<float*>(g_out),
-      static_cast<float*>(h_out), static_cast<float*>(c_out), t_len, n_rows,
-      hid, forget_bias);
-  return (int)cudaGetLastError();
+// The wide recurrence (lstm_wide.cuh): f32 at every H, bf16 past the
+// cluster's 512. Arguments as lstm_fwd_bf16 without ub, with up: U packed
+// as [H/VEC][4H][VEC] (VEC = 8 in bf16, 4 in f32); H a multiple of VEC,
+// <= 8192. Returns a cudaError_t.
+extern "C" int lstm_fwd_wide_bf16(const void* xp, const void* up,
+                                  const void* bias, const void* lens,
+                                  void* out, void* g_out, void* h_out,
+                                  void* c_out, int t_len, int n_rows, int hid,
+                                  float forget_bias, void* stream) {
+  return launch_wide<__nv_bfloat16>(xp, up, bias, lens, out, g_out, h_out,
+                                    c_out, t_len, n_rows, hid, forget_bias,
+                                    stream);
+}
+
+extern "C" int lstm_fwd_wide_f32(const void* xp, const void* up,
+                                 const void* bias, const void* lens,
+                                 void* out, void* g_out, void* h_out,
+                                 void* c_out, int t_len, int n_rows, int hid,
+                                 float forget_bias, void* stream) {
+  return launch_wide<float>(xp, up, bias, lens, out, g_out, h_out, c_out,
+                            t_len, n_rows, hid, forget_bias, stream);
 }

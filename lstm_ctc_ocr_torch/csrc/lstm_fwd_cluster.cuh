@@ -1,7 +1,8 @@
 // The bf16 recurrence shared by the two LSTM forward kernels for Hopper
-// (sm_90a): lstm_fwd.cu (kernel 5, one direction, H <= 512) and
-// bilstm_fwd.cu (kernel 1, both directions in one launch, H <= 256). Their
-// f32 paths keep their one-block-per-row kernels.
+// (sm_90a): lstm_fwd.cu (kernel 5, one direction) and bilstm_fwd.cu
+// (kernel 1, both directions in one launch), each up to H = 512; wider H
+// runs the wide recurrence of lstm_wide.cuh. Their f32 paths keep their
+// one-block-per-row kernels.
 //
 // Geometry. The batch rows go in groups of 16 (the mma M); each group is
 // one thread-block cluster of CS blocks, and block b owns the UB hidden

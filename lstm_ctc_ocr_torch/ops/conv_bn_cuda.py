@@ -37,7 +37,7 @@ import torch.nn.functional as F
 from . import _build
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
-CHANNEL_STEP = 16      # C_in must be a multiple of the kernel's kStep
+CHANNEL_STEP = 16      # the kernel's kStep: C_in is padded to a multiple
 
 
 def conv3x3_bn_relu_reference(x, kernel, bias, gamma, beta, eps=1e-3):
@@ -102,7 +102,9 @@ def conv3x3_bn_relu(x, kernel, bias, gamma, beta, eps=1e-3):
     Same contract as :func:`conv3x3_bn_relu_reference`. CPU tensors run the
     plain version; CUDA tensors launch ``csrc/conv_bn.cu`` (the layout of x
     and of the taps, the conv with its partial statistics, their reduction,
-    the normalisation: one entry point) or raise."""
+    the normalisation: one entry point) or raise. Any C_in: where it is not
+    a multiple of :data:`CHANNEL_STEP`, ``x`` and the kernel get zero input
+    channels up to one (a copy of ``x``, in the wrapper's time)."""
     if x.device.type == 'cpu':
         return conv3x3_bn_relu_reference(x, kernel, bias, gamma, beta, eps)
     if x.device.type != 'cuda':
@@ -119,9 +121,6 @@ def conv3x3_bn_relu(x, kernel, bias, gamma, beta, eps=1e-3):
                                                        tuple(kernel.shape)))
     n, ci, w, h = x.shape
     co = kernel.shape[0]
-    if ci % CHANNEL_STEP:
-        raise ValueError('C_in {} unsupported: needs a multiple of {}'.format(
-            ci, CHANNEL_STEP))
     for name, tns in (('kernel', kernel), ('bias', bias), ('gamma', gamma),
                       ('beta', beta)):
         if tns.device != dev or (name != 'kernel'
@@ -129,6 +128,12 @@ def conv3x3_bn_relu(x, kernel, bias, gamma, beta, eps=1e-3):
             raise ValueError('{}: expected a [{}] tensor on {}, got {} on {}'
                              .format(name, co, dev, tuple(tns.shape),
                                      tns.device))
+    if ci % CHANNEL_STEP:
+        # the kernel takes channels in steps of CHANNEL_STEP: zero channels,
+        # in x and in the kernel's C_in, add zero to every sum
+        pad = (0, 0, 0, 0, 0, CHANNEL_STEP - ci % CHANNEL_STEP)
+        return conv3x3_bn_relu(F.pad(x, pad), F.pad(kernel, pad), bias,
+                               gamma, beta, eps)
     channels_last = x.permute(0, 2, 3, 1).is_contiguous()
     if not channels_last:
         x = x.contiguous()              # [N, C, W, H] rows for the kernel

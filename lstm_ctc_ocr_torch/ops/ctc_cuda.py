@@ -15,11 +15,10 @@ kernel launches.
 
 :func:`ctc_loss` is the training loss: the gather and the scatter in
 tensor ops around the two recursions. Both run one warp per example up to
-64 extended states (labels of up to 31 characters) and one block per
-example, one thread per state, past that. So they take labels of up to
-:data:`MAX_LABEL_LEN` characters (1023 states); the JAX package's kernel
-stops at 63 and hands longer labels to its plain version. Past
-:data:`MAX_LABEL_LEN`, CUDA tensors raise ``NotImplementedError``.
+:data:`WARP_MAX_STATES` extended states (labels of up to 31 characters) and
+one block per example past that, each thread walking several states where
+S passes 1024. So they take labels of any length; the JAX package's kernel
+stops at 63 characters and hands longer labels to its plain version.
 """
 
 from __future__ import annotations
@@ -30,8 +29,7 @@ import torch
 
 from . import _build, ctc
 
-MAX_STATES = 1023                 # S = 2L+1 the kernels take (kMaxStates)
-MAX_LABEL_LEN = (MAX_STATES - 1) // 2    # 511 characters
+WARP_MAX_STATES = 64      # S up to which both kernels run one warp an example
 
 
 def _entry(name, n_ptrs):
@@ -50,9 +48,9 @@ def _check(name, g, others):
     if g.device.type != 'cuda':
         raise ValueError('{} runs on CUDA or CPU tensors, got {}'.format(
             name, g.device))
-    if g.dim() != 3 or not 0 < g.shape[2] <= MAX_STATES:
-        raise ValueError('g: expected [N, T, S] with S in 1..{}, got {}'
-                         .format(MAX_STATES, tuple(g.shape)))
+    if g.dim() != 3 or not g.shape[2] > 0:
+        raise ValueError('g: expected [N, T, S] with S >= 1, got {}'
+                         .format(tuple(g.shape)))
     n, t_len, s_len = g.shape
     shapes = {'cube': (n, t_len, s_len), 'row': (n, s_len), 'vec': (n,)}
     for label, tns, kind, dtype in [('g', g, 'cube', torch.float32)] + others:
@@ -110,10 +108,14 @@ def ctc_backward(g, skip, valid, final, alphas, logz, lens):
            ('lens', lens, 'vec', torch.int32)])
     grad = torch.empty_like(g)
     if n and t_len:
-        err = _entry('ctc_bwd', 8)(
+        # the block kernel's two beta rows an example (past the warp form)
+        beta = (torch.empty(n, 2, s_len, dtype=torch.float32, device=g.device)
+                if s_len > WARP_MAX_STATES else None)
+        err = _entry('ctc_bwd', 9)(
             g.data_ptr(), skip.data_ptr(), valid.data_ptr(),
             final.data_ptr(), alphas.data_ptr(), logz.data_ptr(),
-            lens.data_ptr(), grad.data_ptr(), n, t_len, s_len,
+            lens.data_ptr(), grad.data_ptr(),
+            None if beta is None else beta.data_ptr(), n, t_len, s_len,
             torch.cuda.current_stream(g.device).cuda_stream)
         if err != 0:
             raise RuntimeError('ctc_bwd kernel launch failed: cudaError {}'
@@ -129,11 +131,5 @@ ctc_backward.launches = 0
 def ctc_loss(logits, labels, label_lens, logit_lens):
     """Per-example CTC negative log-likelihood (``ops/ctc.py:ctc_loss``
     contract) through :func:`ctc_forward` / :func:`ctc_backward`."""
-    if logits.device.type != 'cpu' and labels.shape[1] > MAX_LABEL_LEN:
-        raise NotImplementedError(
-            'ctc_loss on {}: labels of {} characters need {} states, the '
-            'kernels take {} (labels up to {} characters)'.format(
-                logits.device, labels.shape[1], 2 * labels.shape[1] + 1,
-                MAX_STATES, MAX_LABEL_LEN))
     return ctc.ctc_loss_with(ctc_forward, ctc_backward, logits, labels,
                              label_lens, logit_lens)

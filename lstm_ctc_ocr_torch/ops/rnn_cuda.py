@@ -5,22 +5,34 @@ Counterpart of the JAX package's ``ops/rnn_pallas.py``:
 
 * the fused BiLSTM, ``_bi_fwd_call`` / ``_bi_fwd_kernel``
   (``csrc/bilstm_fwd.cu``) and ``_bi_bwd_call`` / ``_bi_bwd_kernel``
-  (``csrc/bilstm_bwd.cu``), hidden size up to 256 per direction;
+  (``csrc/bilstm_bwd.cu``);
 * the unidirectional scan of the stacked ``lstm`` head, ``_fwd_call`` /
   ``_fwd_kernel`` (``csrc/lstm_fwd.cu``) and ``_bwd_call`` / ``_bwd_kernel``
-  (``csrc/lstm_bwd.cu``), hidden size up to 512.
+  (``csrc/lstm_bwd.cu``).
 
 Each source's header says what bounds it on an H100 and how its design
 answers that. The input projection ``x @ W`` and its backward stay outside
 the kernels, as they stayed outside the TPU kernels (large matmuls).
 
-``bilstm_fwd`` / ``bilstm_bwd`` / ``lstm_fwd`` / ``lstm_bwd`` launch the
+``bilstm_fwd`` / ``bilstm_bwd`` / ``lstm_fwd`` / ``lstm_bwd`` launch a
 kernel for CUDA tensors and run ``*_reference`` for CPU tensors; they never
 fall back from one to the other. Each wrapper's ``launches`` counts its
-launches (one per call). In bf16 all four run thread-block clusters that
-hold U in shared memory and copy it there from U as it is
-(:func:`units_per_block`, :func:`cluster_report`); a shape for which no
-cluster fits the card raises, nothing degrades to another kernel.
+launches (one per call). They take any hidden size H up to
+:data:`MAX_HIDDEN`, in bf16 and f32. :func:`kernel_path` says which kernel of
+the source runs:
+
+* ``cluster`` -- bf16 up to :data:`CLUSTER_HIDDEN`: thread-block clusters
+  that hold U in shared memory and copy it there from U as it is
+  (:func:`units_per_block`, :func:`cluster_report`); a shape for which no
+  cluster fits the card raises, nothing degrades to another kernel;
+* ``wide`` -- f32 at every width, bf16 past that (``csrc/lstm_wide.cuh``):
+  one block a batch row whose threads walk the units, U packed by
+  :func:`_pack_u` and streamed from L2 every step.
+
+H that is not a multiple of 16 bytes of the type (8 in bf16, 4 in f32) is
+zero-padded to one by :func:`resize_hidden` and the results cut back: a
+padded unit starts at c = 0, gets j = tanh(0) = 0, so its c and h stay 0,
+and its rows of U are zero, so it feeds nothing into the real units.
 """
 
 from __future__ import annotations
@@ -32,9 +44,48 @@ import torch
 from . import _build
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
-# kMaxHidden in the kernels (one thread per hidden unit in the f32 ones)
-MAX_HIDDEN = 256           # bilstm_fwd / bilstm_bwd, per direction
-MAX_HIDDEN_LSTM = 512      # lstm_fwd / lstm_bwd
+CLUSTER_HIDDEN = 512       # bf16 cluster recurrences, all four wrappers
+# csrc/lstm_wide.cuh's kMaxHidden: its backward keeps 6 H floats in one
+# block's shared memory
+MAX_HIDDEN = 8192
+
+
+def hidden_step(dtype):
+    """The multiple of H the kernels take: 16 bytes of the type."""
+    return 8 if dtype == torch.bfloat16 else 4
+
+
+def kernel_path(dtype, h_dim):
+    """Which kernel each wrapper launches at hidden size ``h_dim`` (per
+    direction) in ``dtype``, after padding H to :func:`hidden_step`:
+    ``'cluster'`` or ``'wide'``."""
+    step = hidden_step(dtype)
+    width = -(-h_dim // step) * step
+    if dtype == torch.bfloat16 and width <= CLUSTER_HIDDEN:
+        return 'cluster'
+    return 'wide'
+
+
+def resize_hidden(x, kind, h_from, h_to):
+    """``x`` at hidden size ``h_from`` -> at ``h_to``: zero-padded where
+    ``h_to`` is larger, cut where it is smaller (the inverse).
+
+    ``kind`` is ``'units'`` ([..., H]: out, h, c, dout), ``'gates'`` ([...,
+    4H]: x_proj, bias, gates, dx, db; each gate block i, j, f, o on its own)
+    or ``'u'`` ([H, 4H]: U and dU; rows as units, columns as gates).
+    """
+    if h_from == h_to:
+        return x
+    if kind == 'u':
+        x = resize_hidden(x, 'gates', h_from, h_to)
+        return resize_hidden(x.t(), 'units', h_from, h_to).t()
+    if kind == 'gates':
+        lead = x.shape[:-1]
+        return resize_hidden(x.reshape(*lead, 4, h_from), 'units', h_from,
+                             h_to).reshape(*lead, 4 * h_to)
+    if h_to > h_from:
+        return torch.nn.functional.pad(x, (0, h_to - h_from))
+    return x[..., :h_to]
 
 
 def _fwd_walk(xp, u, b, lens, steps, forget_bias, save_residuals):
@@ -159,17 +210,37 @@ def _launch_failed(name, err, h_dim, units=None):
     return RuntimeError(msg)
 
 
-def _entry(dtype):
+def _entry_name(name, dtype, path):
+    """The C entry point of kernel ``name`` on ``path``: ``<name>_bf16`` for
+    the cluster, ``<name>_wide_bf16`` / ``<name>_wide_f32`` else."""
+    suffix = 'bf16' if dtype == torch.bfloat16 else 'f32'
+    return name + ('_' if path == 'cluster' else '_wide_') + suffix
+
+
+def _entry(dtype, path):
     lib = _build.library('bilstm_fwd')
-    bf16 = dtype == torch.bfloat16
-    fn = getattr(lib, 'bilstm_fwd_bf16' if bf16 else 'bilstm_fwd_f32')
+    fn = getattr(lib, _entry_name('bilstm_fwd', dtype, path))
     if fn.argtypes is None:
         p = ctypes.c_void_p
         fn.argtypes = ([p, p, ctypes.c_longlong] + [p] * 13
-                       + [ctypes.c_int] * (4 if bf16 else 3)
+                       + [ctypes.c_int] * (4 if path == 'cluster' else 3)
                        + [ctypes.c_float, p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check_hidden(name, four_h):
+    """H from the gates' width 4H; raises past :data:`MAX_HIDDEN`."""
+    if four_h % 4:
+        raise ValueError('{}: the gates\' width {} is not 4 H'.format(
+            name, four_h))
+    h_dim = four_h // 4
+    if not 0 < h_dim <= MAX_HIDDEN:
+        raise ValueError('{}: hidden size {} unsupported: the kernels take H '
+                         'in 1..{} (the wide recurrence keeps 6 H floats in '
+                         'one block\'s shared memory)'.format(
+                             name, h_dim, MAX_HIDDEN))
+    return h_dim
 
 
 def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
@@ -179,9 +250,9 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
     Same contract as :func:`bilstm_fwd_reference`. ``xpf``/``xpb`` may be
     column slices of one [T, N, 8H] projection (rows need only share a
     stride). CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/bilstm_fwd.cu`` or raise: bf16 runs the cluster recurrence (U in
-    shared memory, tensor-core products), f32 one block per row and
-    direction.
+    ``csrc/bilstm_fwd.cu`` or raise: bf16 up to H = 512 runs the cluster
+    recurrence (U in shared memory, tensor-core products), f32 and wider H
+    the wide recurrence (:func:`kernel_path`).
     """
     if xpf.device.type == 'cpu':
         return bilstm_fwd_reference(xpf, xpb, uf, ub, bf, bb, lens,
@@ -190,11 +261,10 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
         raise ValueError('bilstm_fwd runs on CUDA or CPU tensors, got {}'
                          .format(xpf.device))
     t_len, n, four_h = xpf.shape
-    h_dim = four_h // 4
     dtype = xpf.dtype
     if dtype not in _SUPPORTED:
         raise TypeError('bilstm_fwd takes bf16 or f32, got {}'.format(dtype))
-    vec = 16 // xpf.element_size()
+    h_dim = _check_hidden('bilstm_fwd', four_h)
     for name, tns, shape in (('xpb', xpb, xpf.shape), ('uf', uf, (h_dim, four_h)),
                              ('ub', ub, (h_dim, four_h)), ('bf', bf, (four_h,)),
                              ('bb', bb, (four_h,))):
@@ -206,9 +276,19 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
     if lens.dtype != torch.int32 or lens.device != xpf.device \
             or tuple(lens.shape) != (n,):
         raise ValueError('lens: expected [{}] int32 on {}'.format(n, xpf.device))
-    if four_h % 4 or not 0 < h_dim <= MAX_HIDDEN or h_dim % vec:
-        raise ValueError('hidden size {} unsupported: needs H <= {} and a '
-                         'multiple of {}'.format(h_dim, MAX_HIDDEN, vec))
+    vec = hidden_step(dtype)
+    width = -(-h_dim // vec) * vec
+    if width != h_dim:                  # zero-padded units, results cut back
+        res = bilstm_fwd(
+            *(resize_hidden(x, 'gates', h_dim, width)
+              for x in (xpf, xpb)),
+            *(resize_hidden(u, 'u', h_dim, width) for u in (uf, ub)),
+            *(resize_hidden(b, 'gates', h_dim, width) for b in (bf, bb)),
+            lens, forget_bias, save_residuals)
+        kinds = (('units', 'gates', 'units', 'units') * 2 if save_residuals
+                 else ('units', 'units'))
+        return tuple(resize_hidden(r, k, width, h_dim).contiguous()
+                     for r, k in zip(res, kinds))
     row_stride = xpf.stride(1)
     for tns in (xpf, xpb):
         if tns.stride(2) != 1 or tns.stride(0) != n * row_stride \
@@ -216,7 +296,8 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
             raise ValueError('xpf/xpb need unit column stride and a shared '
                              'row stride')
     bf, bb, lens = bf.contiguous(), bb.contiguous(), lens.contiguous()
-    if dtype == torch.bfloat16:   # the kernel gathers its slices of U
+    path = kernel_path(dtype, h_dim)
+    if path == 'cluster':   # the kernel gathers its slices of U
         geometry = (units_per_block(h_dim),)
         upf, upb = uf.contiguous(), ub.contiguous()
     else:
@@ -232,7 +313,7 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
          new(h_dim)] if save_residuals else [None] * 6)
     if t_len and n:
         ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
-        err = _entry(dtype)(
+        err = _entry(dtype, path)(
             ptr(xpf), ptr(xpb), row_stride, ptr(upf), ptr(upb), ptr(bf),
             ptr(bb), ptr(lens), ptr(of), ptr(ob), ptr(gf), ptr(gb), ptr(hf),
             ptr(hb), ptr(cf), ptr(cb), t_len, n, h_dim, *geometry,
@@ -326,13 +407,12 @@ def lstm_bwd_reference(dout, gates, hs, cs, u, lens):
     return _bwd_walk(dout, gates, hs, cs, u, lens, fw=True)
 
 
-def _bwd_entry(dtype):
+def _bwd_entry(dtype, path):
     lib = _build.library('bilstm_bwd')
-    bf16 = dtype == torch.bfloat16
-    fn = getattr(lib, 'bilstm_bwd_bf16' if bf16 else 'bilstm_bwd_f32')
+    fn = getattr(lib, _entry_name('bilstm_bwd', dtype, path))
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 18
-                       + [ctypes.c_int] * (4 if bf16 else 3)
+                       + [ctypes.c_int] * (4 if path == 'cluster' else 3)
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -344,9 +424,9 @@ def bilstm_bwd(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
     Same contract as :func:`bilstm_bwd_reference`. CPU tensors run the
     plain version; CUDA tensors launch ``csrc/bilstm_bwd.cu`` (the
     recurrence, the dU product and the db sum, one entry point) or raise:
-    bf16 runs the cluster recurrence of both directions (U in shared
-    memory, tensor-core products, dU on tensor cores), f32 one block per
-    row and direction.
+    bf16 up to H = 512 runs the cluster recurrence of both directions (U in
+    shared memory, tensor-core products, dU on tensor cores), f32 and wider
+    H the wide recurrence (:func:`kernel_path`).
     """
     if gf.device.type == 'cpu':
         return bilstm_bwd_reference(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub,
@@ -355,14 +435,10 @@ def bilstm_bwd(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
         raise ValueError('bilstm_bwd runs on CUDA or CPU tensors, got {}'
                          .format(gf.device))
     t_len, n, four_h = gf.shape
-    h_dim = four_h // 4
     dtype = gf.dtype
     if dtype not in _SUPPORTED:
         raise TypeError('bilstm_bwd takes bf16 or f32, got {}'.format(dtype))
-    vec = 16 // gf.element_size()
-    if four_h % 4 or not 0 < h_dim <= MAX_HIDDEN or h_dim % vec:
-        raise ValueError('hidden size {} unsupported: needs H <= {} and a '
-                         'multiple of {}'.format(h_dim, MAX_HIDDEN, vec))
+    h_dim = _check_hidden('bilstm_bwd', four_h)
     narrow, wide = (t_len, n, h_dim), (t_len, n, four_h)
     for name, tns, shape in (
             ('dof', dof, narrow), ('dob', dob, narrow), ('gb', gb, wide),
@@ -377,9 +453,25 @@ def bilstm_bwd(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
     if lens.dtype != torch.int32 or lens.device != gf.device \
             or tuple(lens.shape) != (n,):
         raise ValueError('lens: expected [{}] int32 on {}'.format(n, gf.device))
+    vec = hidden_step(dtype)
+    width = -(-h_dim // vec) * vec
+    if width != h_dim:                  # zero-padded units, results cut back
+        def units(x):
+            return resize_hidden(x, 'units', h_dim, width)
+
+        def gates(x):
+            return resize_hidden(x, 'gates', h_dim, width)
+        res = bilstm_bwd(units(dof), units(dob), gates(gf), units(hf),
+                         units(cf), gates(gb), units(hb), units(cb),
+                         resize_hidden(uf, 'u', h_dim, width),
+                         resize_hidden(ub, 'u', h_dim, width), lens)
+        kinds = ('gates', 'gates', 'u', 'gates', 'u', 'gates')
+        return tuple(resize_hidden(r, k, width, h_dim).contiguous()
+                     for r, k in zip(res, kinds))
     dof, dob, gf, gb, hf, hb, cf, cb, lens = (
         x.contiguous() for x in (dof, dob, gf, gb, hf, hb, cf, cb, lens))
-    if dtype == torch.bfloat16:   # the kernel gathers its slices of U
+    path = kernel_path(dtype, h_dim)
+    if path == 'cluster':   # the kernel gathers its slices of U
         geometry = (units_per_block(h_dim),)
         upf, upb = uf.contiguous(), ub.contiguous()
     else:   # U^T in 16-byte pieces that neighbouring threads read together
@@ -394,7 +486,7 @@ def bilstm_bwd(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
                 for _ in range(2))
     if t_len and n:
         db_part = torch.empty(2, n, four_h, dtype=torch.float32, device=dev)
-        err = _bwd_entry(dtype)(
+        err = _bwd_entry(dtype, path)(
             *(x.data_ptr() for x in (dof, dob, gf, gb, hf, hb, cf, cb, upf,
                                      upb, lens, dxf, dxb, duf, dub, dbf, dbb,
                                      db_part)),
@@ -417,18 +509,15 @@ bilstm_bwd.launches = 0
 def _check_lstm(name, x, lens, others):
     """Device, dtype, shape and hidden-size checks shared by ``lstm_fwd`` and
     ``lstm_bwd``; ``x`` is a [T, N, 4H] CUDA tensor, ``others`` a list of
-    ``(name, tensor, shape)`` that must match its dtype and device."""
+    ``(name, tensor, shape)`` that must match its dtype and device. Returns
+    T, N, H, the packing's VEC and H padded to a multiple of it."""
     if x.device.type != 'cuda':
         raise ValueError('{} runs on CUDA or CPU tensors, got {}'.format(
             name, x.device))
     if x.dtype not in _SUPPORTED:
         raise TypeError('{} takes bf16 or f32, got {}'.format(name, x.dtype))
     t_len, n, four_h = x.shape
-    h_dim = four_h // 4
-    vec = 16 // x.element_size()
-    if four_h % 4 or not 0 < h_dim <= MAX_HIDDEN_LSTM or h_dim % vec:
-        raise ValueError('hidden size {} unsupported: needs H <= {} and a '
-                         'multiple of {}'.format(h_dim, MAX_HIDDEN_LSTM, vec))
+    h_dim = _check_hidden(name, four_h)
     for oname, tns, shape in others:
         if tns.dtype != x.dtype or tns.device != x.device \
                 or tuple(tns.shape) != tuple(shape):
@@ -438,14 +527,16 @@ def _check_lstm(name, x, lens, others):
     if lens.dtype != torch.int32 or lens.device != x.device \
             or tuple(lens.shape) != (n,):
         raise ValueError('lens: expected [{}] int32 on {}'.format(n, x.device))
-    return t_len, n, h_dim, vec
+    vec = hidden_step(x.dtype)
+    return t_len, n, h_dim, vec, -(-h_dim // vec) * vec
 
 
-def _lstm_entry(name, dtype, n_ptr, tail):
+def _lstm_entry(name, dtype, path, n_ptr, n_int, tail):
     lib = _build.library(name)
-    fn = getattr(lib, name + ('_bf16' if dtype == torch.bfloat16 else '_f32'))
+    fn = getattr(lib, _entry_name(name, dtype, path))
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + tail + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + tail + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -454,20 +545,30 @@ def lstm_fwd(x_proj, u, bias, lens, forget_bias=1.0, save_residuals=False):
     """Masked unidirectional LSTM recurrence from the input projection.
 
     Same contract as :func:`lstm_fwd_reference`. CPU tensors run the plain
-    version; CUDA tensors launch ``csrc/lstm_fwd.cu`` or raise: bf16 runs
-    the cluster recurrence (U in shared memory, tensor-core products), f32
-    one block per row (its U does not fit a cluster)."""
+    version; CUDA tensors launch ``csrc/lstm_fwd.cu`` or raise: bf16 up to
+    H = 512 runs the cluster recurrence (U in shared memory, tensor-core
+    products), f32 and wider H the wide recurrence (:func:`kernel_path`)."""
     if x_proj.device.type == 'cpu':
         return lstm_fwd_reference(x_proj, u, bias, lens, forget_bias,
                                   save_residuals)
     four_h = x_proj.shape[2]
-    t_len, n, h_dim, vec = _check_lstm(
+    t_len, n, h_dim, vec, width = _check_lstm(
         'lstm_fwd', x_proj, lens,
         [('u', u, (four_h // 4, four_h)), ('bias', bias, (four_h,))])
+    if width != h_dim:                  # zero-padded units, results cut back
+        res = lstm_fwd(resize_hidden(x_proj, 'gates', h_dim, width),
+                       resize_hidden(u, 'u', h_dim, width),
+                       resize_hidden(bias, 'gates', h_dim, width), lens,
+                       forget_bias, save_residuals)
+        if not save_residuals:
+            return resize_hidden(res, 'units', width, h_dim).contiguous()
+        return tuple(resize_hidden(r, k, width, h_dim).contiguous() for r, k
+                     in zip(res, ('units', 'gates', 'units', 'units')))
     dtype, dev = x_proj.dtype, x_proj.device
     x_proj, bias, lens = x_proj.contiguous(), bias.contiguous(), \
         lens.contiguous()
-    if dtype == torch.bfloat16:    # the kernel gathers its slices of U
+    path = kernel_path(dtype, h_dim)
+    if path == 'cluster':    # the kernel gathers its slices of U
         geometry = (units_per_block(h_dim),)
         u_arg = u.contiguous()
     else:
@@ -482,9 +583,8 @@ def lstm_fwd(x_proj, u, bias, lens, forget_bias=1.0, save_residuals=False):
                      else [None] * 3)
     if t_len and n:
         ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
-        err = _lstm_entry('lstm_fwd', dtype, 8,
-                          [ctypes.c_int] * (3 + len(geometry))
-                          + [ctypes.c_float])(
+        err = _lstm_entry('lstm_fwd', dtype, path, 8, 3 + len(geometry),
+                          [ctypes.c_float])(
             ptr(x_proj), ptr(u_arg), ptr(bias), ptr(lens), ptr(out),
             ptr(gates), ptr(hs), ptr(cs), t_len, n, h_dim, *geometry,
             float(forget_bias), torch.cuda.current_stream(dev).cuda_stream)
@@ -518,21 +618,28 @@ def lstm_bwd(dout, gates, hs, cs, u, lens):
 
     Same contract as :func:`lstm_bwd_reference`. CPU tensors run the plain
     version; CUDA tensors launch ``csrc/lstm_bwd.cu`` (the recurrence, the
-    dU product and the db sum, one entry point) or raise: bf16 runs the
-    cluster recurrence with U in shared memory and tensor-core products,
-    f32 the one-block-per-row recurrence (its U does not fit a cluster)."""
+    dU product and the db sum, one entry point) or raise: bf16 up to H = 512
+    runs the cluster recurrence with U in shared memory and tensor-core
+    products, f32 and wider H the wide recurrence (:func:`kernel_path`)."""
     if gates.device.type == 'cpu':
         return lstm_bwd_reference(dout, gates, hs, cs, u, lens)
     four_h = gates.shape[2]
     narrow = tuple(gates.shape[:2]) + (four_h // 4,)
-    t_len, n, h_dim, vec = _check_lstm(
+    t_len, n, h_dim, vec, width = _check_lstm(
         'lstm_bwd', gates, lens,
         [('dout', dout, narrow), ('hs', hs, narrow), ('cs', cs, narrow),
          ('u', u, (four_h // 4, four_h))])
+    if width != h_dim:                  # zero-padded units, results cut back
+        res = lstm_bwd(*(resize_hidden(x, k, h_dim, width) for x, k in zip(
+            (dout, gates, hs, cs, u), ('units', 'gates', 'units', 'units',
+                                       'u'))), lens)
+        return tuple(resize_hidden(r, k, width, h_dim).contiguous()
+                     for r, k in zip(res, ('gates', 'u', 'gates')))
     dtype, dev = gates.dtype, gates.device
     dout, gates, hs, cs, lens = (x.contiguous()
                                  for x in (dout, gates, hs, cs, lens))
-    if dtype == torch.bfloat16:    # the kernel gathers its slices of U
+    path = kernel_path(dtype, h_dim)
+    if path == 'cluster':    # the kernel gathers its slices of U
         geometry = (units_per_block(h_dim),)
         u_arg = u.contiguous()
     else:
@@ -543,8 +650,8 @@ def lstm_bwd(dout, gates, hs, cs, u, lens):
     db = torch.empty(four_h, dtype=torch.float32, device=dev)
     if t_len and n:
         db_part = torch.empty(n, four_h, dtype=torch.float32, device=dev)
-        err = _lstm_entry('lstm_bwd', dtype, 10,
-                          [ctypes.c_int] * (3 + len(geometry)))(
+        err = _lstm_entry('lstm_bwd', dtype, path, 10, 3 + len(geometry),
+                          [])(
             *(x.data_ptr() for x in (dout, gates, hs, cs, u_arg, lens, dx, du,
                                      db, db_part)),
             t_len, n, h_dim, *geometry,

@@ -156,9 +156,10 @@ def test_flat_label_wrapper_matches_jax():
 def test_dispatch_on_cpu_is_the_plain_version():
     """``ctc_cuda.ctc_loss`` on CPU tensors runs the plain recursions and
     launches nothing, also for labels past the 63 characters at which the JAX
-    package leaves its kernel: the port's kernels take up to 511, and nothing
-    switches to the plain version by length."""
-    assert ctc_cuda.MAX_LABEL_LEN == 511 > (ctc_pallas.LANES - 1) // 2 == 63
+    package leaves its kernel: the port's kernels take labels of any length,
+    and nothing switches to the plain version by length."""
+    assert (ctc_pallas.LANES - 1) // 2 == 63
+    assert ctc_cuda.WARP_MAX_STATES == 64
     case = _case(50)
     want = _torch_loss_and_grad(ctc.ctc_loss, case)
     got = _torch_loss_and_grad(ctc_cuda.ctc_loss, case)
@@ -181,12 +182,13 @@ def test_dispatch_on_cpu_is_the_plain_version():
 
 
 def test_cuda_loss_raises_past_the_kernels_capacity():
-    """Past 511 characters a tensor off the CPU raises by name before any
-    launch; it never takes the plain version."""
-    long = torch.ones(2, ctc_cuda.MAX_LABEL_LEN + 1, dtype=torch.int32,
-                      device='meta')
-    with pytest.raises(NotImplementedError, match='511'):
-        ctc_cuda.ctc_loss(torch.zeros(2, 4, 8, device='meta'), long,
+    """The kernels have no capacity left to pass: a label of 600 characters
+    on a tensor off the CPU goes to the kernel wrappers, which raise for a
+    device they do not run on; it never takes the plain version."""
+    long = torch.ones(2, 600, dtype=torch.int32, device='meta')
+    with pytest.raises(ValueError, match='CUDA or CPU tensors, got meta'):
+        ctc_cuda.ctc_loss(torch.zeros(2, 1300, 8, device='meta'), long,
                           torch.ones(2, dtype=torch.int32, device='meta'),
-                          torch.full((2,), 4, dtype=torch.int32,
+                          torch.full((2,), 1300, dtype=torch.int32,
                                      device='meta'))
+    assert ctc_cuda.ctc_forward.launches == 0
