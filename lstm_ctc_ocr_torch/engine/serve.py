@@ -43,6 +43,7 @@ from torch import nn
 from ..data.image import preprocess_image
 from ..models.layers import ConvSingle
 from ..ops import custom_ops  # noqa: F401  (registers the programs' ops)
+from ..utils.profiler import count, span
 from .test import decode_fn, decode_ids, full_f32, resolve_device
 
 MANIFEST = 'manifest.json'
@@ -132,7 +133,16 @@ class ExportedDecoder:
     ``decode_images(imgs)`` takes grayscale uint8/float arrays of any width
     (height anything — resized to the manifest height) and returns decoded
     strings, batching per width bucket exactly like eval. ``calls`` counts
-    the programs' calls."""
+    the programs' calls.
+
+    Under a ``torch.profiler`` trace (``utils/profiler.py``) a request is
+    the span ``serve.request``, holding ``serve.prepare`` (resize and
+    bucket padding of its images), then per chunk ``serve.pad`` (stacking
+    and padding to the batch), the program call's ``serve.upload``,
+    ``serve.enqueue`` (the program run on the host) and ``serve.readback``
+    (waiting for the device), and ``serve.to_strings``; the counters
+    ``serve.images`` (images asked for) and ``serve.rows`` (rows the
+    programs computed, padding included)."""
 
     def __init__(self, export_dir: str, device='cuda'):
         self.device = resolve_device(device)
@@ -185,27 +195,38 @@ class ExportedDecoder:
         """One program call: images [batch, W, F] f32 at an exported bucket
         W, steps [batch] int32 -> ids [batch, T] int32 numpy."""
         with full_f32():
-            ids = self._programs[images.shape[1]](
-                torch.from_numpy(images).to(self.device),
-                torch.from_numpy(steps).to(self.device))
+            with span('serve.upload'):
+                x = torch.from_numpy(images).to(self.device)
+                lens = torch.from_numpy(steps).to(self.device)
+            with span('serve.enqueue'):
+                ids = self._programs[images.shape[1]](x, lens)
         self.calls += 1
-        return ids.cpu().numpy()
+        count('serve.rows', images.shape[0])
+        with span('serve.readback'):
+            return ids.cpu().numpy()
 
     def decode_images(self, imgs: List[np.ndarray]) -> List[str]:
         batch = int(self.manifest['batch'])
-        prepared = [self._prepare(im) for im in imgs]
-        results: List[str] = [''] * len(imgs)
-        by_bucket: Dict[int, List[int]] = {}
-        for i, (bucket, _, _) in enumerate(prepared):
-            by_bucket.setdefault(bucket, []).append(i)
-        for _, idxs in sorted(by_bucket.items()):
-            for start in range(0, len(idxs), batch):
-                chunk = idxs[start:start + batch]
-                pad = batch - len(chunk)
-                images = np.stack([prepared[i][1] for i in chunk]
-                                  + [prepared[chunk[-1]][1]] * pad)
-                steps = np.array([prepared[i][2] for i in chunk]
-                                 + [prepared[chunk[-1]][2]] * pad, np.int32)
-                for i, ids in zip(chunk, self.run(images, steps)):
-                    results[i] = self.decode_ids_array(ids)
+        count('serve.images', len(imgs))
+        with span('serve.request'):
+            with span('serve.prepare'):
+                prepared = [self._prepare(im) for im in imgs]
+            results: List[str] = [''] * len(imgs)
+            by_bucket: Dict[int, List[int]] = {}
+            for i, (bucket, _, _) in enumerate(prepared):
+                by_bucket.setdefault(bucket, []).append(i)
+            for _, idxs in sorted(by_bucket.items()):
+                for start in range(0, len(idxs), batch):
+                    chunk = idxs[start:start + batch]
+                    pad = batch - len(chunk)
+                    with span('serve.pad'):
+                        images = np.stack([prepared[i][1] for i in chunk]
+                                          + [prepared[chunk[-1]][1]] * pad)
+                        steps = np.array([prepared[i][2] for i in chunk]
+                                         + [prepared[chunk[-1]][2]] * pad,
+                                         np.int32)
+                    ids = self.run(images, steps)
+                    with span('serve.to_strings'):
+                        for i, row in zip(chunk, ids):
+                            results[i] = self.decode_ids_array(row)
         return results

@@ -50,6 +50,7 @@ from ..models.factory import get_network
 from ..ops.beam import beam_decode
 from ..ops.decoder import greedy_decode
 from ..parallel import mesh as pmesh
+from ..utils.profiler import count, span
 from ..utils.timer import Timer
 from . import checkpoint
 
@@ -121,18 +122,23 @@ def decode_fn(model, cfg, bn_group=None):
     in ``TRAIN.DTYPE`` with the ``BN_EVAL`` statistics, then greedy or beam
     decode as ``DECODER`` says. Runs in the caller's grad mode. With a
     process group, ``BN_EVAL: batch`` takes the statistics of every rank's
-    rows."""
+    rows. Under a ``torch.profiler`` trace the forward is the span
+    ``eval.forward`` and the beam search ``eval.beam``; a beam call adds
+    its frames (T) to the counter ``beam.frames``."""
     dtype = _DTYPES[str(cfg.TRAIN.DTYPE)]
     moving = str(cfg.BN_EVAL) == 'moving'
     beam = str(cfg.DECODER) == 'beam'
     width, merge = int(cfg.BEAM_WIDTH), bool(cfg.BEAM_MERGE_REPEATED)
 
     def decode(x, lens):
-        logits = model(x, lens, dtype=dtype, moving_bn=moving,
-                       bn_group=bn_group).transpose(0, 1)
+        with span('eval.forward'):
+            logits = model(x, lens, dtype=dtype, moving_bn=moving,
+                           bn_group=bn_group).transpose(0, 1)
         if beam:
-            return beam_decode(logits, lens, beam_width=width,
-                               merge_repeated=merge)
+            count('beam.frames', logits.shape[1])
+            with span('eval.beam'):
+                return beam_decode(logits, lens, beam_width=width,
+                                   merge_repeated=merge)
         return greedy_decode(logits, lens)
     return decode
 
@@ -142,7 +148,9 @@ def make_decode_step(model, cfg, device, mesh=None):
     int32 numpy; the copy back to the host waits for the device. With a
     ``mesh``: this rank's rows of a global batch, decoded with the batch
     statistics of every rank's rows. A decode runs the model in eval mode
-    (a DSL net's dropout is off), and leaves its mode as it was."""
+    (a DSL net's dropout is off), and leaves its mode as it was. Under a
+    ``torch.profiler`` trace the copies are the spans ``eval.upload`` and
+    ``eval.readback`` (waiting for the device), around :func:`decode_fn`'s."""
     decode = decode_fn(model, cfg, mesh.group if mesh is not None else None)
 
     @torch.inference_mode()
@@ -151,8 +159,12 @@ def make_decode_step(model, cfg, device, mesh=None):
         if training:
             model.eval()
         try:
-            return decode(torch.from_numpy(images).to(device),
-                          torch.from_numpy(steps).to(device)).cpu().numpy()
+            with span('eval.upload'):
+                x = torch.from_numpy(images).to(device)
+                lens = torch.from_numpy(steps).to(device)
+            ids = decode(x, lens)
+            with span('eval.readback'):
+                return ids.cpu().numpy()
         finally:
             if training:
                 model.train()

@@ -95,7 +95,7 @@ from ..models.factory import get_network
 from ..ops import ctc_cuda, rnn_cuda
 from ..parallel import mesh as pmesh
 from ..utils.metrics import accuracy_calculation
-from ..utils.profiler import StepProfiler
+from ..utils.profiler import StepProfiler, count, span
 from . import checkpoint
 from .summary import SummaryWriter
 from .test import full_f32, make_decode_step, resolve_device
@@ -392,6 +392,10 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
     capture that fails raises; nothing falls back to eager steps. Replays
     add the launches their capture recorded to the wrappers' counters and
     ``k`` to ``optimizer.count``. On the CPU the ``k`` steps run eagerly.
+    Under a ``torch.profiler`` trace the input copy is the span
+    ``solver.upload`` and a replay with its outputs' clone
+    ``solver.replay``; every dispatch but a capture adds 1 to the counter
+    ``solver.dispatches``.
     A DSL net's dropout keys its masks by the update count on the device,
     so a replay draws the masks of ``k`` single steps.
 
@@ -454,7 +458,10 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
     def chunk(*args):
         dev = next(model.parameters()).device
         if dev.type != 'cuda':
-            return body(tuple(torch.as_tensor(a).to(dev) for a in args))
+            count('solver.dispatches')
+            with span('solver.upload'):
+                inputs = tuple(torch.as_tensor(a).to(dev) for a in args)
+            return body(inputs)
         if gather:
             store, idxs = args[:4], torch.as_tensor(args[4])
             key = ('gather', tuple(idxs.shape)) + tuple(
@@ -473,18 +480,21 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
                                            device=dev) for a in arrays)
         else:
             static = g.inputs
-        if gather:
-            static[4].copy_(idxs, non_blocking=True)
-        else:
-            for dst, src in zip(static, arrays):
-                if src.device.type == 'cpu':
-                    src = src.pin_memory()
-                dst.copy_(src, non_blocking=True)
+        with span('solver.upload'):
+            if gather:
+                static[4].copy_(idxs, non_blocking=True)
+            else:
+                for dst, src in zip(static, arrays):
+                    if src.device.type == 'cpu':
+                        src = src.pin_memory()
+                    dst.copy_(src, non_blocking=True)
         if g is None:
             return capture(dev, static, key)
-        g.replay()
-        optimizer.advance(k)
-        return tuple(t.clone() for t in g.outputs)
+        count('solver.dispatches')
+        with span('solver.replay'):
+            g.replay()
+            optimizer.advance(k)
+            return tuple(t.clone() for t in g.outputs)
     chunk.graphs = graphs
     return chunk
 
@@ -623,7 +633,8 @@ def _start_readback(t):
 def _finish_readback(pending):
     host, done = pending
     if done is not None:
-        done.synchronize()
+        with span('solver.readback_wait'):
+            done.synchronize()
     return host.reshape(-1).tolist()
 
 

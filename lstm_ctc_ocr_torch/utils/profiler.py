@@ -17,7 +17,7 @@ per dispatch with the dispatch's first iteration; with
 trace starts at the first dispatch whose ``it`` lies in the window and
 stops at the first whose ``it`` lies past it, and a dispatch that jumps over
 the whole window traces nothing. With K-step CUDA graphs a replay shows in
-the trace as one graph launch, not as the kernels of its K steps.
+the trace as the kernels of its K steps, each by name, as eager steps do.
 
 Usage in a loop::
 
@@ -27,13 +27,64 @@ Usage in a loop::
     prof.close()                   # safety stop on early exit
 
 Tracing changes no number the steps compute.
+
+Spans and counters of the program's layers: ``span(name)`` is a
+``torch.profiler.record_function`` range and ``count(name, n)`` adds to an
+in-memory counter, both only while a ``torch.profiler`` trace is recording
+(``StepProfiler``'s, or any other caller's) in the calling thread (the
+profiler's state is a thread's own), so a span lands in the same trace as
+the card's kernels, on its clock. With no trace they do nothing:
+one check of the profiler's state, then a shared ``nullcontext``. They do
+nothing either while torch exports or compiles, or while a CUDA graph is
+captured, so exported programs and captured graphs hold no trace of them.
+``counters()`` is a copy of the counts taken so far::
+
+    with span('serve.prepare'):
+        ...
+    count('serve.images', len(imgs))
+
+A name starts with its layer's prefix: ``serve.``, ``eval.``, ``beam.``,
+``solver.``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_counts = {}
+
+
+def _eager() -> bool:
+    """Not an export, a compile or a CUDA graph's capture (asked only
+    while a trace records: the off path is the profiler's check alone)."""
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return False
+    return not (torch.cuda.is_initialized()
+                and torch.cuda.is_current_stream_capturing())
+
+
+def span(name: str):
+    """A context manager: the profiler's range ``name`` while a trace is
+    recording, else nothing."""
+    if not _profiler_enabled() or not _eager():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` while a trace is recording."""
+    if _profiler_enabled() and _eager():
+        _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def counters() -> dict:
+    """A copy of the counts taken while traces recorded."""
+    return dict(_counts)
 
 
 class StepProfiler:
