@@ -8,8 +8,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the build of every CUDA kernel from ``lstm_ctc_ocr_torch/csrc`` with
    nvcc, one process per source (its time and ptxas report).
-2. Kernel phase: each of the seven kernels against its plain PyTorch version
-   on the card.
+2. Kernel phase: each of the seven kernels, and the beam search's kernel,
+   against its plain PyTorch version on the card.
    ``bilstm_fwd`` (vs ``bilstm_fwd_reference``), residuals on and off, f32
    and bf16 at batch 64 with T=23 (the W=96 bucket) and T=111 (W=448),
    ragged batches of 37 with empty rows at T=23 and 7, and T=1 at batch 3;
@@ -60,6 +60,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    device beside its bound, for the four cluster kernels the cluster's
    shape and how many such clusters the card holds at once, and for the
    kernels of the main path the host time of a wrapper call.
+   ``beam_decode`` (``csrc/beam.cu`` through the op
+   ``lstm_ctc_ocr_torch::beam_decode``, vs ``beam_decode_reference``) at
+   the ``crnn_longline.eval_beam`` cell's shapes, N=64, K=16, C=64 and T=79,
+   95 and 111, f32 and bf16 logits at scales 1 and 10, ragged lengths with 0
+   and T, ``merge_repeated`` off (and on at T=111): ids equal entry for
+   entry, two calls bit-identical, one launch a call counted from 0; then
+   its CUDA-event, device and host times at T=23, 111 and 1,209 (f32),
+   the plain search's at T=111, and its bound (the logits read once, the
+   ids written once, over HBM bandwidth).
 3. Eval phase, the serving path: the evaluation entry point
    (``engine/test.py``, bf16, batch 64) on the tracked releases —
    ``lstm_ctc`` on ``data/val`` under ``BN_EVAL`` batch and moving and
@@ -67,8 +76,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``data/val``, ``longline`` on ``data/val_longline`` and ``scene`` on
    ``data/val_scene`` with their default beam decode (width 16). Each
    accuracy must be within 2 images of the release's recorded accuracy
-   (checkpoints/README.md), and ``bilstm_fwd``'s launch count must grow by
-   exactly the number of decode calls.
+   (checkpoints/README.md), ``bilstm_fwd``'s launch count must grow by
+   exactly the number of decode calls, and the beam kernel's by the same
+   number for a beam release (0 for a greedy one).
 4. Synthetic-stream phase, the default feed of ``lstm/lstm.yml``
    (``DATA_BACKEND: synth``, ``RENDERER: native``; the GPU machine has no
    Pillow): (a) the native renderer (``native/synth.cpp``, built with g++,
@@ -115,11 +125,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ms per step.
 7. Serve phase: the serving export (``engine/serve.py``) and the release
    tools, batch 64, bf16. (a) Every release of the eval phase exported
-   with ``export_decoder``: a greedy release one ``torch.export`` program
-   per bucket its val set falls in, a beam release its most populous
-   bucket only (a beam export takes ~1 s of host time a frame to export and
-   ~0.3 s to load: ``longline`` at W=384, 131 of its 200 files), and the
-   stacked-LSTM snapshot of phase 6 at ``data/val``'s buckets;
+   with ``export_decoder``: every release one ``torch.export`` program
+   per bucket its val set falls in (a beam program holds the beam search
+   as the one op ``lstm_ctc_ocr_torch::beam_decode``, so it exports in
+   seconds: ``longline`` at W=320, 384 and 448, all 200 of its files), and
+   the stacked-LSTM snapshot of phase 6 at ``data/val``'s buckets;
    the seconds of each bucket's export and the artifacts' MB are printed.
    (b) A fresh process that imports ``lstm_ctc_ocr_torch`` and nothing
    else of the repo (no ``jax``, no ``lstm_ctc_ocr_tpu`` in its
@@ -129,7 +139,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    prediction for that file (phase 6's ``test_net(model=...)`` for the
    stacked model), the accuracy within the release's bar where the whole
    val set is served, and ``bilstm_fwd`` launched exactly once a served
-   call (``lstm_fwd`` twice a call of the stacked model). (c) Greedy
+   call (``lstm_fwd`` twice a call of the stacked model), the beam kernel
+   once a call of a beam release. (c) Greedy
    ``lstm_ctc`` at W=96: the frozen program against the live decode, in
    turns, images/s and p50 of a call, ids equal. (d)
    ``tools/calibrate_bn.py`` (8 batches of 64, native renderer) into a
@@ -291,11 +302,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     alone.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
-seven kernels (and the rates, the synthetic stream's, the serve, the
-dispatch, the data-parallel, the tools, the DSL and the shifted phase's
-numbers); the last line is ``{"ok": true, "device": {...}}``. Per-image eval
-lines, the training runs', the serve phase's, the tools', the DSL and the
-shifted phase's output go to ``chiprun_out/``.
+seven kernels and the beam kernel (and the rates, the synthetic stream's,
+the serve, the dispatch, the data-parallel, the tools, the DSL and the
+shifted phase's numbers); the last line is ``{"ok": true, "device":
+{...}}``. Per-image eval lines, the training runs', the serve phase's, the
+tools', the DSL and the shifted phase's output go to ``chiprun_out/``.
 The width phase's numbers join the JSON line, and its training output goes
 to ``chip_smoke_width.log`` beside the others.
 """
@@ -1255,11 +1266,84 @@ def bilstm_fwd_phase(rnn_cuda, build):
     return errs, timings
 
 
-def eval_phase(rnn_cuda, test_mod, load_cfg, log):
-    """Evaluation of the tracked releases; returns the launch count, each
-    release's predictions (label -> file name -> string) and its p50 ms an
-    image."""
+def beam_case(n, t_len, c, dtype, seed):
+    """[N, T, C] logits on the card, row r at scale 1 or 10 by its parity,
+    and ragged [N] int32 lengths with T first and 0 second."""
+    g = torch.Generator().manual_seed(seed)
+    scale = torch.tensor([1.0, 10.0]).repeat(n)[:n]
+    logits = torch.randn(n, t_len, c, generator=g) * scale[:, None, None]
+    lens = torch.randint(0, t_len + 1, (n,), generator=g)
+    lens[0], lens[1] = t_len, 0
+    return logits.cuda().to(dtype), lens.to(torch.int32).cuda()
+
+
+def beam_bound_ms(logits):
+    """The beam kernel's least time: its logits read once and its [N, T]
+    int32 ids and [N] lengths moved once, over HBM bandwidth (its arithmetic,
+    about K (C + 1) scores a row and frame, is far below the peak)."""
+    n, t_len, _ = logits.shape
+    moved = logits.numel() * logits.element_size() + 4 * n * (t_len + 1)
+    return 1e3 * moved / HBM_BYTES_PER_S
+
+
+def beam_phase(beam, beam_cuda):
+    """The beam kernel through the entry point ``ops/beam.py:beam_decode``
+    against the plain search at the longline cell's shapes (ids equal, two
+    calls bit-identical, one launch a call), then its timings; returns its
+    launches and the timings by shape."""
+    beam_cuda.beam_decode.launches = 0
+    calls = 0
+    cases = [(t_len, dtype, False) for t_len in (79, 95, 111)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases.append((111, torch.float32, True))
+    for i, (t_len, dtype, merge) in enumerate(cases):
+        logits, lens = beam_case(64, t_len, 64, dtype, seed=100 + i)
+        got = beam.beam_decode(logits, lens, 16, 0, merge)
+        again = beam.beam_decode(logits, lens, 16, 0, merge)
+        calls += 2
+        want = beam.beam_decode_reference(logits, lens, 16, 0, merge)
+        torch.cuda.synchronize()
+        bad = (got != want).any(dim=1).nonzero().flatten().tolist()
+        same = torch.equal(got, again)
+        label = '{} N=64 T={} K=16 C=64 merge={}'.format(
+            str(dtype).split('.')[-1], t_len, merge)
+        print('kernel check beam_decode {:36s} rows differing from the plain '
+              'search {}, two calls bit-identical: {}'.format(
+                  label, len(bad), same), flush=True)
+        check(not bad and same, 'beam_decode {}: rows {} differ from the '
+              'plain search, or calls differ'.format(label, bad[:8]))
+    check(beam_cuda.beam_decode.launches == calls,
+          'beam kernel launched {} times in {} calls'.format(
+              beam_cuda.beam_decode.launches, calls))
+
+    timings = {}
+    for t_len in (23, 111, 1209):
+        logits, lens = beam_case(64, t_len, 64, torch.float32, seed=7)
+
+        def call():
+            beam.beam_decode(logits, lens, 16)
+        row = {'kernel_ms': median_ms(call),
+               'device_ms': device_ms(call, ['beam_kernel']),
+               'host_ms': host_ms(call),
+               'bound_ms': beam_bound_ms(logits), 'bound_by': 'bytes'}
+        if t_len == 111:
+            row['plain_ms'] = median_ms(
+                lambda: beam.beam_decode_reference(logits, lens, 16), reps=3,
+                warmup=1)
+        if row['device_ms'] is not None:
+            row['device_us_per_frame'] = 1e3 * row['device_ms'] / t_len
+        timings['f32 N=64 T={}'.format(t_len)] = row
+        print('kernel timing beam_decode f32 N=64 T={:<5d} {}'.format(
+            t_len, json.dumps(row)), flush=True)
+    return beam_cuda.beam_decode.launches, timings
+
+
+def eval_phase(rnn_cuda, beam_cuda, test_mod, load_cfg, log):
+    """Evaluation of the tracked releases; returns the launch counts of
+    ``bilstm_fwd`` and the beam kernel, each release's predictions (label ->
+    file name -> string) and its p50 ms an image."""
     rnn_cuda.bilstm_fwd.launches = 0
+    beam_launches = 0
     calls = 0
     predictions, p50_ms = {}, {}
     for label, yml, val_dir, bn_eval, decoder, total, least in EVALS:
@@ -1271,33 +1355,40 @@ def eval_phase(rnn_cuda, test_mod, load_cfg, log):
         check(str(cfg.DECODER) == decoder and int(cfg.BEAM_WIDTH) == 16,
               '{}: DECODER {} width {}'.format(label, cfg.DECODER,
                                                cfg.BEAM_WIDTH))
-        before = rnn_cuda.bilstm_fwd.launches
+        before = (rnn_cuda.bilstm_fwd.launches,
+                  beam_cuda.beam_decode.launches)
         log.write('== {}\n'.format(label))
         r = test_mod.test_net(
             cfg, os.path.join(REPO, val_dir),
             os.path.join(REPO, 'checkpoints', cfg.EXP_DIR), device='cuda',
             echo=lambda s: log.write(s + '\n'))
-        launched = rnn_cuda.bilstm_fwd.launches - before
+        launched = rnn_cuda.bilstm_fwd.launches - before[0]
+        beamed = beam_cuda.beam_decode.launches - before[1]
+        beam_launches += beamed
         calls += r.decode_calls
         predictions[label] = r.predictions
         p50_ms[label] = 1e3 * r.p50
         print('eval {:18s} {}/{} correct, {:.1f} images/s steady-state, '
               '{:.1f} images/s overall, p50 {:.4f} ms/image, {} decode calls,'
-              ' {} kernel launches'.format(
+              ' {} kernel launches, {} beam kernel launches'.format(
                   label, r.correct, r.total, r.steady_images_per_sec,
-                  r.images_per_sec, 1e3 * r.p50, r.decode_calls, launched),
-              flush=True)
+                  r.images_per_sec, 1e3 * r.p50, r.decode_calls, launched,
+                  beamed), flush=True)
         check(r.total == total, '{}: {} images, expected {}'.format(
             label, r.total, total))
         check(launched == r.decode_calls, '{}: {} launches for {} decode '
               'calls'.format(label, launched, r.decode_calls))
+        check(beamed == (r.decode_calls if decoder == 'beam' else 0),
+              '{}: {} beam kernel launches for {} {} decode calls'.format(
+                  label, beamed, r.decode_calls, decoder))
         check(r.correct >= least, '{}: {}/{} correct, expected >= {}'.format(
             label, r.correct, total, least))
     launches = rnn_cuda.bilstm_fwd.launches
     check(launches == calls and launches > 0,
           'bilstm_fwd launched {} times in {} decode calls'.format(
               launches, calls))
-    return launches, predictions, p50_ms
+    check(beam_launches > 0, 'the beam kernel was not launched in eval')
+    return launches, beam_launches, predictions, p50_ms
 
 
 def profile_phase(test_mod, load_cfg, reps=5):
@@ -1833,10 +1924,6 @@ def stacked_phase(mods, card, rec_path, log):
     return counts, rate, r.predictions
 
 
-# the served releases' export buckets: a greedy release every bucket its
-# val set falls in, a beam release its most populous bucket only (a beam
-# export takes ~1 s of host time a frame to export and ~0.3 s to load)
-
 # runs in a fresh process that imports lstm_ctc_ocr_torch and nothing else
 # of the repo: loads each artifact directory, decodes its files in the given
 # (eval's) order and writes the strings, launch counts and modules seen
@@ -1845,7 +1932,7 @@ import json, os, sys, time
 import torch
 from lstm_ctc_ocr_torch.data.image import load_image
 from lstm_ctc_ocr_torch.engine.serve import ExportedDecoder
-from lstm_ctc_ocr_torch.ops import rnn_cuda
+from lstm_ctc_ocr_torch.ops import beam_cuda, rnn_cuda
 
 with open(sys.argv[1]) as f:
     spec = json.load(f)
@@ -1856,7 +1943,8 @@ for entry in spec:
     load_s = time.perf_counter() - t0
     images = [load_image(os.path.join(entry['val_dir'], f))
               for f in entry['files']]
-    before = (rnn_cuda.bilstm_fwd.launches, rnn_cuda.lstm_fwd.launches)
+    before = (rnn_cuda.bilstm_fwd.launches, rnn_cuda.lstm_fwd.launches,
+              beam_cuda.beam_decode.launches)
     t0 = time.perf_counter()
     strings = dec.decode_images(images)
     out['releases'][entry['label']] = {
@@ -1864,7 +1952,8 @@ for entry in spec:
         'calls': dec.calls, 'load_s': load_s,
         'decode_s': time.perf_counter() - t0,
         'bilstm_fwd': rnn_cuda.bilstm_fwd.launches - before[0],
-        'lstm_fwd': rnn_cuda.lstm_fwd.launches - before[1]}
+        'lstm_fwd': rnn_cuda.lstm_fwd.launches - before[1],
+        'beam': beam_cuda.beam_decode.launches - before[2]}
 out['foreign_modules'] = sorted(
     k for k in sys.modules
     if k.split('.')[0] in ('jax', 'jaxlib', 'lstm_ctc_ocr_tpu'))
@@ -1975,12 +2064,10 @@ def serve_phase(mods, card, eval_predictions, stacked_predictions, log):
             os.path.join(REPO, 'checkpoints', cfg.EXP_DIR))[0],
             bn_eval == 'moving')
         val = os.path.join(REPO, val_dir)
-        groups = files_by_bucket(mods, cfg, val)
-        buckets = sorted(groups)
-        if decoder == 'beam':
-            buckets = [max(buckets, key=lambda b: len(groups[b]))]
-        out_dir = export(label, model, cfg, val, buckets)
-        wanted[label] = (eval_predictions[label], total, least, 'bilstm_fwd')
+        out_dir = export(label, model, cfg, val,
+                         sorted(files_by_bucket(mods, cfg, val)))
+        wanted[label] = (eval_predictions[label], total, least, 'bilstm_fwd',
+                         decoder == 'beam')
         if label == 'lstm_ctc/batch':
             timing_args = (cfg, model, out_dir)
     yml = os.path.join(REPO, 'lstm', 'lstm.yml')
@@ -1994,7 +2081,7 @@ def serve_phase(mods, card, eval_predictions, stacked_predictions, log):
     val = os.path.join(REPO, 'data', 'val')
     export('stacked_lstm', stacked, cfg, val,
            sorted(files_by_bucket(mods, cfg, val)))
-    wanted['stacked_lstm'] = (stacked_predictions, 500, 0, 'lstm_fwd')
+    wanted['stacked_lstm'] = (stacked_predictions, 500, 0, 'lstm_fwd', False)
     export_s = time.perf_counter() - t_phase
 
     # 2. load and decode in a fresh process
@@ -2017,8 +2104,8 @@ def serve_phase(mods, card, eval_predictions, stacked_predictions, log):
           '{}'.format(served['foreign_modules']))
 
     # 3. the same strings as eval, file by file, and the kernels once a call
-    launches = {'bilstm_fwd': 0, 'lstm_fwd': 0}
-    for label, (want, total, least, kernel) in wanted.items():
+    launches = {'bilstm_fwd': 0, 'lstm_fwd': 0, 'beam': 0}
+    for label, (want, total, least, kernel, beam) in wanted.items():
         got = served['releases'][label]
         e = exports[label]
         preds = got['predictions']
@@ -2030,25 +2117,27 @@ def serve_phase(mods, card, eval_predictions, stacked_predictions, log):
         per_call = STACKED_LAYERS if kernel == 'lstm_fwd' else 1
         other = 'bilstm_fwd' if kernel == 'lstm_fwd' else 'lstm_fwd'
         print('serve {:18s} {}/{} correct (eval on the same files {}), {} of '
-              '{} strings differ from eval, {} calls, launches {} {} / {} {}, '
-              'load {:.1f} s, decode {:.2f} s on {}'.format(
+              '{} strings differ from eval, {} calls, launches {} {} / {} {} '
+              '/ beam {}, load {:.1f} s, decode {:.2f} s on {}'.format(
                   label, correct, len(preds), eval_correct, len(diff),
                   len(preds), got['calls'], kernel, got[kernel], other,
-                  got[other], got['load_s'], got['decode_s'], card),
-              flush=True)
+                  got[other], got['beam'], got['load_s'], got['decode_s'],
+                  card), flush=True)
         check(not diff, '{}: served strings differ from eval for {}'.format(
             label, diff[:10]))
         check(len(preds) == e['images'] and got['calls'] == e['calls'],
               '{}: {} images in {} calls, expected {} in {}'.format(
                   label, len(preds), got['calls'], e['images'], e['calls']))
-        check(got[kernel] == per_call * got['calls'] and got[other] == 0,
-              '{}: launches {} {} / {} {} for {} calls'.format(
-                  label, kernel, got[kernel], other, got[other],
+        check(got[kernel] == per_call * got['calls'] and got[other] == 0
+              and got['beam'] == (got['calls'] if beam else 0),
+              '{}: launches {} {} / {} {} / beam {} for {} calls'.format(
+                  label, kernel, got[kernel], other, got[other], got['beam'],
                   got['calls']))
         if len(preds) == total:
             check(correct >= least, '{}: {}/{} correct, expected >= {}'
                   .format(label, correct, total, least))
         launches[kernel] += got[kernel]
+        launches['beam'] += got['beam']
         e.update(correct=correct, served=len(preds), load_s=got['load_s'],
                  decode_s=got['decode_s'])
 
@@ -4651,8 +4740,9 @@ def main():
     from lstm_ctc_ocr_torch.engine import train
     from lstm_ctc_ocr_torch.models import crnn, layers
     from lstm_ctc_ocr_torch.models.factory import get_network
-    from lstm_ctc_ocr_torch.ops import (_build, conv_bn_cuda, ctc, ctc_cuda,
-                                        rnn, rnn_cuda)
+    from lstm_ctc_ocr_torch.ops import (_build, beam, beam_cuda,
+                                        conv_bn_cuda, ctc, ctc_cuda, rnn,
+                                        rnn_cuda)
     from lstm_ctc_ocr_torch.tools import (attrib_step, bench_conv_bn,
                                          bench_ctc, bench_data, bench_decode,
                                          bench_fold_h, bench_rnn,
@@ -4708,12 +4798,13 @@ def main():
     ctc_errs, ctc_timings = ctc_phase(ctc, ctc_cuda, _build)
     conv_errs, conv_timings, conv_launches = conv_bn_phase(
         bench_conv_bn, conv_bn_cuda, _build)
+    beam_kernel_launches, beam_timings = beam_phase(beam, beam_cuda)
 
     out_dir = os.path.join(REPO, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, 'chip_smoke_eval.log'), 'w') as log:
-        eval_launches, eval_predictions, eval_p50 = eval_phase(
-            rnn_cuda, test_mod, load_cfg, log)
+        (eval_launches, eval_beam_launches, eval_predictions,
+         eval_p50) = eval_phase(rnn_cuda, beam_cuda, test_mod, load_cfg, log)
     profile_phase(test_mod, load_cfg)
     with open(os.path.join(out_dir, 'chip_smoke_train.log'), 'w') as log:
         synth_launches, pool_launches, synth = synth_phase(mods, card, log)
@@ -4795,7 +4886,7 @@ def main():
     for name in ('lstm_fwd', 'lstm_bwd', 'ctc_fwd', 'ctc_bwd'):
         check(stacked_launches[name] > 0,
               '{} was not launched on the stacked-LSTM path'.format(name))
-    for name in ('bilstm_fwd', 'lstm_fwd'):
+    for name in ('bilstm_fwd', 'lstm_fwd', 'beam'):
         check(serve_launches[name] > 0,
               '{} was not launched on the serving path'.format(name))
 
@@ -4806,6 +4897,7 @@ def main():
     ctc_row, ctc111 = (ctc_timings['N=64 T=23 L=6'],
                        ctc_timings['N=64 T=111 L=24'])
     conv_row = conv_timings['conv4_1 bf16']
+    beam_row = beam_timings['f32 N=64 T=111']
     common = {'route': 'cuda', 'card': card, 'train_steps': 60}
 
     def ctc_launches(name):
@@ -5001,6 +5093,27 @@ def main():
         'shape': 'bf16 N=64 conv4_1 [24, 4, 256] -> 512',
         'device_tflops': conv_row['device_tflops'],
         'by_shape': conv_timings,
+    }), dict(common, **{
+        'name': 'beam_decode',
+        'source': 'lstm_ctc_ocr_torch/csrc/beam.cu',
+        'replaces': None,
+        'tpu_kernel': None,
+        'launches': beam_cuda.beam_decode.launches + serve_launches['beam'],
+        'launches_by_path': {
+            'kernel_check': beam_kernel_launches, 'eval': eval_beam_launches,
+            'serve': serve_launches['beam'],
+            'later_phases_in_process': beam_cuda.beam_decode.launches
+            - beam_kernel_launches - eval_beam_launches},
+        'ms': beam_row['kernel_ms'],
+        'device_ms': beam_row['device_ms'],
+        'plain_ms': beam_row['plain_ms'],
+        'bound_ms': beam_row['bound_ms'],
+        'bound_by': beam_row['bound_by'],
+        'host_ms': beam_row['host_ms'],
+        'library_ms': None,
+        'library': 'none: no library runs a CTC prefix beam search',
+        'shape': 'f32 N=64 T=111 K=16 C=64',
+        'by_shape': beam_timings,
     })], 'train': rate, 'stacked_lstm_train': stacked_rate,
         'synthetic_stream': synth, 'dispatch': dispatch, 'serve': served,
         'data_parallel': dp, 'tools': tools, 'dsl': dsl, 'shifted': shifted,

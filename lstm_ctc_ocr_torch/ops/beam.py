@@ -1,7 +1,15 @@
-"""CTC prefix beam search in batched torch ops with static shapes.
+"""CTC prefix beam search: the entry point, and its plain version in batched
+torch ops with static shapes.
 
-Counterpart of the JAX package's ``ops/beam.py``, the same algorithm step
-for step (the JAX package wrote no kernel here either): standard CTC prefix
+:func:`beam_decode` calls the op ``lstm_ctc_ocr_torch::beam_decode``
+(``ops/custom_ops.py``), which runs by the logits' device: on a CUDA tensor
+the hand-written kernel ``csrc/beam.cu`` (``ops/beam_cuda.py``), one launch
+a decode call with the whole frame loop inside; on a CPU tensor
+:func:`beam_decode_reference`. A CUDA tensor never reaches the plain
+version, and an exported beam program holds the op as one node.
+
+:func:`beam_decode_reference` is the counterpart of the JAX package's
+``ops/beam.py``, the same algorithm step for step: standard CTC prefix
 beam search, tracking per prefix the log probabilities of ending in blank
 (``p_b``) and in a non-blank (``p_nb``). The beam state is dense — ``[N, K,
 T]`` prefixes, ``[N, K]`` lengths, last characters and scores — with one
@@ -31,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from . import custom_ops
 from .ctc import NEG_INF    # one shared log-zero sentinel across ops/
 
 
@@ -55,10 +64,20 @@ def _take(x, idx):
     return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
 
 
-@torch.no_grad()
 def beam_decode(logits, logit_lens, beam_width=16, blank=0,
                 merge_repeated=False):
-    """Batched CTC beam search.
+    """Batched CTC beam search: [N, T, C] logits, [N] valid frame counts
+    -> [N, T] int32 top-beam ids, 0-padded; the kernel on a CUDA tensor,
+    :func:`beam_decode_reference` on a CPU tensor."""
+    return custom_ops.beam_decode(logits, logit_lens.to(torch.int32),
+                                  int(beam_width), int(blank),
+                                  bool(merge_repeated))
+
+
+@torch.no_grad()
+def beam_decode_reference(logits, logit_lens, beam_width=16, blank=0,
+                          merge_repeated=False):
+    """Batched CTC beam search, the plain version.
 
     Args:
       logits:     [N, T, C] batch-major.

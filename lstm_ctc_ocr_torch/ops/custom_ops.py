@@ -2,7 +2,9 @@
 
 ``lstm_ctc_ocr_torch::bilstm_fwd`` (kernel 1, ``csrc/bilstm_fwd.cu``) and
 ``lstm_ctc_ocr_torch::lstm_fwd`` (kernel 5, ``csrc/lstm_fwd.cu``) in their
-inference form: no residuals, nothing mutated. The wrappers of
+inference form: no residuals, nothing mutated; and
+``lstm_ctc_ocr_torch::beam_decode``, the CTC prefix beam search
+(``csrc/beam.cu``, ``ops/beam.py``). The wrappers of
 ``ops/rnn_cuda.py`` launch the kernels through ``ctypes``, which
 ``torch.export`` and every tracer other than CUDA-graph capture cannot see
 into; as custom ops with shape functions (``register_fake``) they appear in
@@ -13,17 +15,20 @@ module imported first.
 Each op has two implementations, chosen by the device of its tensors:
 
 * ``cuda``: the hand kernel through its wrapper (``rnn_cuda.bilstm_fwd`` /
-  ``rnn_cuda.lstm_fwd``), on ``torch.cuda.current_stream``. The wrapper
-  counts the launch (``bilstm_fwd.launches``, ``lstm_fwd.launches``) and
-  raises where the build or the launch fails; a CUDA tensor never reaches
-  the plain version.
+  ``rnn_cuda.lstm_fwd`` / ``beam_cuda.beam_decode``), on
+  ``torch.cuda.current_stream``. The wrapper counts the launch
+  (``bilstm_fwd.launches``, ``lstm_fwd.launches``, ``beam_decode.launches``)
+  and raises where the build or the launch fails; a CUDA tensor never
+  reaches the plain version. The beam op's also adds the frames it ran to
+  the trace counter ``beam.kernel_frames`` (``utils/profiler.py``).
 * ``cpu``: the plain version (``rnn_cuda.bilstm_fwd_reference`` /
-  ``lstm_fwd_reference``).
+  ``lstm_fwd_reference`` / ``beam.beam_decode_reference``).
 
 Any other device has no implementation and raises.
 
-``ops/rnn.py`` calls these ops whenever no gradient is needed; training
-keeps its ``autograd.Function``s, whose forward saves the residuals.
+``ops/rnn.py`` calls the recurrences' ops whenever no gradient is needed;
+training keeps its ``autograd.Function``s, whose forward saves the
+residuals. ``ops/beam.py:beam_decode`` calls the beam search's.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from . import rnn_cuda
+from ..utils.profiler import count
+from . import beam_cuda, rnn_cuda
 
 
 @torch.library.custom_op('lstm_ctc_ocr_torch::bilstm_fwd', mutates_args=(),
@@ -96,3 +102,26 @@ def _lstm_fwd_cuda(x_proj, u, bias, lens, forget_bias=1.0):
 @lstm_fwd.register_fake
 def _lstm_fwd_fake(x_proj, u, bias, lens, forget_bias=1.0):
     return x_proj.new_empty((x_proj.shape[0], x_proj.shape[1], u.shape[0]))
+
+
+@torch.library.custom_op('lstm_ctc_ocr_torch::beam_decode', mutates_args=(),
+                         device_types='cpu')
+def beam_decode(logits: Tensor, lens: Tensor, beam_width: int, blank: int,
+                merge_repeated: bool) -> Tensor:
+    """CTC prefix beam search: logits [N, T, C] (f32 or bf16), lens [N]
+    int32 -> [N, T] int32 top-beam ids, 0-padded."""
+    from .beam import beam_decode_reference  # ops/beam.py imports this module
+    return beam_decode_reference(logits, lens, beam_width, blank,
+                                 merge_repeated)
+
+
+@beam_decode.register_kernel('cuda')
+def _beam_decode_cuda(logits, lens, beam_width, blank, merge_repeated):
+    count('beam.kernel_frames', logits.shape[1])
+    return beam_cuda.beam_decode(logits, lens, beam_width, blank,
+                                 merge_repeated)
+
+
+@beam_decode.register_fake
+def _beam_decode_fake(logits, lens, beam_width, blank, merge_repeated):
+    return logits.new_empty(logits.shape[:2], dtype=torch.int32)

@@ -41,6 +41,7 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.native.ctc_ref',
     'lstm_ctc_ocr_torch.native.synth', 'lstm_ctc_ocr_torch.ops',
     'lstm_ctc_ocr_torch.ops._build', 'lstm_ctc_ocr_torch.ops.beam',
+    'lstm_ctc_ocr_torch.ops.beam_cuda',
     'lstm_ctc_ocr_torch.ops.conv', 'lstm_ctc_ocr_torch.ops.conv_bn_cuda',
     'lstm_ctc_ocr_torch.ops.ctc',
     'lstm_ctc_ocr_torch.ops.ctc_cuda', 'lstm_ctc_ocr_torch.ops.custom_ops',

@@ -222,6 +222,29 @@ def test_program_holds_the_kernels_as_ops(port_model, tmp_path):
     np.testing.assert_array_equal(dec.run(img, ts), live(img, ts))
 
 
+def test_beam_program_holds_one_beam_op(port_model, tmp_path):
+    """An exported beam decoder calls ``lstm_ctc_ocr_torch::beam_decode``
+    once, after the BiLSTM's op: no frame loop is unrolled into the
+    program (no sort, no per-frame gathers), and it decodes as the live
+    path does."""
+    cfg = _port_cfg('beam')
+    model = port_model(cfg)
+    serve.export_decoder(model, cfg, str(tmp_path), buckets=[96],
+                         batch=BATCH, device='cpu')
+    ep = torch.export.load(str(tmp_path / 'decode_w96.pt2'))
+    calls = [str(n.target) for n in ep.graph.nodes
+             if n.op == 'call_function']
+    assert [c for c in calls if 'lstm_ctc_ocr_torch' in c] == [
+        'lstm_ctc_ocr_torch.bilstm_fwd.default',
+        'lstm_ctc_ocr_torch.beam_decode.default']
+    assert not [c for c in calls if 'sort' in c or 'gather' in c]
+    img = np.random.RandomState(3).rand(BATCH, 96, 32).astype(np.float32)
+    ts = np.array([23, 17], np.int32)
+    live = port_test.make_decode_step(model, cfg, 'cpu')
+    dec = serve.ExportedDecoder(str(tmp_path), device='cpu')
+    np.testing.assert_array_equal(dec.run(img, ts), live(img, ts))
+
+
 @pytest.mark.parametrize('decoder', ['greedy', 'beam'])
 def test_decode_images_match_the_jax_package(jax_cfg, decoder, tmp_path):
     """Same weights, same raw images of assorted sizes and types: the JAX
