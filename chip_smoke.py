@@ -69,6 +69,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    its CUDA-event, device and host times at T=23, 111 and 1,209 (f32),
    the plain search's at T=111, and its bound (the logits read once, the
    ids written once, over HBM bandwidth).
+   Kernels 1-4 at the ``htr_puigcerver.train_graphed`` cell's shapes (batch
+   16, T=224, each row's own 137-222 frames, H=256, the first layer's 1,280
+   features, forget bias 0), each case's launches counted from 0:
+   ``bilstm_fwd`` and ``bilstm_bwd`` in f32 and bf16 at the bars above;
+   two layers chained as the five-layer head chains them, layer 1's
+   backward fed layer 2's input gradient (at the one-layer bar against the
+   plain backward on the same inputs; the whole chain at twice it against
+   the plain versions chained; two chains bit-identical); ``ctc_fwd`` /
+   ``ctc_bwd`` at C=80, L=24 at the bars above; then their device times
+   there. The ``kernels`` line's rows of kernels 1-4 carry these cases
+   under ``htr_cell``.
 3. Eval phase, the serving path: the evaluation entry point
    (``engine/test.py``, bf16, batch 64) on the tracked releases —
    ``lstm_ctc`` on ``data/val`` under ``BN_EVAL`` batch and moving and
@@ -417,9 +428,11 @@ def device_ms(fn, names, reps=20):
     return None
 
 
-def bilstm_case(t_len, n, dtype, ragged, seed, h=256, d=512):
+def bilstm_case(t_len, n, dtype, ragged, seed, h=256, d=512,
+                lens_range=None):
     """Inputs at an eval shape: x [T, N, D], W [D, 8H], per-direction U [H,
-    4H] and b [4H], and the projections xpf/xpb, all on the card."""
+    4H] and b [4H], and the projections xpf/xpb, all on the card; with
+    ``lens_range`` (least, most) each row's frames are drawn from it."""
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
@@ -428,7 +441,10 @@ def bilstm_case(t_len, n, dtype, ragged, seed, h=256, d=512):
     w = rnd(d, 8 * h, scale=d ** -0.5)
     uf, ub = rnd(h, 4 * h, scale=h ** -0.5), rnd(h, 4 * h, scale=h ** -0.5)
     bf, bb = rnd(4 * h, scale=0.1), rnd(4 * h, scale=0.1)
-    if ragged:
+    if lens_range:
+        lens = torch.randint(lens_range[0], lens_range[1] + 1, (n,),
+                             generator=g)
+    elif ragged:
         lens = torch.randint(0, t_len + 1, (n,), generator=g)
         lens[:3] = 0
         lens[3] = t_len
@@ -457,25 +473,26 @@ def max_err(got, want, dtype):
     return err, ok
 
 
-def rel_err(got, want, dtype):
+def rel_err(got, want, dtype, layers=1):
     """Over the outputs: max |difference|, max |difference| / max|reference|,
     and whether each output is within 1e-4 (f32) or 4 bf16 ulps (bf16) of
-    its own largest entry."""
+    its own largest entry, times the ``layers`` whose errors it holds."""
     worst_abs, worst_rel, ok = 0.0, 0.0, True
     for g, w in zip(got, want):
         w = w.float()
         e = float((g.float() - w).abs().max())
         rel = e / (float(w.abs().max()) or 1.0)
-        ok = ok and rel <= (1e-4 if dtype == torch.float32 else 4 / 256)
+        ok = ok and rel <= layers * (1e-4 if dtype == torch.float32
+                                     else 4 / 256)
         worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, rel)
     return worst_abs, worst_rel, ok
 
 
-def bilstm_bwd_args(c, rnn_cuda, seed):
+def bilstm_bwd_args(c, rnn_cuda, seed, forget_bias=1.0):
     """The backward's inputs for a forward case: the residuals the forward
     kernel writes and random output cotangents."""
-    _, gf, hf, cf, _, gb, hb, cb = rnn_cuda.bilstm_fwd(*kernel_args(c),
-                                                       save_residuals=True)
+    _, gf, hf, cf, _, gb, hb, cb = rnn_cuda.bilstm_fwd(
+        *kernel_args(c), forget_bias=forget_bias, save_residuals=True)
     g = torch.Generator().manual_seed(1000 + seed)
     dof, dob = ((torch.randn(hf.shape, generator=g) * 0.1).cuda().to(hf.dtype)
                 for _ in range(2))
@@ -515,17 +532,19 @@ def cudnn_backward_yardstick(c):
     return lambda: torch.autograd.grad(out, inputs, gout, retain_graph=True)
 
 
-def ctc_case(ctc, t_len, l_max, seed, n=64, c=64):
+def ctc_case(ctc, t_len, l_max, seed, n=64, c=64, t_min=None):
     """A ragged CTC batch on the card with a full-length example (row 0,
     its label repeating a character where L > 1), an empty label (row 1),
     an infeasible example (row 2, where L > 1) and a one-frame example (row
-    3), as far as N reaches, and the kernels' inputs made from it."""
+    3), as far as N reaches, the other rows ``t_min`` (default ``T - 8``)
+    to T frames long, and the kernels' inputs made from it."""
     rng = np.random.RandomState(seed)
     logits = (rng.randn(n, t_len, c) * 2).astype(np.float32)
     labels = rng.randint(1, c, (n, l_max)).astype(np.int32)
     label_lens = rng.randint(min(max(1, l_max - 2), l_max), l_max + 1,
                              n).astype(np.int32)
-    logit_lens = rng.randint(max(1, t_len - 8), t_len + 1, n).astype(np.int32)
+    logit_lens = rng.randint(t_min or max(1, t_len - 8), t_len + 1,
+                             n).astype(np.int32)
     if l_max > 1:
         labels[0, 1] = labels[0, 0]
     label_lens[0], logit_lens[0] = l_max, t_len
@@ -1013,6 +1032,24 @@ BILSTM_BWD_EDGES = [('bf16 ragged N=37 T=7', 7, 37, True),
                     ('bf16 N=3 T=1', 1, 3, False)]
 
 
+def bilstm_bwd_check(rnn_cuda, label, args, dtype, layers=1):
+    """``bilstm_bwd`` on one case's inputs against ``bilstm_bwd_reference``
+    (:func:`rel_err`'s bar times ``layers``), two calls bit-identical;
+    returns the largest gap."""
+    got = rnn_cuda.bilstm_bwd(*args)
+    again = rnn_cuda.bilstm_bwd(*args)
+    want = rnn_cuda.bilstm_bwd_reference(*args)
+    torch.cuda.synchronize()
+    err, rel, ok = rel_err(got, want, dtype, layers)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print('bilstm_bwd check {:24s} max|diff| {:.3e} ({:.2e} of the '
+          'largest entry) within tolerance: {}, two calls bit-identical: '
+          '{}'.format(label, err, rel, ok, same), flush=True)
+    check(ok and same, 'bilstm_bwd {}: {} of the largest entry, '
+          'identical {}'.format(label, rel, same))
+    return err
+
+
 def bilstm_bwd_phase(rnn_cuda, build):
     """``bilstm_bwd`` against ``bilstm_bwd_reference`` on every case and at
     the edges of its bf16 cluster (two calls bit-identical in every case),
@@ -1032,19 +1069,8 @@ def bilstm_bwd_phase(rnn_cuda, build):
                             for label, t_len, n, ragged in BILSTM_BWD_EDGES]
     for i, (label, t_len, n, dtype, ragged) in enumerate(cases):
         c = bilstm_case(t_len, n, dtype, ragged, seed=20 + i)
-        args = bilstm_bwd_args(c, rnn_cuda, i)
-        got = rnn_cuda.bilstm_bwd(*args)
-        again = rnn_cuda.bilstm_bwd(*args)
-        want = rnn_cuda.bilstm_bwd_reference(*args)
-        torch.cuda.synchronize()
-        err, rel, ok = rel_err(got, want, dtype)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        print('bilstm_bwd check {:24s} max|diff| {:.3e} ({:.2e} of the '
-              'largest entry) within tolerance: {}, two calls bit-identical: '
-              '{}'.format(label, err, rel, ok, same), flush=True)
-        check(ok and same, 'bilstm_bwd {}: {} of the largest entry, '
-              'identical {}'.format(label, rel, same))
-        errs[label] = err
+        errs[label] = bilstm_bwd_check(rnn_cuda, label,
+                                       bilstm_bwd_args(c, rnn_cuda, i), dtype)
     timings = {}
     for label, t_len in (('bf16 N=64 T=23', 23), ('bf16 N=64 T=111', 111)):
         c = bilstm_case(t_len, 64, torch.bfloat16, False, seed=7)
@@ -1101,6 +1127,50 @@ CTC_CASES = [('N=64 T=23 L=6', 23, 6, 64, True),
              ('N=1 T=111 L=24', 111, 24, 1, False)]
 
 
+def ctc_check(ctc, ctc_cuda, label, case, l_max):
+    """``ctc_fwd`` / ``ctc_bwd`` on one case against their plain versions:
+    ``ctc_fwd``'s logZ and alphas bit-identical, the gradient f32 <= 1e-5,
+    the empty label's logZ finite, the infeasible example's at -inf with a
+    zero gradient, two calls of each bit-identical. Returns the gaps and
+    the kernels' and the plain versions' (logZ, alphas)."""
+    g, masks, lens = case['g'], case['masks'], case['logit_lens']
+    n = g.shape[0]
+    logz, alphas = ctc_cuda.ctc_forward(g, *masks)
+    logz2, alphas2 = ctc_cuda.ctc_forward(g, *masks)
+    grad = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
+    again = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
+    logz_r, alphas_r = ctc.ctc_forward_reference(g, *masks)
+    grad_r = ctc.ctc_backward_reference(g, *masks, alphas_r, logz_r, lens)
+    torch.cuda.synchronize()
+
+    def close(a, b):
+        return float((a - b).abs().max()), bool(
+            ((a - b).abs() <= 1e-5 + 1e-5 * b.abs()).all())
+    e_z, _ = close(logz, logz_r)
+    e_a, _ = close(alphas, alphas_r)
+    e_g, ok_g = close(grad, grad_r)
+    fwd_equal = torch.equal(logz, logz_r) and torch.equal(alphas, alphas_r)
+    special = True
+    if n > 1:                                  # the empty label
+        special = bool(torch.isfinite(logz[1]))
+    if n > 2 and l_max > 1:                    # the infeasible example
+        special = special and float(logz[2]) <= ctc.NEG_INF / 2 \
+            and not bool(grad[2].any())
+    same = (torch.equal(grad, again) and torch.equal(logz, logz2)
+            and torch.equal(alphas, alphas2))
+    print('ctc check {:16s} S={:4d} max|diff| logz {:.2e} alphas {:.2e} '
+          'grad {:.2e}; ctc_fwd bit-identical to its plain version: {}; '
+          'infeasible row: zero gradient, empty label finite: {}; two '
+          'calls of each bit-identical: {}'.format(
+              label, g.shape[2], e_z, e_a, e_g, fwd_equal, special, same),
+          flush=True)
+    check(fwd_equal and ok_g and special and same,
+          'ctc {}: out of tolerance, not bit-identical or calls differ'
+          .format(label))
+    return ({'ctc_fwd': max(e_z, e_a), 'ctc_bwd': e_g},
+            (logz, alphas, logz_r, alphas_r))
+
+
 def ctc_phase(ctc, ctc_cuda, build):
     """``ctc_fwd`` / ``ctc_bwd`` against their plain versions on every case
     (``ctc_fwd`` bit-identical; two calls of each bit-identical), then
@@ -1113,39 +1183,8 @@ def ctc_phase(ctc, ctc_cuda, build):
     for label, t_len, l_max, n, timed in CTC_CASES:
         case = ctc_case(ctc, t_len, l_max, seed=t_len, n=n)
         g, masks, lens = case['g'], case['masks'], case['logit_lens']
-        logz, alphas = ctc_cuda.ctc_forward(g, *masks)
-        logz2, alphas2 = ctc_cuda.ctc_forward(g, *masks)
-        grad = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
-        again = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
-        logz_r, alphas_r = ctc.ctc_forward_reference(g, *masks)
-        grad_r = ctc.ctc_backward_reference(g, *masks, alphas_r, logz_r, lens)
-        torch.cuda.synchronize()
-
-        def close(a, b):
-            return float((a - b).abs().max()), bool(
-                ((a - b).abs() <= 1e-5 + 1e-5 * b.abs()).all())
-        e_z, _ = close(logz, logz_r)
-        e_a, _ = close(alphas, alphas_r)
-        e_g, ok_g = close(grad, grad_r)
-        fwd_equal = torch.equal(logz, logz_r) and torch.equal(alphas, alphas_r)
-        special = True
-        if n > 1:                                  # the empty label
-            special = bool(torch.isfinite(logz[1]))
-        if n > 2 and l_max > 1:                    # the infeasible example
-            special = special and float(logz[2]) <= ctc.NEG_INF / 2 \
-                and not bool(grad[2].any())
-        same = (torch.equal(grad, again) and torch.equal(logz, logz2)
-                and torch.equal(alphas, alphas2))
-        print('ctc check {:16s} S={:4d} max|diff| logz {:.2e} alphas {:.2e} '
-              'grad {:.2e}; ctc_fwd bit-identical to its plain version: {}; '
-              'infeasible row: zero gradient, empty label finite: {}; two '
-              'calls of each bit-identical: {}'.format(
-                  label, g.shape[2], e_z, e_a, e_g, fwd_equal, special, same),
-              flush=True)
-        check(fwd_equal and ok_g and special and same,
-              'ctc {}: out of tolerance, not bit-identical or calls differ'
-              .format(label))
-        errs[label] = {'ctc_fwd': max(e_z, e_a), 'ctc_bwd': e_g}
+        errs[label], (logz, alphas, logz_r, alphas_r) = ctc_check(
+            ctc, ctc_cuda, label, case, l_max)
         if not timed:
             continue
 
@@ -1187,6 +1226,29 @@ def ctc_phase(ctc, ctc_cuda, build):
     return errs, timings
 
 
+def bilstm_fwd_check(rnn_cuda, label, c, dtype, forget_bias=1.0):
+    """``bilstm_fwd`` on one case, residuals off and on, against
+    ``bilstm_fwd_reference`` (:func:`max_err`'s bars), two calls
+    bit-identical; returns ``{residuals: largest gap}``."""
+    errs = {}
+    for res in (False, True):
+        def call(fn):
+            return fn(*kernel_args(c), forget_bias=forget_bias,
+                      save_residuals=res)
+        got, again = call(rnn_cuda.bilstm_fwd), call(rnn_cuda.bilstm_fwd)
+        want = call(rnn_cuda.bilstm_fwd_reference)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want, dtype)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print('kernel check {:24s} residuals={!s:5s} max|diff| {:.3e} '
+              'within tolerance: {}, two calls bit-identical: {}'.format(
+                  label, res, err, ok, same), flush=True)
+        check(ok and same, '{} residuals={}: max|diff| {} out of '
+              'tolerance or calls differ'.format(label, res, err))
+        errs[res] = err
+    return errs
+
+
 def bilstm_fwd_phase(rnn_cuda, build):
     """Correctness on every case (bf16 also two calls bit-identical), then
     timings at the eval shapes and the bf16 cluster's ptxas report."""
@@ -1207,19 +1269,7 @@ def bilstm_fwd_phase(rnn_cuda, build):
     errs = {}
     for i, (label, t_len, n, dtype, ragged) in enumerate(cases):
         c = bilstm_case(t_len, n, dtype, ragged, seed=i)
-        for res in (False, True):
-            got = rnn_cuda.bilstm_fwd(*kernel_args(c), save_residuals=res)
-            again = rnn_cuda.bilstm_fwd(*kernel_args(c), save_residuals=res)
-            want = rnn_cuda.bilstm_fwd_reference(*kernel_args(c),
-                                                 save_residuals=res)
-            torch.cuda.synchronize()
-            err, ok = max_err(got, want, dtype)
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            print('kernel check {:24s} residuals={!s:5s} max|diff| {:.3e} '
-                  'within tolerance: {}, two calls bit-identical: {}'.format(
-                      label, res, err, ok, same), flush=True)
-            check(ok and same, '{} residuals={}: max|diff| {} out of '
-                  'tolerance or calls differ'.format(label, res, err))
+        for res, err in bilstm_fwd_check(rnn_cuda, label, c, dtype).items():
             errs[(label, res)] = err
 
     timings = {}
@@ -1264,6 +1314,142 @@ def bilstm_fwd_phase(rnn_cuda, build):
               flush=True)
     timings['ptxas'] = ptxas
     return errs, timings
+
+
+# the htr_puigcerver.train_graphed cell's shapes: batch 16 at the store's
+# width of 1,792 px (T=224), each line's own 137-222 frames, H=256 a
+# direction, the first layer reading 1,280 features and each later one
+# 512, forget bias 0; CTC over 80 classes with labels of 22-24 characters
+HTR_T, HTR_N, HTR_LENS, HTR_FEATURES, HTR_FORGET_BIAS = 224, 16, (137, 222), \
+    1280, 0.0
+
+
+def htr_stack(fwd, bwd, c, top, dout):
+    """Two BiLSTM layers chained as the handwriting model's head chains
+    them, with ``fwd``/``bwd`` (the kernels or their plain versions): layer
+    1 on ``c``'s projections, layer 2 on layer 1's output through ``top``'s
+    W; layer 2's backward from the cotangents ``dout``, its input gradient
+    ``dxp W^T`` split by direction into layer 1's backward. Returns layer
+    2's outputs, layer 1's cotangents, layer 1's backward inputs after them
+    and layer 1's gradients."""
+    t_len, n, four_h = c['xpf'].shape
+    h, lens, fb = four_h // 4, c['lens'], HTR_FORGET_BIAS
+    r1 = fwd(*kernel_args(c), forget_bias=fb, save_residuals=True)
+    x2 = torch.cat([r1[0], r1[4]], dim=-1).reshape(t_len * n, 2 * h)
+    xp2 = (x2 @ top['w']).reshape(t_len, n, 2 * four_h)
+    r2 = fwd(xp2[:, :, :four_h], xp2[:, :, four_h:], top['uf'], top['ub'],
+             top['bf'], top['bb'], lens, forget_bias=fb, save_residuals=True)
+    g2 = bwd(*dout, *r2[1:4], *r2[5:8], top['uf'], top['ub'], lens)
+    dx2 = (g2[0].reshape(t_len * n, four_h) @ top['w'][:, :four_h].t()
+           + g2[1].reshape(t_len * n, four_h) @ top['w'][:, four_h:].t()
+           ).reshape(t_len, n, 2 * h)
+    d1 = (dx2[:, :, :h].contiguous(), dx2[:, :, h:].contiguous())
+    res1 = (*r1[1:4], *r1[5:8], c['uf'], c['ub'], lens)
+    return (r2[0], r2[4]), d1, res1, bwd(*d1, *res1)
+
+
+def htr_phase(rnn_cuda, ctc_cuda, ctc):
+    """Kernels 1-4 at the htr_puigcerver.train_graphed cell's shapes
+    (:data:`HTR_T` and beside it), each case's launches counted from 0:
+    ``bilstm_fwd`` and ``bilstm_bwd`` on one layer, f32 and bf16, at
+    :func:`bilstm_fwd_check`'s and :func:`bilstm_bwd_check`'s bars; two
+    layers chained (:func:`htr_stack`), layer 1's backward fed layer 2's
+    input gradient, at the one-layer bar against the plain backward on the
+    same inputs, and the whole chain against the plain versions chained at
+    twice the bar, two chains bit-identical; ``ctc_fwd``/``ctc_bwd`` at
+    :func:`ctc_check`'s bars. Then the kernels' device time at these
+    shapes in bf16 (CTC in f32). Returns ``{kernel: {case: row}}``."""
+    out = {k: {} for k in ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd',
+                           'ctc_bwd')}
+
+    def counted(label, want):
+        got = launch_counts(rnn_cuda, ctc_cuda)
+        check(all(got[k] == want.get(k, 0) for k in got),
+              'htr {}: launches {}, expected {}'.format(label, got, want))
+        return got
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        name = 'f32' if dtype == torch.float32 else 'bf16'
+        label = '{} N={} T={} lens {}-{}'.format(name, HTR_N, HTR_T,
+                                                 *HTR_LENS)
+        launch_counts(rnn_cuda, ctc_cuda, reset=True)
+        c = bilstm_case(HTR_T, HTR_N, dtype, False, seed=60 + 2 * i,
+                        d=HTR_FEATURES, lens_range=HTR_LENS)
+        fwd_errs = bilstm_fwd_check(rnn_cuda, 'htr ' + label, c, dtype,
+                                    HTR_FORGET_BIAS)
+        n = counted(label + ' fwd', {'bilstm_fwd': 4})
+        out['bilstm_fwd'][label] = {'max_abs_err': max(fwd_errs.values()),
+                                    'launches': n['bilstm_fwd']}
+        launch_counts(rnn_cuda, ctc_cuda, reset=True)
+        args = bilstm_bwd_args(c, rnn_cuda, 60 + 2 * i, HTR_FORGET_BIAS)
+        err = bilstm_bwd_check(rnn_cuda, 'htr ' + label, args, dtype)
+        n = counted(label + ' bwd', {'bilstm_fwd': 1, 'bilstm_bwd': 2})
+        out['bilstm_bwd'][label] = {'max_abs_err': err,
+                                    'launches': n['bilstm_bwd']}
+
+        stacked = name + ' two layers chained'
+        launch_counts(rnn_cuda, ctc_cuda, reset=True)
+        top = bilstm_case(HTR_T, HTR_N, dtype, False, seed=61 + 2 * i)
+        g = torch.Generator().manual_seed(62 + 2 * i)
+        dout = tuple((torch.randn(HTR_T, HTR_N, 256, generator=g) * 0.1)
+                     .cuda().to(dtype) for _ in range(2))
+        got = htr_stack(rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, c, top,
+                        dout)
+        again = htr_stack(rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, c, top,
+                          dout)
+        block = bilstm_bwd_check(rnn_cuda, 'htr {} layer 1'.format(stacked),
+                                 (*got[1], *got[2]), dtype)
+        want = htr_stack(rnn_cuda.bilstm_fwd_reference,
+                         rnn_cuda.bilstm_bwd_reference, c, top, dout)
+        torch.cuda.synchronize()
+        flat = [t for part in (got[0], got[3]) for t in part]
+        chain, rel, ok = rel_err(
+            flat, [t for part in (want[0], want[3]) for t in part], dtype,
+            layers=2)
+        same = all(torch.equal(a, b) for a, b in zip(
+            flat, [t for part in (again[0], again[3]) for t in part]))
+        print('bilstm check htr {:24s} layer 2 outputs and layer 1 '
+              'gradients against the plain chain: max|diff| {:.3e} ({:.2e} '
+              'of the largest entry) within twice the tolerance: {}, two '
+              'chains bit-identical: {}'.format(stacked, chain, rel, ok,
+                                                same), flush=True)
+        check(ok and same, 'htr {}: {} of the largest entry, identical '
+              '{}'.format(stacked, rel, same))
+        n = counted(stacked, {'bilstm_fwd': 4, 'bilstm_bwd': 6})
+        out['bilstm_bwd'][stacked] = {
+            'max_abs_err': block, 'chain_max_abs_err': chain,
+            'chain_rel_err': rel, 'launches': n['bilstm_bwd']}
+        out['bilstm_fwd'][stacked] = {'launches': n['bilstm_fwd']}
+
+    label = 'N={} T={} C=80 L=24 lens {}-{}'.format(HTR_N, HTR_T, *HTR_LENS)
+    launch_counts(rnn_cuda, ctc_cuda, reset=True)
+    case = ctc_case(ctc, HTR_T, 24, seed=HTR_T, n=HTR_N, c=80,
+                    t_min=HTR_LENS[0])
+    errs, (logz, alphas, _, _) = ctc_check(ctc, ctc_cuda, 'htr ' + label,
+                                           case, 24)
+    n = counted(label, {'ctc_fwd': 2, 'ctc_bwd': 2})
+    g, masks, lens = case['g'], case['masks'], case['logit_lens']
+    for k in ('ctc_fwd', 'ctc_bwd'):
+        out[k][label] = {'max_abs_err': errs[k], 'launches': n[k]}
+    out['ctc_fwd'][label]['device_ms'] = device_ms(
+        lambda: ctc_cuda.ctc_forward(g, *masks), ['ctc_fwd_'])
+    out['ctc_bwd'][label]['device_ms'] = device_ms(
+        lambda: ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens),
+        ['ctc_bwd_'])
+
+    label = 'bf16 N={} T={} lens {}-{}'.format(HTR_N, HTR_T, *HTR_LENS)
+    c = bilstm_case(HTR_T, HTR_N, torch.bfloat16, False, seed=7,
+                    d=HTR_FEATURES, lens_range=HTR_LENS)
+    args = bilstm_bwd_args(c, rnn_cuda, 7, HTR_FORGET_BIAS)
+    with torch.no_grad():
+        out['bilstm_fwd'][label]['device_ms'] = device_ms(
+            lambda: rnn_cuda.bilstm_fwd(*kernel_args(c),
+                                        forget_bias=HTR_FORGET_BIAS,
+                                        save_residuals=True),
+            ['bilstm_fwd_'])
+        out['bilstm_bwd'][label]['device_ms'] = device_ms(
+            lambda: rnn_cuda.bilstm_bwd(*args), ['bilstm_bwd_'])
+    print('htr kernels {}'.format(json.dumps(out)), flush=True)
+    return out
 
 
 def beam_case(n, t_len, c, dtype, seed):
@@ -4799,6 +4985,7 @@ def main():
     conv_errs, conv_timings, conv_launches = conv_bn_phase(
         bench_conv_bn, conv_bn_cuda, _build)
     beam_kernel_launches, beam_timings = beam_phase(beam, beam_cuda)
+    htr = htr_phase(rnn_cuda, ctc_cuda, ctc)
 
     out_dir = os.path.join(REPO, 'chiprun_out')
     os.makedirs(out_dir, exist_ok=True)
@@ -4913,6 +5100,7 @@ def main():
                     **later_paths(name))}
     print(json.dumps({'kernels': [dict(common, **{
         'name': 'bilstm_fwd',
+        'htr_cell': htr['bilstm_fwd'],
         'source': 'lstm_ctc_ocr_torch/csrc/bilstm_fwd.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:398',
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_fwd_kernel',
@@ -4950,6 +5138,7 @@ def main():
             'device_tflops')},
     }), dict(common, **{
         'name': 'bilstm_bwd',
+        'htr_cell': htr['bilstm_bwd'],
         'source': 'lstm_ctc_ocr_torch/csrc/bilstm_bwd.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/rnn_pallas.py:522',
         'tpu_kernel': 'ops/rnn_pallas.py:_bi_bwd_kernel',
@@ -4982,6 +5171,7 @@ def main():
             'library_ms', 'bound_ms', 'device_tflops')},
     }), dict(common, **ctc_launches('ctc_fwd'), **{
         'name': 'ctc_fwd',
+        'htr_cell': htr['ctc_fwd'],
         'source': 'lstm_ctc_ocr_torch/csrc/ctc.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/ctc_pallas.py:54',
         'tpu_kernel': 'ops/ctc_pallas.py:_fwd_kernel',
@@ -5004,6 +5194,7 @@ def main():
             library_ms=ctc111['library_fwd_ms']),
     }), dict(common, **ctc_launches('ctc_bwd'), **{
         'name': 'ctc_bwd',
+        'htr_cell': htr['ctc_bwd'],
         'source': 'lstm_ctc_ocr_torch/csrc/ctc.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/ctc_pallas.py:89',
         'tpu_kernel': 'ops/ctc_pallas.py:_bwd_kernel',

@@ -95,7 +95,7 @@ from ..models.factory import get_network
 from ..ops import ctc_cuda, rnn_cuda
 from ..parallel import mesh as pmesh
 from ..utils.metrics import accuracy_calculation
-from ..utils.profiler import StepProfiler, count, span
+from ..utils.profiler import StepProfiler, capture_counts, count, span
 from . import checkpoint
 from .summary import SummaryWriter
 from .test import full_f32, make_decode_step, resolve_device
@@ -346,16 +346,20 @@ def _kernel_wrappers():
 class _Graph:
     """One captured K-step program: its static inputs and outputs, and the
     kernel launches a replay makes (``(wrapper, count)``), which the
-    wrappers' Python counters do not see."""
+    wrappers' Python counters do not see, and the counts of
+    ``utils/profiler.py`` its capture made (``{name: n}``), which a replay
+    adds while a trace records."""
 
-    def __init__(self, graph, inputs, outputs, launches):
+    def __init__(self, graph, inputs, outputs, launches, counts):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
-        self.launches = launches
+        self.launches, self.counts = launches, counts
 
     def replay(self):
         self.graph.replay()
         for wrapper, n in self.launches:
             wrapper.launches += n
+        for name, n in self.counts.items():
+            count(name, n)
 
 
 def check_graph_collectives(mesh, device):
@@ -390,8 +394,10 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
     up cuBLAS, cuDNN and the kernels' one-time attributes; they are real
     steps and count as such), then captures them without running them. A
     capture that fails raises; nothing falls back to eager steps. Replays
-    add the launches their capture recorded to the wrappers' counters and
-    ``k`` to ``optimizer.count``. On the CPU the ``k`` steps run eagerly.
+    add the launches their capture recorded to the wrappers' counters, the
+    counts it made (such as ``rnn.layer_frames``) to the profiler's while
+    a trace records, and ``k`` to ``optimizer.count``. On the CPU the ``k``
+    steps run eagerly.
     Under a ``torch.profiler`` trace the input copy is the span
     ``solver.upload`` and a replay with its outputs' clone
     ``solver.replay``; every dispatch but a capture adds 1 to the counter
@@ -438,7 +444,8 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=pool, stream=side,
-                                  capture_error_mode='thread_local'):
+                                  capture_error_mode='thread_local'), \
+                    capture_counts() as counts:
                 outputs = body(static)
         except RuntimeError as e:
             raise RuntimeError(
@@ -452,7 +459,7 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
                 w.launches = n
             optimizer.advance(count - optimizer.count)
         graphs[key] = _Graph(graph, static, outputs,
-                             [(w, n) for w, n in launches if n])
+                             [(w, n) for w, n in launches if n], counts)
         return out
 
     def chunk(*args):

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``models/layers.py``: ``conv_single``
 (bias, batch norm, relu, any kernel, stride and TF padding), ``max_pool``
 and ``avg_pool``, ``reshape_squeeze``, ``bi_lstm`` with its f32
-projection, the stacked unidirectional ``lstm`` variant, and the layers
+projection, the stacked unidirectional ``lstm`` variant, the stacked
+BiLSTM head of the handwriting model (``models/htr.py``), and the layers
 only the model DSL uses (``models/network.py``): ``fc``, ``softmax`` and
 ``dropout``.
 
@@ -54,6 +55,7 @@ from torch import nn
 from ..ops import rnn
 from ..ops.conv import (CONV_IMPLS, MIN_CONTRACTION, conv2d_shifted,
                         pad_amount)
+from ..utils.profiler import count, span
 
 BN_EPS = 1e-3
 
@@ -413,3 +415,58 @@ class LSTM(nn.Module):
             x_tm = rnn.lstm(_cell_weights(cell, dtype), x_tm, lens)
         # projection in f32, as in the BiLSTM layer; already time-major
         return x_tm.float() @ self.weights + self.biases
+
+
+class StackedBiLSTM(nn.Module):
+    """``num_layers`` BiLSTMs of ``num_hids // 2`` units a direction, each
+    reading the one before's ``num_hids`` outputs (the first reads width
+    ``d``), + f32 projection to ``nclasses``; returns time-major logits
+    [T, N, C]. The stack runs time-major (``rnn.bilstm_tm``), so no layout
+    copy lies between two layers. ``forget_bias`` is added to the forget
+    gate as in :class:`BiLSTM` (0: PyTorch's LSTM). In training, inverted
+    dropout of ``keep_prob`` acts on each layer's input and on the
+    projection's, each masked by its key of ``keys`` (``num_layers + 1``
+    of :func:`dropout_key`; None: no dropout).
+
+    Parameters ``layers.<i>.cells.{fw,bw}.{w,u,bias}`` (:class:`LSTMCell`,
+    so the weight bridge writes each as the JAX cell's ``kernel``),
+    ``weights`` [num_hids, nclasses] and ``biases``, drawn as
+    :class:`BiLSTM`'s. Under a ``torch.profiler`` trace the head is the span
+    ``rnn.stack``, and each call adds its layers times its frames, padding
+    included (``num_layers * N * T``), to the counter ``rnn.layer_frames``.
+    """
+
+    def __init__(self, d, num_hids, num_layers, nclasses, forget_bias=1.0,
+                 keep_prob=1.0, generator=None):
+        super().__init__()
+        h = num_hids // 2
+        self.forget_bias, self.keep_prob = float(forget_bias), keep_prob
+        self.layers = nn.ModuleList(
+            nn.ModuleDict({'cells': nn.ModuleDict({
+                'fw': LSTMCell(d if i == 0 else num_hids, h, generator),
+                'bw': LSTMCell(d if i == 0 else num_hids, h, generator)})})
+            for i in range(num_layers))
+        self.weights = nn.Parameter(torch.empty(num_hids, nclasses))
+        std = math.sqrt(0.01 / ((num_hids + nclasses) / 2.0)) / 0.87962566
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weights, std=std, a=-2 * std,
+                                  b=2 * std, generator=generator)
+        self.biases = nn.Parameter(torch.zeros(nclasses))
+
+    def forward(self, x, lens, dtype=None, keys=None):
+        """``x`` [N, T, d] -> f32 logits [T, N, nclasses]."""
+        n, t_len = x.shape[:2]
+        count('rnn.layer_frames', len(self.layers) * n * t_len)
+        on = self.training and keys is not None
+        with span('rnn.stack'):
+            x_tm = _cast(x, dtype).transpose(0, 1)
+            for i, layer in enumerate(self.layers):
+                if on:
+                    x_tm = dropout(x_tm, self.keep_prob, True, keys[i])
+                cells = {name: _cell_weights(cell, dtype)
+                         for name, cell in layer['cells'].items()}
+                x_tm = rnn.bilstm_tm(cells, x_tm, lens, self.forget_bias)
+            if on:
+                x_tm = dropout(x_tm, self.keep_prob, True, keys[-1])
+            # projection in f32, as in the BiLSTM layer; already time-major
+            return x_tm.float() @ self.weights + self.biases

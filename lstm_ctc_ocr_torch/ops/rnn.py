@@ -11,7 +11,8 @@ A cell's weights are ``{'w': [D, 4H], 'u': [H, 4H], 'bias': [4H]}``: the JAX
 package's ``kernel [D+H, 4H]`` split into its input and recurrent halves
 (``engine/checkpoint.py:params_from_flat``).
 
-:func:`bilstm` is the model's BiLSTM: one input projection for both
+:func:`bilstm` is the model's BiLSTM (:func:`bilstm_tm` its time-major
+form, which a stack of them chains): one input projection for both
 directions, then ``rnn_cuda.bilstm_fwd`` — the CUDA kernel for a CUDA
 tensor, its plain version for a CPU tensor — inside a
 ``torch.autograd.Function`` whose backward is ``rnn_cuda.bilstm_bwd``
@@ -120,7 +121,14 @@ def bilstm(cells, x, lens, forget_bias=1.0):
     Returns:
       [N, T, 2H] concat(fw, bw) outputs, zero past ``lens``.
     """
-    x_tm = x.transpose(0, 1)
+    return bilstm_tm(cells, x.transpose(0, 1), lens,
+                     forget_bias).transpose(0, 1)
+
+
+def bilstm_tm(cells, x_tm, lens, forget_bias=1.0):
+    """:func:`bilstm` time-major in and out: [T, N, D] -> [T, N, 2H]. A
+    stack of BiLSTMs passes each layer's output to the next as it is, with
+    no layout copy between layers."""
     t_len, n, d = x_tm.shape
     fw, bw = cells['fw'], cells['bw']
     four_h = fw['u'].shape[1]
@@ -132,7 +140,7 @@ def bilstm(cells, x, lens, forget_bias=1.0):
                                    *weights, lens, forget_bias)
     else:
         of, ob = custom_ops.bilstm_fwd(xp, *weights, lens, forget_bias)
-    return torch.cat([of, ob], dim=-1).transpose(0, 1)
+    return torch.cat([of, ob], dim=-1)
 
 
 class _LSTMCore(torch.autograd.Function):

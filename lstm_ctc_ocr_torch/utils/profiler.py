@@ -44,7 +44,8 @@ captured, so exported programs and captured graphs hold no trace of them.
     count('serve.images', len(imgs))
 
 A name starts with its layer's prefix: ``serve.``, ``eval.``, ``beam.``,
-``solver.``.
+``solver.``, ``rnn.``. A CUDA graph's capture takes its counts with
+:func:`capture_counts`, and each replay adds them while a trace records.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ import torch
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 _counts = {}
+_captured = None           # the open capture_counts() block's tally
 
 
 def _eager() -> bool:
@@ -77,9 +79,25 @@ def span(name: str):
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name`` while a trace is recording."""
-    if _profiler_enabled() and _eager():
+    """Add ``n`` to counter ``name`` while a trace is recording; inside
+    :func:`capture_counts`, to that block's tally instead."""
+    if _captured is not None:
+        _captured[name] = _captured.get(name, 0) + int(n)
+    elif _profiler_enabled() and _eager():
         _counts[name] = _counts.get(name, 0) + int(n)
+
+
+@contextlib.contextmanager
+def capture_counts():
+    """Yield a dict that receives the counts made in the block, whether a
+    trace records or not: the counts of a CUDA graph's capture, which its
+    replays add (``engine/train.py:_Graph``), as they add its launches."""
+    global _captured
+    saved, _captured = _captured, {}
+    try:
+        yield _captured
+    finally:
+        _captured = saved
 
 
 def counters() -> dict:

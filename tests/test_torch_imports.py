@@ -35,7 +35,7 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.engine.summary', 'lstm_ctc_ocr_torch.engine.test',
     'lstm_ctc_ocr_torch.engine.train', 'lstm_ctc_ocr_torch.models',
     'lstm_ctc_ocr_torch.models.crnn', 'lstm_ctc_ocr_torch.models.factory',
-    'lstm_ctc_ocr_torch.models.layers',
+    'lstm_ctc_ocr_torch.models.htr', 'lstm_ctc_ocr_torch.models.layers',
     'lstm_ctc_ocr_torch.models.layers_legacy',
     'lstm_ctc_ocr_torch.models.network', 'lstm_ctc_ocr_torch.native',
     'lstm_ctc_ocr_torch.native.ctc_ref',
