@@ -149,11 +149,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    batches are eval's: every string identical to the eval phase's
    prediction for that file (phase 6's ``test_net(model=...)`` for the
    stacked model), the accuracy within the release's bar where the whole
-   val set is served, and ``bilstm_fwd`` launched exactly once a served
-   call (``lstm_fwd`` twice a call of the stacked model), the beam kernel
-   once a call of a beam release. (c) Greedy
-   ``lstm_ctc`` at W=96: the frozen program against the live decode, in
-   turns, images/s and p50 of a call, ids equal. (d)
+   val set is served, and each bucket captured as a CUDA graph at its
+   first call; then the same files once more under a ``torch.profiler``
+   trace of the device, every call a replay (``serve.graph_replays``),
+   the same strings, and in the trace's kernels ``bilstm_fwd`` launched
+   exactly once a call (``lstm_fwd`` twice a call of the stacked model),
+   the beam kernel once a call of a beam release; for one greedy and one
+   beam release (``GRAPH_COMPARED``) each bucket's first chunk through
+   its graph and through the loaded program called eagerly: ids equal,
+   one replay a bucket counted by ``serve.graph_replays``. (c) Greedy
+   ``lstm_ctc`` at W=96: the frozen program, replayed as a graph and
+   called eagerly, against the live decode, in turns, images/s and p50 of
+   a call, ids equal. (d)
    ``tools/calibrate_bn.py`` (8 batches of 64, native renderer) into a
    copy of the ``lstm_ctc`` release, params unchanged, then eval under
    ``BN_EVAL: moving``: at least 484/500. (e) ``tools/release_ckpt.py
@@ -303,8 +310,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     step's gradients against the plain versions (phase 5(c)'s bar),
     ``test_net`` on the snapshot (counts, no bar), its most populous
     bucket exported and served from a fresh process (strings equal to
-    ``test_net``'s), then 20 steps of the stacked head at ``.lstm(1024,
-    2)`` (kernels 5-6 once a layer a step). (c) The CTC kernels at L=512,
+    ``test_net``'s; served again under a device trace, every call a
+    replay launching ``bilstm_fwd`` once), then 20 steps of the stacked
+    head at ``.lstm(1024, 2)`` (kernels 5-6 once a layer a step). (c) The
+    CTC kernels at L=512,
     600 and 1024, T=2L+9, batch 16 with an empty label, an infeasible and
     a one-frame example: logZ and alphas bit for bit, the gradient <=
     1e-5, two calls bit for bit. (d) ``conv3x3_bn_relu`` at C_in 1 and 24
@@ -344,6 +353,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
+# the releases whose served graphs the serve phase compares with their
+# programs called eagerly, bucket by bucket: one greedy, one beam
+GRAPH_COMPARED = ('lstm_ctc/batch', 'lstm_records/beam')
 # (label, config, val dir, BN_EVAL, decoder, images, least correct): the
 # releases' recorded numbers (checkpoints/README.md), less 2 images
 EVALS = [
@@ -2114,11 +2126,72 @@ def stacked_phase(mods, card, rec_path, log):
 # of the repo: loads each artifact directory, decodes its files in the given
 # (eval's) order and writes the strings, launch counts and modules seen
 SERVE_WORKER = r'''
-import json, os, sys, time
+import json, os, re, sys, time
+import numpy as np
 import torch
 from lstm_ctc_ocr_torch.data.image import load_image
 from lstm_ctc_ocr_torch.engine.serve import ExportedDecoder
-from lstm_ctc_ocr_torch.ops import beam_cuda, rnn_cuda
+from lstm_ctc_ocr_torch.engine.test import full_f32
+from lstm_ctc_ocr_torch.utils import profiler
+
+# the served kernels' names in a device trace (bilstm_fwd_cluster_kernel
+# holds lstm_fwd_cluster_kernel: a name starts where a word does)
+KERNELS = {'bilstm_fwd': re.compile(r'(?<!\w)bilstm_fwd_\w*kernel'),
+           'lstm_fwd': re.compile(r'(?<!\w)lstm_fwd_\w*kernel'),
+           'beam': re.compile(r'(?<!\w)beam_kernel')}
+
+
+def traced_decode(dec, images):
+    # decode_images under a trace of the host and the device: the strings,
+    # the program calls, the served kernels' launches counted from 0 in the
+    # trace's device events, the device events seen, and the replays that
+    # serve.graph_replays counted
+    calls = dec.calls
+    replays = profiler.counters().get('serve.graph_replays', 0)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        strings = dec.decode_images(images)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return strings, {
+        'calls': dec.calls - calls,
+        'launches': {k: sum(e.count for e in device if pat.search(e.key))
+                     for k, pat in KERNELS.items()},
+        'device_events': sum(e.count for e in device),
+        'graph_replays': profiler.counters().get('serve.graph_replays', 0)
+        - replays}
+
+
+def graphed_vs_eager(dec, images):
+    # per bucket, the first chunk of the served images through its graph (a
+    # replay, the bucket captured by the serving) and through the loaded
+    # program called eagerly: the rows whose ids differ, and the replays a
+    # trace counted
+    by = {}
+    for img in images:
+        b, x, ts = dec._prepare(img)
+        by.setdefault(b, []).append((x, ts))
+    batch = int(dec.manifest['batch'])
+    rows = {}
+    before = profiler.counters().get('serve.graph_replays', 0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for b, items in sorted(by.items()):
+            chunk = items[:batch] + [items[:batch][-1]] * max(
+                0, batch - len(items))
+            x = np.stack([c[0] for c in chunk])
+            ts = np.array([c[1] for c in chunk], np.int32)
+            graphed = dec.run(x, ts)
+            with full_f32():
+                eager = dec._programs[b](torch.from_numpy(x).cuda(),
+                                         torch.from_numpy(ts).cuda())
+                eager = eager.cpu().numpy()
+            rows[str(b)] = int((graphed != eager).any(axis=1).sum())
+    return {'rows_differ': rows, 'replays_traced':
+            profiler.counters().get('serve.graph_replays', 0) - before}
+
 
 with open(sys.argv[1]) as f:
     spec = json.load(f)
@@ -2129,17 +2202,17 @@ for entry in spec:
     load_s = time.perf_counter() - t0
     images = [load_image(os.path.join(entry['val_dir'], f))
               for f in entry['files']]
-    before = (rnn_cuda.bilstm_fwd.launches, rnn_cuda.lstm_fwd.launches,
-              beam_cuda.beam_decode.launches)
     t0 = time.perf_counter()
-    strings = dec.decode_images(images)
-    out['releases'][entry['label']] = {
+    strings = dec.decode_images(images)      # each bucket captured
+    got = out['releases'][entry['label']] = {
         'predictions': dict(zip(entry['files'], strings)),
         'calls': dec.calls, 'load_s': load_s,
         'decode_s': time.perf_counter() - t0,
-        'bilstm_fwd': rnn_cuda.bilstm_fwd.launches - before[0],
-        'lstm_fwd': rnn_cuda.lstm_fwd.launches - before[1],
-        'beam': beam_cuda.beam_decode.launches - before[2]}
+        'graphs': len(dec._graphs)}
+    again, got['traced'] = traced_decode(dec, images)    # all replays
+    got['traced']['same_strings'] = again == strings
+    if entry.get('compare'):
+        got['graphed_vs_eager'] = graphed_vs_eager(dec, images)
 out['foreign_modules'] = sorted(
     k for k in sys.modules
     if k.split('.')[0] in ('jax', 'jaxlib', 'lstm_ctc_ocr_tpu'))
@@ -2157,9 +2230,11 @@ def files_by_bucket(mods, cfg, val_dir):
 
 
 def serve_timing(mods, cfg, model, export_dir, card, n=30):
-    """Frozen program against the live decode, greedy ``lstm_ctc`` at
-    batch 64 on the first 64 W=96 images of ``data/val``, in turns (live,
-    frozen, frozen, live), ``n`` calls a turn after 3 warm calls each; a
+    """The frozen program, replayed as the decoder's CUDA graph
+    (``graphed``) and called eagerly as the loaded module (``eager``),
+    against the live decode, greedy ``lstm_ctc`` at batch 64 on the first
+    64 W=96 images of ``data/val``, in turns (live, eager, graphed,
+    graphed, eager, live), ``n`` calls a turn after 3 warm calls each; a
     call is host time from numpy in to ids back on the host."""
     test_mod, serve = mods['test'], mods['serve']
     val = os.path.join(REPO, 'data', 'val')
@@ -2176,19 +2251,28 @@ def serve_timing(mods, cfg, model, export_dir, card, n=30):
             return live_step(images, steps)
     frozen_dec = serve.ExportedDecoder(export_dir, device='cuda')
 
-    def frozen():
+    def graphed():
         return frozen_dec.run(images, steps)
-    check(np.array_equal(live(), frozen()),
-          'frozen program and live decode differ at W=96')
-    times = {'live': [], 'frozen': []}
+
+    def eager():
+        with test_mod.full_f32():
+            x = torch.from_numpy(images).cuda()
+            lens = torch.from_numpy(steps).cuda()
+            return frozen_dec._programs[96](x, lens).cpu().numpy()
+    fns = {'live': live, 'eager': eager, 'graphed': graphed}
+    want = live()
+    for what in ('graphed', 'eager', 'graphed'):   # a capture, then a replay
+        check(np.array_equal(fns[what](), want),
+              'the frozen program ({}) and the live decode differ at W=96'
+              .format(what))
+    times = {what: [] for what in fns}
     for _ in range(3):
-        live()
-        frozen()
-    for what in ('live', 'frozen', 'frozen', 'live'):
-        fn = live if what == 'live' else frozen
+        for fn in fns.values():
+            fn()
+    for what in ('live', 'eager', 'graphed', 'graphed', 'eager', 'live'):
         for _ in range(n):
             t0 = time.perf_counter()
-            fn()
+            fns[what]()
             times[what].append(time.perf_counter() - t0)
     out = {}
     for what, ts in times.items():
@@ -2196,20 +2280,25 @@ def serve_timing(mods, cfg, model, export_dir, card, n=30):
                      'p50_ms_per_call': 1e3 * statistics.median(ts),
                      'p50_ms_per_image': 1e3 * statistics.median(ts) / 64}
     print('serve timing on {} (lstm_ctc greedy, batch 64, W=96, {} calls '
-          'each): live {:.1f} images/s, p50 {:.3f} ms a call; frozen {:.1f} '
-          'images/s, p50 {:.3f} ms a call ({:+.1%} images/s)'.format(
-              card, 2 * n, out['live']['images_per_s'],
-              out['live']['p50_ms_per_call'], out['frozen']['images_per_s'],
-              out['frozen']['p50_ms_per_call'],
-              out['frozen']['images_per_s'] / out['live']['images_per_s']
-              - 1), flush=True)
+          'each): live {:.1f} images/s, p50 {:.3f} ms a call; frozen eager '
+          '{:.1f} images/s, p50 {:.3f} ms a call; frozen graphed {:.1f} '
+          'images/s, p50 {:.3f} ms a call ({:+.1%} images/s over eager)'
+          .format(card, 2 * n, out['live']['images_per_s'],
+                  out['live']['p50_ms_per_call'],
+                  out['eager']['images_per_s'],
+                  out['eager']['p50_ms_per_call'],
+                  out['graphed']['images_per_s'],
+                  out['graphed']['p50_ms_per_call'],
+                  out['graphed']['images_per_s']
+                  / out['eager']['images_per_s'] - 1), flush=True)
     return out
 
 
 def serve_phase(mods, card, eval_predictions, stacked_predictions, log):
     """The serving export and the release tools at full width (batch 64,
-    bf16): returns ``bilstm_fwd`` / ``lstm_fwd`` launches of the served
-    decode calls and the phase's numbers."""
+    bf16): returns the ``bilstm_fwd`` / ``lstm_fwd`` / beam kernel launches
+    that a device trace counted in the served decode calls of the traced
+    pass, and the phase's numbers."""
     load_cfg, test_mod, serve = mods['load_cfg'], mods['test'], mods['serve']
     checkpoint = mods['checkpoint']
     t_phase = time.perf_counter()
@@ -2236,7 +2325,8 @@ def serve_phase(mods, card, eval_predictions, stacked_predictions, log):
                        manifest['export_seconds'].items()}), mb, card),
               flush=True)
         spec.append({'label': label, 'export_dir': out_dir,
-                     'val_dir': val_dir, 'files': files})
+                     'val_dir': val_dir, 'files': files,
+                     'compare': label in GRAPH_COMPARED})
         return out_dir
 
     # 1. export the releases' buckets, and the stacked model's snapshot
@@ -2289,10 +2379,13 @@ def serve_phase(mods, card, eval_predictions, stacked_predictions, log):
     check(served['foreign_modules'] == [], 'the serving process imported '
           '{}'.format(served['foreign_modules']))
 
-    # 3. the same strings as eval, file by file, and the kernels once a call
+    # 3. the same strings as eval, file by file, one graph a bucket, and
+    # the kernels once a call in a traced second pass
     launches = {'bilstm_fwd': 0, 'lstm_fwd': 0, 'beam': 0}
     for label, (want, total, least, kernel, beam) in wanted.items():
         got = served['releases'][label]
+        traced = got['traced']
+        counted = traced['launches']
         e = exports[label]
         preds = got['predictions']
         diff = [f for f in preds if preds[f] != want[f]]
@@ -2303,31 +2396,62 @@ def serve_phase(mods, card, eval_predictions, stacked_predictions, log):
         per_call = STACKED_LAYERS if kernel == 'lstm_fwd' else 1
         other = 'bilstm_fwd' if kernel == 'lstm_fwd' else 'lstm_fwd'
         print('serve {:18s} {}/{} correct (eval on the same files {}), {} of '
-              '{} strings differ from eval, {} calls, launches {} {} / {} {} '
-              '/ beam {}, load {:.1f} s, decode {:.2f} s on {}'.format(
-                  label, correct, len(preds), eval_correct, len(diff),
-                  len(preds), got['calls'], kernel, got[kernel], other,
-                  got[other], got['beam'], got['load_s'], got['decode_s'],
-                  card), flush=True)
+              '{} strings differ from eval, {} calls, {} graphs, load {:.1f} '
+              's, decode {:.2f} s; traced again: {} calls, {} replays, '
+              'launches in the device trace {} {} / {} {} / beam {} on {}'
+              .format(label, correct, len(preds), eval_correct, len(diff),
+                      len(preds), got['calls'], got['graphs'], got['load_s'],
+                      got['decode_s'], traced['calls'],
+                      traced['graph_replays'], kernel, counted[kernel], other,
+                      counted[other], counted['beam'], card), flush=True)
         check(not diff, '{}: served strings differ from eval for {}'.format(
             label, diff[:10]))
         check(len(preds) == e['images'] and got['calls'] == e['calls'],
               '{}: {} images in {} calls, expected {} in {}'.format(
                   label, len(preds), got['calls'], e['images'], e['calls']))
-        check(got[kernel] == per_call * got['calls'] and got[other] == 0
-              and got['beam'] == (got['calls'] if beam else 0),
-              '{}: launches {} {} / {} {} / beam {} for {} calls'.format(
-                  label, kernel, got[kernel], other, got[other], got['beam'],
-                  got['calls']))
         if len(preds) == total:
             check(correct >= least, '{}: {}/{} correct, expected >= {}'
                   .format(label, correct, total, least))
-        launches[kernel] += got[kernel]
-        launches['beam'] += got['beam']
+        # one CUDA graph a bucket, captured at its first call; the second
+        # pass all replays, each launching the kernels once as a call does
+        n_buckets = len(e['buckets'])
+        check(got['graphs'] == n_buckets and traced['same_strings']
+              and traced['calls'] == got['calls']
+              and traced['graph_replays'] == traced['calls'],
+              '{}: {} graphs for {} buckets; traced again {} calls, {} '
+              'replays, strings {}'.format(
+                  label, got['graphs'], n_buckets, traced['calls'],
+                  traced['graph_replays'], 'the same' if
+                  traced['same_strings'] else 'different'))
+        check(traced['device_events'] > 0, '{}: the profiler saw no device '
+              'events, so the served launches were not counted'.format(label))
+        check(counted[kernel] == per_call * traced['calls']
+              and counted[other] == 0
+              and counted['beam'] == (traced['calls'] if beam else 0),
+              '{}: launches in the device trace {} {} / {} {} / beam {} for '
+              '{} calls'.format(label, kernel, counted[kernel], other,
+                                counted[other], counted['beam'],
+                                traced['calls']))
+        compared = got.get('graphed_vs_eager')
+        if compared is not None:
+            print('serve {:18s} graphed vs eager program, rows whose ids '
+                  'differ by bucket: {}, replays traced {} on {}'.format(
+                      label, json.dumps(compared['rows_differ']),
+                      compared['replays_traced'], card), flush=True)
+            check(not any(compared['rows_differ'].values())
+                  and compared['replays_traced'] == n_buckets,
+                  '{}: graphed and eager ids differ ({}) or {} replays '
+                  'traced for {} buckets'.format(
+                      label, compared['rows_differ'],
+                      compared['replays_traced'], n_buckets))
+        launches[kernel] += counted[kernel]
+        launches['beam'] += counted['beam']
         e.update(correct=correct, served=len(preds), load_s=got['load_s'],
-                 decode_s=got['decode_s'])
+                 decode_s=got['decode_s'],
+                 graph_replays=traced['graph_replays'],
+                 graphed_vs_eager=compared)
 
-    # 4. frozen against live, greedy lstm_ctc at W=96
+    # 4. frozen, graphed and eager, against live, greedy lstm_ctc at W=96
     timing = serve_timing(mods, *timing_args, card)
 
     # 5. calibrate a copy of the lstm_ctc release, evaluate it under moving
@@ -4723,19 +4847,25 @@ def wide_path_phase(mods, card, rec_path, log):
     with open(res_path) as f:
         served = json.load(f)
     got = served['releases']['wide']
+    traced = got['traced']              # the second pass, all replays
+    launched = traced['launches']['bilstm_fwd']
     diff = [f for f in files if got['predictions'][f] != r.predictions[f]]
     print('phase 14 NUM_HID {} served bucket W={} ({} images) from a fresh '
-          'process: {} strings differ from test_net, {} calls, {} bilstm_fwd '
-          'launches; export {:.1f} s, serving process {:.1f} s'.format(
+          'process: {} strings differ from test_net, {} calls; traced again '
+          '{} calls, {} replays, {} bilstm_fwd launches in the device trace; '
+          'export {:.1f} s, serving process {:.1f} s'.format(
               WIDE_HID, bucket, len(files), len(diff), got['calls'],
-              got['bilstm_fwd'], export_s, worker_s), flush=True)
+              traced['calls'], traced['graph_replays'], launched, export_s,
+              worker_s), flush=True)
     check(not diff and served['foreign_modules'] == []
-          and got['bilstm_fwd'] == got['calls'] > 0,
-          'phase 14 served: {} differ, modules {}, launches {} for {} calls'
-          .format(diff[:10], served['foreign_modules'], got['bilstm_fwd'],
-                  got['calls']))
-    paths['wide_serve'] = dict({k: 0 for k in before},
-                               bilstm_fwd=got['bilstm_fwd'])
+          and traced['same_strings'] and got['graphs'] == 1
+          and traced['graph_replays'] == traced['calls'] == got['calls']
+          and launched == traced['calls'] > 0,
+          'phase 14 served: {} differ, modules {}, {} graphs, traced again '
+          '{} calls, {} replays, {} launches'.format(
+              diff[:10], served['foreign_modules'], got['graphs'],
+              traced['calls'], traced['graph_replays'], launched))
+    paths['wide_serve'] = dict({k: 0 for k in before}, bilstm_fwd=launched)
     shutil.rmtree(export_dir)
 
     # the stacked head at .lstm(1024, 2): 20 steps

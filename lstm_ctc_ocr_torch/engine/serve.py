@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from typing import Dict, List, Sequence
 
@@ -44,6 +45,7 @@ from ..data.image import preprocess_image
 from ..models.layers import ConvSingle
 from ..ops import custom_ops  # noqa: F401  (registers the programs' ops)
 from ..utils.profiler import count, span
+from . import graphs
 from .test import decode_fn, decode_ids, full_f32, resolve_device
 
 MANIFEST = 'manifest.json'
@@ -135,14 +137,24 @@ class ExportedDecoder:
     strings, batching per width bucket exactly like eval. ``calls`` counts
     the programs' calls.
 
+    On a CUDA device each bucket's program is captured as a CUDA graph on
+    its first call and replayed after (:meth:`run`), so a later call costs
+    the host an input copy and one graph launch, not the program's walk
+    of its ~160 nodes; on the CPU the programs run eagerly. The graphs
+    share static input and output buffers, so a decoder serves one caller
+    at a time: :meth:`run` holds the decoder's lock from the copy in to
+    the ids' copy out, and threads sharing a decoder take turns there.
+
     Under a ``torch.profiler`` trace (``utils/profiler.py``) a request is
     the span ``serve.request``, holding ``serve.prepare`` (resize and
     bucket padding of its images), then per chunk ``serve.pad`` (stacking
     and padding to the batch), the program call's ``serve.upload``,
-    ``serve.enqueue`` (the program run on the host) and ``serve.readback``
-    (waiting for the device), and ``serve.to_strings``; the counters
-    ``serve.images`` (images asked for) and ``serve.rows`` (rows the
-    programs computed, padding included)."""
+    ``serve.enqueue`` (on the host: the graph's replay, or the program's
+    eager run, at a capture both the warm-up and the capture) and
+    ``serve.readback`` (waiting for the device), and ``serve.to_strings``;
+    the counters ``serve.images`` (images asked for), ``serve.rows`` (rows
+    the programs computed, padding included) and ``serve.graph_replays``
+    (program calls served by a replay)."""
 
     def __init__(self, export_dir: str, device='cuda'):
         self.device = resolve_device(device)
@@ -165,6 +177,14 @@ class ExportedDecoder:
         for i, c in enumerate(self.manifest['charset'], 1):
             self._decode_maps[i] = c
         self.calls = 0
+        # the captured programs by their inputs' shapes and dtypes, the
+        # captures' side stream and the memory pool the graphs share
+        # (their calls never overlap: the lock)
+        self._graphs: Dict[tuple, graphs.Graph] = {}
+        if self.device.type == 'cuda':
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        self._lock = threading.Lock()
 
     def _pick_bucket(self, width: int) -> int:
         for b in self.manifest['buckets']:
@@ -193,17 +213,45 @@ class ExportedDecoder:
 
     def run(self, images: np.ndarray, steps: np.ndarray) -> np.ndarray:
         """One program call: images [batch, W, F] f32 at an exported bucket
-        W, steps [batch] int32 -> ids [batch, T] int32 numpy."""
-        with full_f32():
+        W, steps [batch] int32 -> ids [batch, T] int32 numpy.
+
+        On a CUDA device the first call with these shapes runs the program
+        on a side stream (the warm-up, whose ids are the call's), then
+        captures it as a CUDA graph over the inputs' device copies
+        (``engine/graphs.py:capture``); every later call copies its inputs
+        into those static buffers, replays the graph and copies the ids
+        out. The graph runs the eager program's kernels in the same order
+        on the same inputs, so its ids are the eager program's, bit for
+        bit. A capture that fails raises; nothing falls back to the eager
+        program."""
+        key = tuple((a.shape, a.dtype) for a in (images, steps))
+        with self._lock, full_f32():
+            graph = self._graphs.get(key)
             with span('serve.upload'):
-                x = torch.from_numpy(images).to(self.device)
-                lens = torch.from_numpy(steps).to(self.device)
+                if graph is None:
+                    x = torch.from_numpy(images).to(self.device)
+                    lens = torch.from_numpy(steps).to(self.device)
+                else:
+                    x, lens = graph.inputs
+                    x.copy_(torch.from_numpy(images))
+                    lens.copy_(torch.from_numpy(steps))
+            program = self._programs[images.shape[1]]
             with span('serve.enqueue'):
-                ids = self._programs[images.shape[1]](x, lens)
-        self.calls += 1
-        count('serve.rows', images.shape[0])
-        with span('serve.readback'):
-            return ids.cpu().numpy()
+                if graph is not None:
+                    graph.replay()
+                    ids = graph.outputs
+                    count('serve.graph_replays')
+                elif self.device.type == 'cuda':
+                    ids, self._graphs[key] = graphs.capture(
+                        lambda: program(x, lens), (x, lens), self._stream,
+                        self._pool,
+                        'the served W={} program'.format(images.shape[1]))
+                else:
+                    ids = program(x, lens)
+            self.calls += 1
+            count('serve.rows', images.shape[0])
+            with span('serve.readback'):
+                return ids.cpu().numpy()
 
     def decode_images(self, imgs: List[np.ndarray]) -> List[str]:
         batch = int(self.manifest['batch'])

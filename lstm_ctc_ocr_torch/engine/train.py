@@ -92,11 +92,12 @@ from ..data.device_store import make_device_feed, make_sharded_device_feed
 from ..data.gen import get_batch
 from ..data.records import RecordsDataset
 from ..models.factory import get_network
-from ..ops import ctc_cuda, rnn_cuda
+from ..ops import ctc_cuda
 from ..parallel import mesh as pmesh
 from ..utils.metrics import accuracy_calculation
-from ..utils.profiler import StepProfiler, capture_counts, count, span
+from ..utils.profiler import StepProfiler, count, span
 from . import checkpoint
+from . import graphs as cuda_graphs
 from .summary import SummaryWriter
 from .test import full_f32, make_decode_step, resolve_device
 
@@ -333,35 +334,6 @@ def make_train_step_gather(model, optimizer, cfg, dtype, mesh=None):
     return step
 
 
-def _kernel_wrappers():
-    """The kernel wrappers a train step can reach, each counting its
-    launches in ``launches`` (a plain version put in a wrapper's place
-    counts nothing)."""
-    return [w for w in (rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd,
-                        rnn_cuda.lstm_fwd, rnn_cuda.lstm_bwd,
-                        ctc_cuda.ctc_forward, ctc_cuda.ctc_backward)
-            if hasattr(w, 'launches')]
-
-
-class _Graph:
-    """One captured K-step program: its static inputs and outputs, and the
-    kernel launches a replay makes (``(wrapper, count)``), which the
-    wrappers' Python counters do not see, and the counts of
-    ``utils/profiler.py`` its capture made (``{name: n}``), which a replay
-    adds while a trace records."""
-
-    def __init__(self, graph, inputs, outputs, launches, counts):
-        self.graph, self.inputs, self.outputs = graph, inputs, outputs
-        self.launches, self.counts = launches, counts
-
-    def replay(self):
-        self.graph.replay()
-        for wrapper, n in self.launches:
-            wrapper.launches += n
-        for name, n in self.counts.items():
-            count(name, n)
-
-
 def check_graph_collectives(mesh, device):
     """Raise where a CUDA graph cannot hold the step's collectives: NCCL
     ones can be captured, gloo's run on the host and cannot."""
@@ -432,34 +404,20 @@ def make_train_chunk(model, optimizer, cfg, dtype, k, gather=False,
     def capture(dev, static, key):
         side = shared.setdefault('stream', torch.cuda.Stream(dev))
         pool = shared.setdefault('pool', torch.cuda.graph_pool_handle())
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            out = body(static)              # the real first k steps
-        torch.cuda.current_stream(dev).wait_stream(side)
-        # a capture records kernels without running them: the Python
-        # counters it moves are put back, and its replays add them
-        wrappers = _kernel_wrappers()
-        before = [w.launches for w in wrappers]
-        count = optimizer.count
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=pool, stream=side,
-                                  capture_error_mode='thread_local'), \
-                    capture_counts() as counts:
-                outputs = body(static)
-        except RuntimeError as e:
-            raise RuntimeError(
-                'capturing the {}-step train program for inputs {} failed '
-                '(an op in the step synchronises with the host or copies '
-                'from it): {}'.format(k, key, e)) from e
-        finally:
-            launches = []
-            for w, n in zip(wrappers, before):
-                launches.append((w, w.launches - n))
-                w.launches = n
-            optimizer.advance(count - optimizer.count)
-        graphs[key] = _Graph(graph, static, outputs,
-                             [(w, n) for w, n in launches if n], counts)
+
+        def steps():
+            # the warm-up's are the real first k steps; a capture runs the
+            # steps' Python but not the steps, so the host's step count is
+            # put back there, as graphs.capture takes the launches aside
+            before = optimizer.count
+            try:
+                return body(static)
+            finally:
+                if torch.cuda.is_current_stream_capturing():
+                    optimizer.advance(before - optimizer.count)
+        out, graphs[key] = cuda_graphs.capture(
+            steps, static, side, pool,
+            'the {}-step train program for inputs {}'.format(k, key))
         return out
 
     def chunk(*args):

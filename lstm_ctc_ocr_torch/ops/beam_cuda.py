@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiler import launched
 from . import _build
 
 MAX_CLASSES = 1024        # C: torch's one-warp log-softmax layout
@@ -128,7 +129,7 @@ def beam_decode(logits, lens, beam_width=16, blank=0, merge_repeated=False):
             'memory: shared_bytes() {}, csrc/beam.cu:layout() {})'
             .format(err, shared_bytes(t_len, k, c),
                     kernel_shared_bytes(t_len, k, c)))
-    beam_decode.launches += 1
+    launched(beam_decode)
     return out
 
 

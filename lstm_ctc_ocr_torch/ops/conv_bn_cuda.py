@@ -34,6 +34,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiler import launched
 from . import _build
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
@@ -152,7 +153,7 @@ def conv3x3_bn_relu(x, kernel, bias, gamma, beta, eps=1e-3):
         if err != 0:
             raise RuntimeError('conv_bn kernel launch failed: cudaError {}'
                                .format(err))
-        conv3x3_bn_relu.launches += 1
+        launched(conv3x3_bn_relu)
     return y.permute(0, 3, 1, 2)
 
 

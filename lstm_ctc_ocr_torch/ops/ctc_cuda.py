@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiler import launched
 from . import _build, ctc
 
 WARP_MAX_STATES = 64      # S up to which both kernels run one warp an example
@@ -88,7 +89,7 @@ def ctc_forward(g, skip, valid, final):
         if err != 0:
             raise RuntimeError('ctc_fwd kernel launch failed: cudaError {}'
                                .format(err))
-        ctc_forward.launches += 1
+        launched(ctc_forward)
     return logz, alphas
 
 
@@ -120,7 +121,7 @@ def ctc_backward(g, skip, valid, final, alphas, logz, lens):
         if err != 0:
             raise RuntimeError('ctc_bwd kernel launch failed: cudaError {}'
                                .format(err))
-        ctc_backward.launches += 1
+        launched(ctc_backward)
     return grad
 
 

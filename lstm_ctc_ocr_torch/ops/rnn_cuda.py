@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiler import launched
 from . import _build
 
 _SUPPORTED = (torch.bfloat16, torch.float32)
@@ -321,7 +322,7 @@ def bilstm_fwd(xpf, xpb, uf, ub, bf, bb, lens, forget_bias=1.0,
             torch.cuda.current_stream(xpf.device).cuda_stream)
         if err != 0:
             raise _launch_failed('bilstm_fwd', err, h_dim, *geometry)
-        bilstm_fwd.launches += 1
+        launched(bilstm_fwd)
     if save_residuals:
         return of, gf, hf, cf, ob, gb, hb, cb
     return of, ob
@@ -494,7 +495,7 @@ def bilstm_bwd(dof, dob, gf, hf, cf, gb, hb, cb, uf, ub, lens):
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise _launch_failed('bilstm_bwd', err, h_dim, *geometry)
-        bilstm_bwd.launches += 1
+        launched(bilstm_bwd)
     else:
         for x in (duf, dub, dbf, dbb):
             x.zero_()
@@ -590,7 +591,7 @@ def lstm_fwd(x_proj, u, bias, lens, forget_bias=1.0, save_residuals=False):
             float(forget_bias), torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise _launch_failed('lstm_fwd', err, h_dim, *geometry)
-        lstm_fwd.launches += 1
+        launched(lstm_fwd)
     return (out, gates, hs, cs) if save_residuals else out
 
 
@@ -658,7 +659,7 @@ def lstm_bwd(dout, gates, hs, cs, u, lens):
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise _launch_failed('lstm_bwd', err, h_dim, *geometry)
-        lstm_bwd.launches += 1
+        launched(lstm_bwd)
     else:
         du.zero_()
         db.zero_()

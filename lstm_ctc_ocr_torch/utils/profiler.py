@@ -44,21 +44,26 @@ captured, so exported programs and captured graphs hold no trace of them.
     count('serve.images', len(imgs))
 
 A name starts with its layer's prefix: ``serve.``, ``eval.``, ``beam.``,
-``solver.``, ``rnn.``. A CUDA graph's capture takes its counts with
-:func:`capture_counts`, and each replay adds them while a trace records.
+``solver.``, ``rnn.``. A hand kernel's wrapper counts each of its launches
+with :func:`launched`. A CUDA graph's capture takes the counts and launches
+that its own work makes with :func:`capture_counts`, and each replay adds
+them (``engine/graphs.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 
 import torch
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 _counts = {}
-_captured = None           # the open capture_counts() block's tally
+# the open capture_counts() blocks' tallies, innermost last, by what each
+# counts (_counted_here())
+_captures = {}
 
 
 def _eager() -> bool:
@@ -78,26 +83,75 @@ def span(name: str):
     return torch.profiler.record_function(name)
 
 
+class Tally(dict):
+    """What a :func:`capture_counts` block counted: the counts
+    (``{name: n}``) and, in ``launches``, the wrappers' launches
+    (``{wrapper: n}``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.launches = {}
+
+
+def _counted_here():
+    """What a :func:`capture_counts` block opened here counts. Under a CUDA
+    graph's capture, the work on the capturing stream, whichever thread
+    runs it: the autograd engine runs a captured backward in a thread of
+    its own, and other threads' work is not in the graph. Elsewhere, the
+    calling thread's."""
+    if (torch.cuda.is_initialized()
+            and torch.cuda.is_current_stream_capturing()):
+        return 'stream', torch.cuda.current_stream().cuda_stream
+    return 'thread', threading.get_ident()
+
+
+def _tally():
+    """The innermost open capture's tally that counts the caller's work,
+    else None."""
+    if not _captures:
+        return None
+    tallies = _captures.get(_counted_here())
+    return tallies[-1] if tallies else None
+
+
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name`` while a trace is recording; inside
-    :func:`capture_counts`, to that block's tally instead."""
-    if _captured is not None:
-        _captured[name] = _captured.get(name, 0) + int(n)
+    """Add ``n`` to counter ``name`` while a trace is recording; for work
+    that a :func:`capture_counts` block counts, to its tally instead."""
+    tally = _tally()
+    if tally is not None:
+        tally[name] = tally.get(name, 0) + int(n)
     elif _profiler_enabled() and _eager():
         _counts[name] = _counts.get(name, 0) + int(n)
 
 
+def launched(wrapper) -> None:
+    """One kernel launch by the hand kernel's wrapper ``wrapper``: + 1 to
+    its ``launches``; for work that a :func:`capture_counts` block counts,
+    to its tally instead, as the launch lands in a graph, not on the
+    device."""
+    tally = _tally()
+    if tally is not None:
+        tally.launches[wrapper] = tally.launches.get(wrapper, 0) + 1
+    else:
+        wrapper.launches += 1
+
+
 @contextlib.contextmanager
 def capture_counts():
-    """Yield a dict that receives the counts made in the block, whether a
-    trace records or not: the counts of a CUDA graph's capture, which its
-    replays add (``engine/train.py:_Graph``), as they add its launches."""
-    global _captured
-    saved, _captured = _captured, {}
+    """Yield a :class:`Tally` that receives the counts and wrapper launches
+    of the work the block counts (:func:`_counted_here`), whether a trace
+    records or not: a CUDA graph's capture's, which its replays add
+    (``engine/graphs.py:Graph``). Counts made by other threads' work go
+    where they would go without the block."""
+    where, tally = _counted_here(), Tally()
+    _captures.setdefault(where, []).append(tally)
     try:
-        yield _captured
+        yield tally
     finally:
-        _captured = saved
+        tallies = _captures[where]
+        tallies.pop()                   # blocks close innermost first
+        if not tallies:
+            del _captures[where]
 
 
 def counters() -> dict:

@@ -30,7 +30,7 @@ from benchmark.reference import ctc as ref_ctc  # noqa: E402
 from benchmark.reference import htr as ref_htr  # noqa: E402
 from lstm_ctc_ocr_torch.config import default_cfg, load_cfg  # noqa: E402
 from lstm_ctc_ocr_torch.data import records  # noqa: E402
-from lstm_ctc_ocr_torch.engine import serve, train  # noqa: E402
+from lstm_ctc_ocr_torch.engine import graphs, serve, train  # noqa: E402
 from lstm_ctc_ocr_torch.engine import test as port_test  # noqa: E402
 from lstm_ctc_ocr_torch.models import crnn, htr, layers  # noqa: E402
 from lstm_ctc_ocr_torch.models.factory import get_network  # noqa: E402
@@ -276,7 +276,7 @@ def test_the_head_counts_its_layer_frames_and_spans_its_stack():
 
 def test_a_graph_replay_adds_what_its_capture_counted():
     """Counts made inside ``capture_counts`` go to its tally whether or not
-    a trace records; a ``_Graph``'s replay adds them while one does."""
+    a trace records; a ``Graph``'s replay adds them while one does."""
     with profiler.capture_counts() as tally:
         profiler.count('rnn.layer_frames', 40)
         with profiler.capture_counts() as inner:
@@ -290,7 +290,7 @@ def test_a_graph_replay_adds_what_its_capture_counted():
 
         def replay(self):
             self.replays += 1
-    g = train._Graph(Replayable(), (), (), [], tally)
+    g = graphs.Graph(Replayable(), (), (), [], tally)
     before = profiler.counters().get('rnn.layer_frames', 0)
     g.replay()
     assert profiler.counters().get('rnn.layer_frames', 0) == before

@@ -31,7 +31,7 @@ EXPECTED = [
     'lstm_ctc_ocr_torch.data.image', 'lstm_ctc_ocr_torch.data.pool',
     'lstm_ctc_ocr_torch.data.records', 'lstm_ctc_ocr_torch.data.scene',
     'lstm_ctc_ocr_torch.engine', 'lstm_ctc_ocr_torch.engine.checkpoint',
-    'lstm_ctc_ocr_torch.engine.serve',
+    'lstm_ctc_ocr_torch.engine.graphs', 'lstm_ctc_ocr_torch.engine.serve',
     'lstm_ctc_ocr_torch.engine.summary', 'lstm_ctc_ocr_torch.engine.test',
     'lstm_ctc_ocr_torch.engine.train', 'lstm_ctc_ocr_torch.models',
     'lstm_ctc_ocr_torch.models.crnn', 'lstm_ctc_ocr_torch.models.factory',

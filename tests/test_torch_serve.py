@@ -13,6 +13,9 @@ argmax or a beam choice, not a float.
 import copy
 import json
 import os
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -25,11 +28,12 @@ from lstm_ctc_ocr_tpu.engine import checkpoint as jcheckpoint
 from lstm_ctc_ocr_tpu.engine import serve as jserve
 from lstm_ctc_ocr_tpu.models.factory import get_network as jget_network
 from lstm_ctc_ocr_torch.config import load_cfg
-from lstm_ctc_ocr_torch.engine import checkpoint, serve
+from lstm_ctc_ocr_torch.engine import checkpoint, graphs, serve
 from lstm_ctc_ocr_torch.engine import test as port_test
 from lstm_ctc_ocr_torch.models import crnn, layers
 from lstm_ctc_ocr_torch.models.factory import get_network
 from lstm_ctc_ocr_torch.ops import custom_ops, rnn, rnn_cuda
+from lstm_ctc_ocr_torch.utils import profiler
 
 BUCKETS, BATCH = [64, 96], 2
 
@@ -360,3 +364,77 @@ def test_entry_points_default_to_cuda(port_model, tmp_path):
                          device='cpu')
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         serve.ExportedDecoder(str(tmp_path))
+
+
+def test_cpu_decoder_never_captures(port_model, tmp_path, monkeypatch):
+    """On the CPU the programs run eagerly: no CUDA graph is made, and
+    ``serve.graph_replays`` stays 0 under a trace."""
+    cfg = _port_cfg()
+    serve.export_decoder(port_model(cfg), cfg, str(tmp_path),
+                         buckets=BUCKETS, batch=BATCH, device='cpu')
+
+    def refuse(*args, **kwargs):
+        raise AssertionError('a CUDA graph on the CPU path')
+    monkeypatch.setattr(torch.cuda, 'CUDAGraph', refuse)
+    monkeypatch.setattr(graphs, 'capture', refuse)
+    dec = serve.ExportedDecoder(str(tmp_path), device='cpu')
+    rng = np.random.RandomState(6)
+    calls = [(rng.rand(BATCH, w, 32).astype(np.float32),
+              np.array([w // 4 - 1, w // 8], np.int32))
+             for w in BUCKETS * 2]
+    before = profiler.counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = [dec.run(*c) for c in calls]
+    for (img, ts), ids in zip(calls, got):
+        np.testing.assert_array_equal(
+            ids, dec._programs[img.shape[1]](torch.from_numpy(img),
+                                             torch.from_numpy(ts)).numpy())
+    assert dec._graphs == {} and dec.calls == len(calls)
+    assert profiler.counters().get('serve.graph_replays', 0) == \
+        before.get('serve.graph_replays', 0)
+    assert profiler.counters()['serve.rows'] - before.get('serve.rows', 0) \
+        == len(calls) * BATCH
+
+
+def test_a_decoder_serves_one_caller_at_a_time(port_model, tmp_path):
+    """Threads sharing a decoder take turns in ``run``: no two program
+    calls overlap, and each thread gets the strings one thread gets."""
+    cfg = _port_cfg()
+    serve.export_decoder(port_model(cfg), cfg, str(tmp_path),
+                         buckets=BUCKETS, batch=BATCH, device='cpu')
+    dec = serve.ExportedDecoder(str(tmp_path), device='cpu')
+    requests = [_images(np.random.RandomState(i)) for i in range(3)]
+    want = [dec.decode_images(r) for r in requests]
+    inside, most = [0], [0]
+
+    def one_at_a_time(program):
+        def call(x, lens):
+            inside[0] += 1
+            most[0] = max(most[0], inside[0])
+            time.sleep(0.002)          # lets another thread reach a call
+            try:
+                return program(x, lens)
+            finally:
+                inside[0] -= 1
+        return call
+    dec._programs = {w: one_at_a_time(p) for w, p in dec._programs.items()}
+    got = [[] for _ in requests]
+
+    def serve_requests(i):
+        for _ in range(3):
+            got[i].append(dec.decode_images(requests[i]))
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=serve_requests, args=(i,))
+                   for i in range(len(requests))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert most[0] == 1
+    assert got == [[w] * 3 for w in want]

@@ -10,7 +10,8 @@ in the serving export, the eval decode and the solver's dispatch.
   and dispatches.
 * The gate: under export, compile or a CUDA graph's capture a span and a
   count do nothing, also while a trace runs; a decoder exported inside an
-  active profiler holds the same graph as one exported without.
+  active profiler holds the same graph as one exported without. A
+  capture's tally takes no count or wrapper launch of another thread.
 * On the card (skipped without one): a replayed dispatch's upload, replay
   and readback wait, and its counters.
 
@@ -18,6 +19,8 @@ Small shapes: f32, NUM_HID 16, the programs' batch 2, buckets 64 and 96,
 beam width 4. The file imports no JAX, so its card test runs where JAX is
 missing (``tests/test_torch_device_store.py`` says how).
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -208,6 +211,39 @@ def test_no_span_or_count_inside_a_program_being_built(gate, monkeypatch):
             profiler.count('solver.dispatches')
     _, spans, counts = _traced(body)
     assert spans == [] and counts == {}
+
+
+def test_a_capture_takes_no_count_or_launch_from_another_thread():
+    """While a ``capture_counts`` block is open, another thread's counts
+    and wrapper launches go where they go without it; the block's tally
+    gets its own thread's alone."""
+    def wrapper():
+        pass
+    wrapper.launches = 0
+    opened, done = threading.Event(), threading.Event()
+
+    def other():
+        assert opened.wait(30)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]):
+            profiler.count('serve.images', 5)
+        profiler.launched(wrapper)
+        done.set()
+    before = profiler.counters()
+    thread = threading.Thread(target=other)
+    thread.start()
+    with profiler.capture_counts() as tally:
+        opened.set()
+        assert done.wait(30)
+        profiler.count('serve.rows', 2)
+        profiler.launched(wrapper)
+    thread.join(30)
+    assert tally == {'serve.rows': 2} and tally.launches == {wrapper: 1}
+    assert wrapper.launches == 1
+    assert profiler.counters()['serve.images'] - before.get(
+        'serve.images', 0) == 5
+    assert profiler.counters().get('serve.rows', 0) == before.get(
+        'serve.rows', 0)
 
 
 @pytest.mark.parametrize('decoder', ['greedy', 'beam'])
