@@ -3,49 +3,33 @@
 
     python3 chip_smoke.py
 
+It builds every CUDA kernel, holds each hand kernel against its plain
+version at the main path's shapes and times it beside that version, a
+library yardstick and its bound, and drives the port's entry points end to
+end. Every comparison goes through one helper, :func:`held`: the wrapper
+called twice on a timed case's inputs with the same bits, its launches
+counted from 0, each output within the card tests' bar of the plain
+version's. The edge cases (ragged and partial batches, every width, the CTC
+kernels' path boundaries and long labels) live in the card tests
+(tests/test_torch_cuda.py, tests/test_torch_beam_cuda.py,
+tests/test_torch_htr_cuda.py; the README's card command): a new edge case
+is a tuple there, not a check here. The card's peaks and the bounds of
+kernels 1-4 are ``benchmark/flops.py``'s, counted over each row's own
+frames and each example's own label.
+
 Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. The card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the build of every CUDA kernel from ``lstm_ctc_ocr_torch/csrc`` with
    nvcc, one process per source (its time and ptxas report).
-2. Kernel phase: each of the seven kernels, and the beam search's kernel,
-   against its plain PyTorch version on the card.
-   ``bilstm_fwd`` (vs ``bilstm_fwd_reference``), residuals on and off, f32
-   and bf16 at batch 64 with T=23 (the W=96 bucket) and T=111 (W=448),
-   ragged batches of 37 with empty rows at T=23 and 7, and T=1 at batch 3;
-   tolerance f32 max |difference| <= 1e-4, bf16 <= 4 bf16 ulps of the
-   reference's magnitude (4 * max|ref| / 256, as tests/test_rnn_pallas.py
-   defines it), and two bf16 calls bit-identical. ``bilstm_bwd`` (vs
-   ``bilstm_bwd_reference``) on the same cases, plus a bf16 ragged batch of
-   37 with empty rows at T=7 and T=1 at batch 3: f32 <= 1e-4 relative to
-   the largest entry of each output, bf16 within 4 bf16 ulps of it, two
-   calls bit-identical.
-   ``lstm_fwd`` and ``lstm_bwd`` (vs ``lstm_fwd_reference`` /
-   ``lstm_bwd_reference``) on the same cases and bars at the stacked head's
-   H=512, ``lstm_fwd`` also at the edges of its bf16 cluster (a ragged
-   batch at T=7, T=1 at batch 3 and H=256, H=136 and H=8; two calls
-   bit-identical), and the two-scan BiLSTM pair on them at H=256 against
-   the fused BiLSTM kernels (the A/B of the JAX package's
-   tools/bench_rnn.py).
-   ``ctc_fwd`` and ``ctc_bwd`` (vs ``ctc_forward_reference`` /
-   ``ctc_backward_reference``) at batch 64 with T=23, L=6 and T=111, L=24,
-   and (checked, not timed) with L=15/16 and L=31/32 (both sides of each
-   path boundary of both kernels: one warp per example with one or two
-   states a lane up to S=64, one block per example past it), L=64 and
-   L=511 (one thread a state; phase 14 goes past it), L=0 alone, T=1,
-   T=15/16/17 and 31/32/33 (around one and two chunks of the warp kernels'
-   ring) and batch 1, each batch ragged with an empty label, an infeasible
-   example and a one-frame example where it is long enough: ``ctc_fwd``'s
-   logZ and alphas bit-identical to the plain version, the gradient f32
-   <= 1e-5, two calls of each bit-identical. ``conv_bn``
-   (``conv3x3_bn_relu`` vs its plain version and vs the unfused
-   ``ConvSingle`` layer, through ``tools/bench_conv_bn``'s functions) at
-   the conv4_1 and conv4_2 geometry, batch 64: f32 <= 2e-5 absolute and
-   relative, bf16 <= 2e-2, two runs bit-identical. Then
-   CUDA-event timings (median of 50 after warm-up) of each kernel's
-   wrapper call, and the kernel's own device time from ``torch.profiler``
-   (null, and no failure, where the profiler's device tracing comes back
-   empty), beside its plain
+2. Kernel phase: each of the seven kernels held against its plain version
+   (:func:`held`) at the main path's shapes (batch 64; T=23 and 111, the
+   W=96 and W=448 buckets, in f32 and bf16; CTC at L=6 and 24; conv+BN at
+   conv4_1 and conv4_2, also against the unfused layer; the beam kernel's
+   ids at the longline buckets' T=79, 95 and 111), then CUDA-event timings
+   (median of 50 after warm-up) of its wrapper calls there, and the
+   kernel's own device time from ``torch.profiler`` (null, and no failure,
+   where the profiler's device tracing comes back empty), beside its plain
    version, its bound and a library yardstick: cuDNN's ``torch.nn.LSTM`` on
    a packed sequence (bidirectional or one direction; forward, and backward
    alone), ``torch.nn.functional.ctc_loss`` forward alone (for
@@ -59,27 +43,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    spills from the build's ptxas report and the TFLOP/s it reached on the
    device beside its bound, for the four cluster kernels the cluster's
    shape and how many such clusters the card holds at once, and for the
-   kernels of the main path the host time of a wrapper call.
-   ``beam_decode`` (``csrc/beam.cu`` through the op
-   ``lstm_ctc_ocr_torch::beam_decode``, vs ``beam_decode_reference``) at
-   the ``crnn_longline.eval_beam`` cell's shapes, N=64, K=16, C=64 and T=79,
-   95 and 111, f32 and bf16 logits at scales 1 and 10, ragged lengths with 0
-   and T, ``merge_repeated`` off (and on at T=111): ids equal entry for
-   entry, two calls bit-identical, one launch a call counted from 0; then
-   its CUDA-event, device and host times at T=23, 111 and 1,209 (f32),
-   the plain search's at T=111, and its bound (the logits read once, the
-   ids written once, over HBM bandwidth).
-   Kernels 1-4 at the ``htr_puigcerver.train_graphed`` cell's shapes (batch
-   16, T=224, each row's own 137-222 frames, H=256, the first layer's 1,280
-   features, forget bias 0), each case's launches counted from 0:
-   ``bilstm_fwd`` and ``bilstm_bwd`` in f32 and bf16 at the bars above;
-   two layers chained as the five-layer head chains them, layer 1's
-   backward fed layer 2's input gradient (at the one-layer bar against the
-   plain backward on the same inputs; the whole chain at twice it against
-   the plain versions chained; two chains bit-identical); ``ctc_fwd`` /
-   ``ctc_bwd`` at C=80, L=24 at the bars above; then their device times
-   there. The ``kernels`` line's rows of kernels 1-4 carry these cases
-   under ``htr_cell``.
+   kernels of the main path the host time of a wrapper call; the two-scan
+   BiLSTM pair on kernels 5-6 beside the fused kernels 1-2 at H=256 (the
+   A/B of the JAX package's tools/bench_rnn.py); the conv+BN A/B of
+   ``tools/bench_conv_bn``. ``beam_decode`` (``csrc/beam.cu`` through the
+   op ``lstm_ctc_ocr_torch::beam_decode``): its CUDA-event, device and host
+   times at T=23, 111 and 1,209 (f32, N=64, K=16, C=64), the plain search's
+   at T=111, and its bound (the logits read once, the ids written once,
+   over HBM bandwidth). Kernels 1-4 at the
+   ``htr_puigcerver.train_graphed`` cell's shapes (batch 16, T=224, each
+   row's own 137-222 frames, H=256, the first layer's 1,280 features,
+   forget bias 0; CTC at C=80, L=24), held against their plain versions on
+   one layer and on two layers chained, and their device times there, under
+   ``htr_cell`` in the ``kernels`` line.
 3. Eval phase, the serving path: the evaluation entry point
    (``engine/test.py``, bf16, batch 64) on the tracked releases —
    ``lstm_ctc`` on ``data/val`` under ``BN_EVAL`` batch and moving and
@@ -294,14 +270,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     ``data/val`` gives its records file byte for byte. ``python3
     chip_smoke.py --phase 13`` runs the build and this phase alone.
 14. Width phase: every hidden width and label length the JAX package
-    runs. (a) ``bilstm_fwd``/``bilstm_bwd``/``lstm_fwd``/``lstm_bwd``
-    against their plain versions at H in 50 (zero-padded to the kernels'
-    step), 300, 512 (the bf16 clusters' limit), 768 and 1024 (the wide
-    recurrence) per direction, f32 and bf16, at batch 64 with T=23 and
-    T=111, a ragged batch of 37 with empty rows and T=1 at batch 3: phase
-    2's bars (f32 1e-4, the backwards relative to each output's largest
-    entry; bf16 4 ulps of the reference's magnitude), two calls bit for
-    bit, outputs zero past ``lens``; the kernels' ptxas reports and the
+    runs. (a) The LSTM kernels' wide recurrence's ptxas reports and the
     BiLSTM's bf16 clusters at H=512; CUDA-event ms of each wrapper at
     H=512, 768 and 1024 (batch 64, T=23) beside cuDNN's ``nn.LSTM`` at the
     same H and the bound. (b) ``lstm/lstm.yml`` with ``TRAIN.NUM_HID
@@ -313,13 +282,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     ``test_net``'s; served again under a device trace, every call a
     replay launching ``bilstm_fwd`` once), then 20 steps of the stacked
     head at ``.lstm(1024, 2)`` (kernels 5-6 once a layer a step). (c) The
-    CTC kernels at L=512,
-    600 and 1024, T=2L+9, batch 16 with an empty label, an infeasible and
-    a one-frame example: logZ and alphas bit for bit, the gradient <=
-    1e-5, two calls bit for bit. (d) ``conv3x3_bn_relu`` at C_in 1 and 24
-    (zero channels up to 16) against its plain version at phase 2's bars.
-    ``python3 chip_smoke.py --phase 14`` runs the build and this phase
-    alone.
+    CTC kernels' times at L=600 (T=1,209, S=1,201, batch 16) beside the
+    plain forward and the bound. ``python3 chip_smoke.py --phase 14`` runs
+    the build and this phase alone.
 
 The line before the last is one JSON object ``{"kernels": [...]}`` with the
 seven kernels and the beam kernel (and the rates, the synthetic stream's,
@@ -347,12 +312,15 @@ import time
 import numpy as np
 import torch
 
+from benchmark import flops
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-
+# what the CTC rows' ``ms`` reads at T=23: a 5 us kernel's wrapper call is
+# its host launch path, which moves from row to row of one process
+CTC_MS_READS = ('the host launch path of a 5 us kernel: 0.028-0.070 ms over '
+                'repeated rows of one process and 0.033-0.073 across runs '
+                'with the device time fixed at 0.0048; compare device_ms')
 # the releases whose served graphs the serve phase compares with their
 # programs called eagerly, bucket by bucket: one greedy, one beam
 GRAPH_COMPARED = ('lstm_ctc/batch', 'lstm_records/beam')
@@ -377,6 +345,17 @@ EVALS = [
 def check(cond, msg):
     if not cond:
         raise RuntimeError('chip_smoke: ' + msg)
+
+
+def dtype_name(dtype):
+    """``benchmark/flops.py``'s name of a torch dtype."""
+    return str(dtype).replace('torch.', '')
+
+
+def in_ms(bound):
+    """A bound of ``benchmark/flops.py``, ``(seconds, 'bytes' or
+    'operations')``, in ms."""
+    return 1e3 * bound[0], bound[1]
 
 
 def median_ms(fn, reps=50, warmup=5):
@@ -440,11 +419,71 @@ def device_ms(fn, names, reps=20):
     return None
 
 
-def bilstm_case(t_len, n, dtype, ragged, seed, h=256, d=512,
-                lens_range=None):
+def fwd_bar(dtype):
+    """The card tests' bar on a forward output's |kernel - plain version|:
+    1e-4 in f32 (the two sum the recurrent product in different orders), 4
+    bf16 ulps of the output's largest entry in bf16."""
+    if dtype == torch.float32:
+        return lambda want: 1e-4
+    return lambda want: 4 * (float(want.abs().max()) or 1.0) / 256
+
+
+def bwd_bar(dtype, layers=1):
+    """The card tests' bar on a backward output: 1e-4 (f32) or 4 bf16 ulps
+    (bf16) of its largest entry, times the ``layers`` whose errors it
+    holds."""
+    share = layers * (1e-4 if dtype == torch.float32 else 4 / 256)
+    return lambda want: share * max(float(want.abs().max()), 1e-6)
+
+
+def exact(want):
+    """The bar of a result that equals its plain version bit for bit."""
+    return 0.0
+
+
+def held(label, wrapper, kernel, plain, bar, launches=1):
+    """The smoke's one comparison of a kernel with its plain version, on a
+    timed case's inputs: ``kernel()`` (calls of the wrapper ``wrapper``)
+    twice, with the same bits, ``wrapper``'s launches counted from 0
+    (``launches`` a call), and each output within ``bar(plain output)``
+    (a bound on |difference|) of ``plain()``'s on the same inputs. Returns
+    the largest |difference|."""
+    wrapper.launches = 0
+    got, again, want = (kernel(), kernel(), plain())
+    torch.cuda.synchronize()
+    got, again, want = ((x,) if torch.is_tensor(x) else tuple(x)
+                        for x in (got, again, want))
+    count = wrapper.launches
+    same = len(got) == len(again) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, again))
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        ok = ok and g.shape == w.shape and bool((d <= bar(w.float())).all())
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    print('kernel check {:44s} max|diff| {:.3e} within its bar: {}, two '
+          'calls bit-identical: {}, launches {}'.format(label, err, ok, same,
+                                                        count), flush=True)
+    check(ok and same and count == 2 * launches,
+          '{}: max|diff| {} within its bar {}, calls identical {}, launches '
+          '{} (expected {})'.format(label, err, ok, same, count,
+                                    2 * launches))
+    return err
+
+
+# the main path's shapes: batch 64 at the W=96 and W=448 buckets' T; each
+# kernel is held against its plain version on every one (:func:`held`)
+MAIN_CASES = (('bf16 N=64 T=23', 23, torch.bfloat16),
+              ('bf16 N=64 T=111', 111, torch.bfloat16),
+              ('f32 N=64 T=23', 23, torch.float32),
+              ('f32 N=64 T=111', 111, torch.float32))
+
+
+def bilstm_case(t_len, n, dtype, seed, h=256, d=512, lens_range=None):
     """Inputs at an eval shape: x [T, N, D], W [D, 8H], per-direction U [H,
-    4H] and b [4H], and the projections xpf/xpb, all on the card; with
-    ``lens_range`` (least, most) each row's frames are drawn from it."""
+    4H] and b [4H], and the projections xpf/xpb, all on the card; each
+    row's frames drawn from ``lens_range`` (least, most), by default near
+    the bucket's T."""
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
@@ -453,15 +492,8 @@ def bilstm_case(t_len, n, dtype, ragged, seed, h=256, d=512,
     w = rnd(d, 8 * h, scale=d ** -0.5)
     uf, ub = rnd(h, 4 * h, scale=h ** -0.5), rnd(h, 4 * h, scale=h ** -0.5)
     bf, bb = rnd(4 * h, scale=0.1), rnd(4 * h, scale=0.1)
-    if lens_range:
-        lens = torch.randint(lens_range[0], lens_range[1] + 1, (n,),
-                             generator=g)
-    elif ragged:
-        lens = torch.randint(0, t_len + 1, (n,), generator=g)
-        lens[:3] = 0
-        lens[3] = t_len
-    else:                      # eval widths: time steps near the bucket's T
-        lens = torch.randint(max(1, t_len - 8), t_len + 1, (n,), generator=g)
+    least, most = lens_range or (max(1, t_len - 8), t_len)
+    lens = torch.randint(least, most + 1, (n,), generator=g)
     lens = lens.to(torch.int32).cuda()
     xp = (x.reshape(t_len * n, d) @ w).reshape(t_len, n, 8 * h)
     return dict(x=x, w=w, xpf=xp[:, :, :4 * h], xpb=xp[:, :, 4 * h:], uf=uf,
@@ -470,34 +502,6 @@ def bilstm_case(t_len, n, dtype, ragged, seed, h=256, d=512,
 
 def kernel_args(c):
     return (c['xpf'], c['xpb'], c['uf'], c['ub'], c['bf'], c['bb'], c['lens'])
-
-
-def max_err(got, want, dtype):
-    """Max |difference| over the outputs, and whether each output is within
-    its tolerance: 1e-4 in f32, 4 bf16 ulps of its own magnitude in bf16."""
-    err, ok = 0.0, True
-    for g, w in zip(got, want):
-        w = w.float()
-        e = float((g.float() - w).abs().max())
-        scale = float(w.abs().max()) or 1.0
-        ok = ok and e <= (1e-4 if dtype == torch.float32 else 4 * scale / 256)
-        err = max(err, e)
-    return err, ok
-
-
-def rel_err(got, want, dtype, layers=1):
-    """Over the outputs: max |difference|, max |difference| / max|reference|,
-    and whether each output is within 1e-4 (f32) or 4 bf16 ulps (bf16) of
-    its own largest entry, times the ``layers`` whose errors it holds."""
-    worst_abs, worst_rel, ok = 0.0, 0.0, True
-    for g, w in zip(got, want):
-        w = w.float()
-        e = float((g.float() - w).abs().max())
-        rel = e / (float(w.abs().max()) or 1.0)
-        ok = ok and rel <= layers * (1e-4 if dtype == torch.float32
-                                     else 4 / 256)
-        worst_abs, worst_rel = max(worst_abs, e), max(worst_rel, rel)
-    return worst_abs, worst_rel, ok
 
 
 def bilstm_bwd_args(c, rnn_cuda, seed, forget_bias=1.0):
@@ -509,25 +513,6 @@ def bilstm_bwd_args(c, rnn_cuda, seed, forget_bias=1.0):
     dof, dob = ((torch.randn(hf.shape, generator=g) * 0.1).cuda().to(hf.dtype)
                 for _ in range(2))
     return (dof, dob, gf, hf, cf, gb, hb, cb, c['uf'], c['ub'], c['lens'])
-
-
-def bilstm_bwd_bound_ms(c, dtype):
-    """Least time for the backward's work on an H100: dout, gates, h, c and
-    U read once, dx, dU and db written once, over HBM bandwidth; or the live
-    steps' two products (dg U^T and h_prev^T dg, 2*H*4H each per row, step
-    and direction) over the dtype's peak; the larger of the two."""
-    t_len, n, four_h = c['xpf'].shape
-    h = four_h // 4
-    es = torch.tensor([], dtype=dtype).element_size()
-    tn = t_len * n
-    read = (2 * tn * h + 2 * tn * four_h + 4 * tn * h + 2 * h * four_h) * es \
-        + 4 * n
-    written = 2 * tn * four_h * es + 4 * (2 * h * four_h + 2 * four_h)
-    flops = 2 * int(c['lens'].sum()) * 4 * h * four_h
-    t_bytes = (read + written) / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
-                                       else 'operations')
 
 
 def cudnn_backward_yardstick(c):
@@ -545,60 +530,73 @@ def cudnn_backward_yardstick(c):
 
 
 def ctc_case(ctc, t_len, l_max, seed, n=64, c=64, t_min=None):
-    """A ragged CTC batch on the card with a full-length example (row 0,
-    its label repeating a character where L > 1), an empty label (row 1),
-    an infeasible example (row 2, where L > 1) and a one-frame example (row
-    3), as far as N reaches, the other rows ``t_min`` (default ``T - 8``)
-    to T frames long, and the kernels' inputs made from it."""
+    """A ragged CTC batch of N >= 4 on the card, labels of L >= 2 with
+    L - 2 to L characters, with a full-length example (row 0, its label
+    repeating a character), an empty label (row 1), an infeasible example
+    (row 2) and a one-frame example (row 3), the other rows ``t_min``
+    (default ``T - 8``) to T frames long, and the kernels' inputs made from
+    it."""
     rng = np.random.RandomState(seed)
     logits = (rng.randn(n, t_len, c) * 2).astype(np.float32)
     labels = rng.randint(1, c, (n, l_max)).astype(np.int32)
-    label_lens = rng.randint(min(max(1, l_max - 2), l_max), l_max + 1,
-                             n).astype(np.int32)
+    label_lens = rng.randint(l_max - 2, l_max + 1, n).astype(np.int32)
     logit_lens = rng.randint(t_min or max(1, t_len - 8), t_len + 1,
                              n).astype(np.int32)
-    if l_max > 1:
-        labels[0, 1] = labels[0, 0]
-    label_lens[0], logit_lens[0] = l_max, t_len
-    if n > 1:
-        label_lens[1] = 0
-    if n > 2 and l_max > 1:
-        label_lens[2], logit_lens[2] = l_max, l_max - 1
-    if n > 3:
-        label_lens[3], logit_lens[3] = min(1, l_max), 1
+    labels[0, 1] = labels[0, 0]
+    label_lens[:4] = l_max, 0, l_max, 1
+    logit_lens[[0, 2, 3]] = t_len, l_max - 1, 1
     for i in range(n):
         labels[i, label_lens[i]:] = 0
     case = {k: torch.from_numpy(v).cuda() for k, v in (
         ('logits', logits), ('labels', labels), ('label_lens', label_lens),
         ('logit_lens', logit_lens))}
     ext = ctc.extended_labels(case['labels'])
-    # a label matrix of width 0 (L=0) gets a two-wide skip mask from
-    # _transition_masks (the JAX package's does the same); the one state's
-    # is its first column
-    skip, final, valid = (ctc._as_additive(m)[:, :ext.shape[1]].contiguous()
-                          for m in ctc._transition_masks(
-                              ext, case['label_lens']))
+    skip, final, valid = (ctc._as_additive(m) for m in
+                          ctc._transition_masks(ext, case['label_lens']))
     logp = torch.log_softmax(case['logits'], dim=-1)
     case['g'] = ctc._gather_logp(logp, ext, case['logit_lens']).contiguous()
     case['masks'] = (skip, valid, final)
     return case
 
 
-def ctc_bound_ms(case, backward):
-    """Least time for a CTC recursion on an H100: g and the three masks read
-    once (the backward also alphas, logz and lens) and alphas and logz (the
-    backward: grad) written once, over HBM bandwidth; or ~14 f32 operations
-    per (example, frame, state) — three exp, one log, adds and maxima — over
-    the f32 peak; the larger of the two."""
-    n, t_len, s_len = case['g'].shape
-    cube = 4 * n * t_len * s_len
-    nbytes = cube + 3 * 4 * n * s_len + cube + 4 * n
-    if backward:
-        nbytes += cube + 4 * n
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 14 * n * t_len * s_len / PEAK_FLOPS[torch.float32]
-    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
-                                       else 'operations')
+def ctc_held(ctc, ctc_cuda, label, case):
+    """``ctc_fwd`` / ``ctc_bwd`` on a :func:`ctc_case` against their plain
+    versions (:func:`held`): logZ and alphas bit-identical, the gradient
+    within 1e-5, the empty label's logZ finite, the infeasible example's at
+    -inf with a zero gradient. Returns the gaps and the kernel's (logZ,
+    alphas)."""
+    g, masks, lens = case['g'], case['masks'], case['logit_lens']
+    errs = {'ctc_fwd': held(
+        'ctc_fwd ' + label, ctc_cuda.ctc_forward,
+        lambda: ctc_cuda.ctc_forward(g, *masks),
+        lambda: ctc.ctc_forward_reference(g, *masks), exact)}
+    logz, alphas = ctc_cuda.ctc_forward(g, *masks)
+    errs['ctc_bwd'] = held(
+        'ctc_bwd ' + label, ctc_cuda.ctc_backward,
+        lambda: ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens),
+        lambda: ctc.ctc_backward_reference(g, *masks, alphas, logz, lens),
+        lambda want: 1e-5)
+    grad = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
+    check(bool(torch.isfinite(logz[1])) and float(logz[2]) <= ctc.NEG_INF / 2
+          and not bool(grad[2].any()),
+          'ctc {}: the empty label or the infeasible example'.format(label))
+    return errs, (logz, alphas)
+
+
+def bilstm_bounds(c, dtype):
+    """Kernels 1 and 2's bounds in ms over a case's live frames
+    (``benchmark/flops.py``): ``(forward, backward)``, each ``(ms, by)``."""
+    lens, h = c['lens'].tolist(), c['uf'].shape[0]
+    return (in_ms(flops.bilstm_fwd_bound(lens, h, dtype_name(dtype))),
+            in_ms(flops.bilstm_bwd_bound(lens, h, dtype_name(dtype))))
+
+
+def ctc_bounds(case):
+    """Kernels 3 and 4's bounds in ms over each example's own frames and
+    label (``benchmark/flops.py``): ``(forward, backward)``."""
+    lens = case['logit_lens'].tolist(), case['label_lens'].tolist()
+    return (in_ms(flops.ctc_bound(*lens, backward=False)),
+            in_ms(flops.ctc_bound(*lens, backward=True)))
 
 
 def ctc_library_yardstick(case):
@@ -663,26 +661,7 @@ def cudnn_yardstick(c):
                        (c['w'][:, h4:], c['ub'], c['bb'])])
 
 
-def bound_ms(c, dtype, with_residuals=False):
-    """Least time for the kernel's work on an H100: each input byte read
-    once and each output written once over HBM bandwidth, or the recurrent
-    products of the live steps (2*H*4H per row, step and direction) over the
-    dtype's peak; the larger of the two."""
-    t_len, n, four_h = c['xpf'].shape
-    h = four_h // 4
-    es = torch.tensor([], dtype=dtype).element_size()
-    read = 2 * (t_len * n * four_h + h * four_h + four_h) * es + 4 * n
-    written = 2 * t_len * n * h * es
-    if with_residuals:
-        written += 2 * t_len * n * (four_h + 2 * h) * es
-    flops = 2 * int(c['lens'].sum()) * 2 * h * four_h
-    t_bytes = (read + written) / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
-                                       else 'operations')
-
-
-def lstm_case(t_len, n, dtype, ragged, seed, h=512, d=512):
+def lstm_case(t_len, n, dtype, seed, h=512, d=512):
     """Inputs of one stacked-head layer: x [T, N, D], W [D, 4H], U [H, 4H],
     b [4H] and the projection xp, all on the card."""
     g = torch.Generator().manual_seed(seed)
@@ -692,12 +671,7 @@ def lstm_case(t_len, n, dtype, ragged, seed, h=512, d=512):
     x = rnd(t_len, n, d, scale=0.5)
     w, u, b = rnd(d, 4 * h, scale=d ** -0.5), rnd(h, 4 * h, scale=h ** -0.5), \
         rnd(4 * h, scale=0.1)
-    if ragged:
-        lens = torch.randint(0, t_len + 1, (n,), generator=g)
-        lens[:3] = 0
-        lens[3], lens[4] = t_len, 1
-    else:
-        lens = torch.randint(max(1, t_len - 8), t_len + 1, (n,), generator=g)
+    lens = torch.randint(max(1, t_len - 8), t_len + 1, (n,), generator=g)
     lens = lens.to(torch.int32).cuda()
     xp = (x.reshape(t_len * n, d) @ w).reshape(t_len, n, 4 * h)
     return dict(x=x, w=w, u=u, b=b, lens=lens, xp=xp)
@@ -718,13 +692,13 @@ def lstm_bound_ms(c, dtype, backward):
     if backward:
         nbytes = (tn * h + tn * four_h + 2 * tn * h + h * four_h) * es \
             + 4 * n + tn * four_h * es + 4 * (h * four_h + four_h)
-        flops = 2 * live * 2 * h * four_h
+        ops = 2 * live * 2 * h * four_h
     else:
         nbytes = (tn * four_h + h * four_h + four_h) * es + 4 * n \
             + tn * h * es
-        flops = live * 2 * h * four_h
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+        ops = live * 2 * h * four_h
+    t_bytes = nbytes / flops.HBM_BYTES_PER_S
+    t_ops = ops / flops.PEAK_FLOPS[dtype_name(dtype)]
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                        else 'operations')
 
@@ -759,13 +733,13 @@ def ptxas_report(build, name, kernels):
     return rows
 
 
-def achieved(label, flops, ms, bound):
-    """The rate ``flops`` reach in ``ms`` beside the bound's: one line."""
+def achieved(label, ops, ms, bound):
+    """The rate ``ops`` reach in ``ms`` beside the bound's: one line."""
     if not ms:
         print('{}: device time not measured, rate not measured'.format(label),
               flush=True)
         return None
-    tflops = flops / ms / 1e9
+    tflops = ops / ms / 1e9
     print('{}: {:.1f} TFLOP/s achieved on the device, the bound {:.4f} ms is '
           '{:.2%} of the device time ({} bound)'.format(
               label, tflops, bound[0], bound[0] / ms, bound[1]), flush=True)
@@ -773,9 +747,9 @@ def achieved(label, flops, ms, bound):
 
 
 def lstm_phase(rnn, rnn_cuda, build):
-    """``lstm_fwd`` / ``lstm_bwd`` against their plain versions at H=512 on
-    every case, timings at the stacked head's shapes, and the scan pair on
-    these kernels against the fused BiLSTM kernels at H=256."""
+    """``lstm_fwd`` / ``lstm_bwd`` at the stacked head's shapes, each row
+    held against the plain versions (:func:`held`) and timed, and the scan
+    pair on these kernels beside the fused BiLSTM kernels at H=256."""
     ub = rnn_cuda.units_per_block(512)
     ptxas = ptxas_report(build, 'lstm_bwd', ['lstm_bwd_cluster_kernel',
                                              'lstm_bwd_du_mma_kernel'])
@@ -789,61 +763,28 @@ def lstm_phase(rnn, rnn_cuda, build):
     # batch 64 is four row groups: one wave when four clusters fit
     check(fwd_ptxas['cluster']['max_active_clusters'] > 0,
           'no lstm_fwd cluster fits the card')
-    errs = {}
-    for i, (label, t_len, n, dtype, ragged) in enumerate(BILSTM_CASES):
-        c = lstm_case(t_len, n, dtype, ragged, seed=40 + i)
-        args = (c['xp'], c['u'], c['b'], c['lens'])
-        out = rnn_cuda.lstm_fwd(*args)
-        got = rnn_cuda.lstm_fwd(*args, save_residuals=True)
-        again = rnn_cuda.lstm_fwd(*args, save_residuals=True)
-        want = rnn_cuda.lstm_fwd_reference(*args, save_residuals=True)
-        torch.cuda.synchronize()
-        e_fwd, ok = max_err(got, want, dtype)
-        ok = ok and torch.equal(out, got[0]) and all(
-            torch.equal(a, b) for a, b in zip(got, again))
-        g = torch.Generator().manual_seed(1040 + i)
-        dout = (torch.randn(out.shape, generator=g) * 0.1).cuda().to(dtype)
-        bwd_args = (dout,) + tuple(got[1:]) + (c['u'], c['lens'])
-        e_bwd, rel, ok_b = rel_err(rnn_cuda.lstm_bwd(*bwd_args),
-                                   rnn_cuda.lstm_bwd_reference(*bwd_args),
-                                   dtype)
-        torch.cuda.synchronize()
-        print('lstm check H=512 {:24s} fwd max|diff| {:.3e}, bwd {:.3e} '
-              '({:.2e} of the largest entry) within tolerance: {}'.format(
-                  label, e_fwd, e_bwd, rel, ok and ok_b), flush=True)
-        check(ok, 'lstm_fwd {}: max|diff| {}'.format(label, e_fwd))
-        check(ok_b, 'lstm_bwd {}: {} of the largest entry'.format(label, rel))
-        errs[label] = {'lstm_fwd': e_fwd, 'lstm_bwd': e_bwd}
-    # the forward's bf16 cluster at its edges: a short ragged batch, T = 1
-    # with a partial row group, and H = 136 and 8 (U zero-filled past H)
-    for i, (label, t_len, n, ragged, h) in enumerate(LSTM_FWD_EDGES):
-        c = lstm_case(t_len, n, torch.bfloat16, ragged, seed=60 + i, h=h)
-        args = (c['xp'], c['u'], c['b'], c['lens'])
-        got = rnn_cuda.lstm_fwd(*args, save_residuals=True)
-        again = rnn_cuda.lstm_fwd(*args, save_residuals=True)
-        want = rnn_cuda.lstm_fwd_reference(*args, save_residuals=True)
-        torch.cuda.synchronize()
-        e_fwd, ok = max_err(got, want, torch.bfloat16)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        print('lstm_fwd check {:28s} max|diff| {:.3e} within tolerance: {}, '
-              'two calls bit-identical: {}'.format(label, e_fwd, ok, same),
-              flush=True)
-        check(ok and same, 'lstm_fwd {}: max|diff| {}, identical {}'.format(
-            label, e_fwd, same))
-        errs[label] = {'lstm_fwd': e_fwd}
-
     timings = {}
-    for label, t_len, dtype in (('bf16 N=64 T=23', 23, torch.bfloat16),
-                                ('bf16 N=64 T=111', 111, torch.bfloat16),
-                                ('f32 N=64 T=23', 23, torch.float32),
-                                ('f32 N=64 T=111', 111, torch.float32)):
-        c = lstm_case(t_len, 64, dtype, False, seed=7)
+    for label, t_len, dtype in MAIN_CASES:
+        c = lstm_case(t_len, 64, dtype, seed=7)
         args = (c['xp'], c['u'], c['b'], c['lens'])
         res = rnn_cuda.lstm_fwd(*args, save_residuals=True)
         g = torch.Generator().manual_seed(1007)
         dout = (torch.randn(res[0].shape, generator=g) * 0.1).cuda().to(dtype)
         bwd_args = (dout,) + tuple(res[1:]) + (c['u'], c['lens'])
-        row = {'fwd_ms': median_ms(lambda: rnn_cuda.lstm_fwd(*args)),
+        fwd_errs = [held(
+            'lstm_fwd H=512 {} residuals={}'.format(label, on),
+            rnn_cuda.lstm_fwd,
+            lambda: rnn_cuda.lstm_fwd(*args, save_residuals=on),
+            lambda: rnn_cuda.lstm_fwd_reference(*args, save_residuals=on),
+            fwd_bar(dtype)) for on in (False, True)]
+        check(torch.equal(rnn_cuda.lstm_fwd(*args), res[0]),
+              'lstm_fwd {}: the output differs with residuals'.format(label))
+        bwd_err = held('lstm_bwd H=512 ' + label, rnn_cuda.lstm_bwd,
+                       lambda: rnn_cuda.lstm_bwd(*bwd_args),
+                       lambda: rnn_cuda.lstm_bwd_reference(*bwd_args),
+                       bwd_bar(dtype))
+        row = {'fwd_max_abs_err': max(fwd_errs), 'bwd_max_abs_err': bwd_err,
+               'fwd_ms': median_ms(lambda: rnn_cuda.lstm_fwd(*args)),
                'fwd_residuals_ms': median_ms(
                    lambda: rnn_cuda.lstm_fwd(*args, save_residuals=True)),
                'bwd_ms': median_ms(lambda: rnn_cuda.lstm_bwd(*bwd_args))}
@@ -887,7 +828,7 @@ def lstm_phase(rnn, rnn_cuda, build):
 
     # the two-scan pair on kernels 5/6 against the fused kernels 1/2, H=256
     for t_len in (23, 111):
-        c = bilstm_case(t_len, 64, torch.bfloat16, False, seed=9)
+        c = bilstm_case(t_len, 64, torch.bfloat16, seed=9)
         h4 = c['uf'].shape[1]
         cells = {'fw': {'w': c['w'][:, :h4], 'u': c['uf'], 'bias': c['bf']},
                  'bw': {'w': c['w'][:, h4:], 'u': c['ub'], 'bias': c['bb']}}
@@ -925,7 +866,7 @@ def lstm_phase(rnn, rnn_cuda, build):
                   t_len, json.dumps(row)), flush=True)
     timings['ptxas'] = ptxas
     timings['fwd_ptxas'] = fwd_ptxas
-    return errs, timings
+    return timings
 
 
 def conv_bn_bound_ms(n, w, h, ci, co, dtype):
@@ -935,18 +876,21 @@ def conv_bn_bound_ms(n, w, h, ci, co, dtype):
     over the dtype's dense peak; the larger of the two."""
     es = torch.tensor([], dtype=dtype).element_size()
     nbytes = (n * w * h * (ci + co) + 9 * ci * co) * es + 3 * 4 * co
-    flops = 2 * n * w * h * co * ci * 9
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
+    ops = 2 * n * w * h * co * ci * 9
+    t_bytes = nbytes / flops.HBM_BYTES_PER_S
+    t_ops = ops / flops.PEAK_FLOPS[dtype_name(dtype)]
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                        else 'operations')
 
 
 def conv_bn_phase(bench, conv_bn_cuda, build):
-    """``conv3x3_bn_relu`` against its plain version and the unfused layer at
-    the conv4_1 / conv4_2 geometry, batch 64, then timings; the A/B itself
-    (``tools/bench_conv_bn.run``) with the launch count read around it."""
-    errs, timings = {}, {}
+    """``conv3x3_bn_relu`` at the conv4_1 / conv4_2 geometry, batch 64, held
+    against its plain version and the unfused layer (:func:`held`, |d| <=
+    tol + tol |ref|: the unfused layer rounds the bias apart, takes the
+    two-pass variance and sums in cuDNN's order), then timed beside them;
+    the A/B itself (``tools/bench_conv_bn.run``) with the launch count read
+    around it."""
+    timings = {}
     ptxas = ptxas_report(build, 'conv_bn', ['conv_bn_conv_mma_kernel'])
     ptxas.setdefault('conv_bn_conv_mma_kernel', {})['dynamic_smem'] = \
         build.library('conv_bn').conv_bn_mma_smem()
@@ -959,37 +903,18 @@ def conv_bn_phase(bench, conv_bn_cuda, build):
             layer = bench.unfused_layer(case)
             ldt = None if dtype == torch.float32 else dtype
             with torch.no_grad():
-                got = conv_bn_cuda.conv3x3_bn_relu(*args)
-                again = conv_bn_cuda.conv3x3_bn_relu(*args)
-                want = conv_bn_cuda.conv3x3_bn_relu_reference(*args)
-                unfused = layer(case['x'], ldt)
-            torch.cuda.synchronize()
-
-            def close(ref):
-                """max |difference| and its largest share of the bar
-                ``tol + tol * |ref|``."""
-                d = (got.float() - ref.float()).abs()
-                return float(d.max()), float(
-                    (d / (tol + tol * ref.float().abs())).max())
-            err, share = close(want)
-            # the unfused layer rounds the bias separately, takes the
-            # two-pass variance and sums in cuDNN's order: the same bar
-            vs_layer, share_layer = close(unfused)
-            ok, ok_layer = share <= 1.0, share_layer <= 1.0
-            same = torch.equal(got, again)
-            print('conv_bn check {:14s} N=64 max|diff| vs plain {:.3e} ({:.0%} '
-                  'of the bar {:g} absolute + relative), vs the unfused layer '
-                  '{:.3e} ({:.0%}), two runs bit-identical: {}'.format(
-                      label, err, share, tol, vs_layer, share_layer, same),
-                  flush=True)
-            check(ok and same and tuple(got.shape) == (64, co, w, h),
-                  'conv_bn {}: max|diff| {}, identical {}'.format(label, err,
-                                                                  same))
-            check(ok_layer, 'conv_bn {} vs ConvSingle: {}'.format(label,
-                                                                  vs_layer))
-            errs[label] = err
-            with torch.no_grad():
+                errs = [held('conv_bn {} N=64 against {}'.format(label, what),
+                             conv_bn_cuda.conv3x3_bn_relu,
+                             lambda: conv_bn_cuda.conv3x3_bn_relu(*args),
+                             plain, lambda want: tol + tol * want.abs())
+                        for what, plain in (
+                            ('its plain version', lambda: conv_bn_cuda
+                             .conv3x3_bn_relu_reference(*args)),
+                            ('the unfused layer',
+                             lambda: layer(case['x'], ldt)))]
                 row = {
+                    'max_abs_err': errs[0],
+                    'vs_unfused_max_abs_diff': errs[1],
                     'kernel_ms': median_ms(
                         lambda: conv_bn_cuda.conv3x3_bn_relu(*args)),
                     'device_ms': device_ms(
@@ -1004,8 +929,7 @@ def conv_bn_phase(bench, conv_bn_cuda, build):
                     # statistics and normalisation launches
                     'conv_device_ms': device_ms(
                         lambda: conv_bn_cuda.conv3x3_bn_relu(*args),
-                        ['conv_bn_conv']),
-                    'vs_unfused_max_abs_diff': vs_layer}
+                        ['conv_bn_conv'])}
             row['bound_ms'], row['bound_by'] = conv_bn_bound_ms(
                 64, w, h, ci, co, dtype)
             row['device_tflops'] = achieved(
@@ -1022,51 +946,13 @@ def conv_bn_phase(bench, conv_bn_cuda, build):
     launches = conv_bn_cuda.conv3x3_bn_relu.launches
     check(launches > 0, 'the conv+BN A/B launched no kernel')
     timings['ptxas'] = ptxas
-    return errs, timings, launches
-
-
-# (label, T, N, ragged, H): lstm_fwd's bf16 cluster beyond BILSTM_CASES
-LSTM_FWD_EDGES = [('bf16 ragged N=37 T=7 H=512', 7, 37, True, 512),
-                  ('bf16 N=3 T=1 H=256', 1, 3, False, 256),
-                  ('bf16 ragged N=20 T=6 H=136', 6, 20, True, 136),
-                  ('bf16 N=5 T=11 H=8', 11, 5, True, 8)]
-
-BILSTM_CASES = [('f32 N=64 T=23', 23, 64, torch.float32, False),
-                ('f32 N=64 T=111', 111, 64, torch.float32, False),
-                ('bf16 N=64 T=23', 23, 64, torch.bfloat16, False),
-                ('bf16 N=64 T=111', 111, 64, torch.bfloat16, False),
-                ('bf16 ragged N=37 T=23', 23, 37, torch.bfloat16, True),
-                ('f32 ragged N=37 T=23', 23, 37, torch.float32, True)]
-
-
-# (label, T, N, ragged): bilstm_bwd's bf16 cluster beyond BILSTM_CASES
-BILSTM_BWD_EDGES = [('bf16 ragged N=37 T=7', 7, 37, True),
-                    ('bf16 N=3 T=1', 1, 3, False)]
-
-
-def bilstm_bwd_check(rnn_cuda, label, args, dtype, layers=1):
-    """``bilstm_bwd`` on one case's inputs against ``bilstm_bwd_reference``
-    (:func:`rel_err`'s bar times ``layers``), two calls bit-identical;
-    returns the largest gap."""
-    got = rnn_cuda.bilstm_bwd(*args)
-    again = rnn_cuda.bilstm_bwd(*args)
-    want = rnn_cuda.bilstm_bwd_reference(*args)
-    torch.cuda.synchronize()
-    err, rel, ok = rel_err(got, want, dtype, layers)
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
-    print('bilstm_bwd check {:24s} max|diff| {:.3e} ({:.2e} of the '
-          'largest entry) within tolerance: {}, two calls bit-identical: '
-          '{}'.format(label, err, rel, ok, same), flush=True)
-    check(ok and same, 'bilstm_bwd {}: {} of the largest entry, '
-          'identical {}'.format(label, rel, same))
-    return err
+    return timings, launches
 
 
 def bilstm_bwd_phase(rnn_cuda, build):
-    """``bilstm_bwd`` against ``bilstm_bwd_reference`` on every case and at
-    the edges of its bf16 cluster (two calls bit-identical in every case),
-    then timings at the main path's shapes and the bf16 cluster's ptxas
-    report."""
+    """``bilstm_bwd`` at the main path's shapes, held against its plain
+    version (:func:`held`) in f32 and bf16 and timed in bf16, and the bf16
+    cluster's ptxas report."""
     ptxas = ptxas_report(build, 'bilstm_bwd', ['bilstm_bwd_cluster_kernel',
                                                'bilstm_bwd_du_mma_kernel'])
     ptxas['cluster'] = rnn_cuda.cluster_report(
@@ -1076,18 +962,18 @@ def bilstm_bwd_phase(rnn_cuda, build):
     # batch 64 is eight clusters (four row groups, two directions)
     check(ptxas['cluster']['max_active_clusters'] > 0,
           'no bilstm_bwd cluster fits the card')
-    errs = {}
-    cases = BILSTM_CASES + [(label, t_len, n, torch.bfloat16, ragged)
-                            for label, t_len, n, ragged in BILSTM_BWD_EDGES]
-    for i, (label, t_len, n, dtype, ragged) in enumerate(cases):
-        c = bilstm_case(t_len, n, dtype, ragged, seed=20 + i)
-        errs[label] = bilstm_bwd_check(rnn_cuda, label,
-                                       bilstm_bwd_args(c, rnn_cuda, i), dtype)
     timings = {}
-    for label, t_len in (('bf16 N=64 T=23', 23), ('bf16 N=64 T=111', 111)):
-        c = bilstm_case(t_len, 64, torch.bfloat16, False, seed=7)
+    for label, t_len, dtype in MAIN_CASES:
+        c = bilstm_case(t_len, 64, dtype, seed=7)
         args = bilstm_bwd_args(c, rnn_cuda, 7)
+        err = held('bilstm_bwd ' + label, rnn_cuda.bilstm_bwd,
+                   lambda: rnn_cuda.bilstm_bwd(*args),
+                   lambda: rnn_cuda.bilstm_bwd_reference(*args),
+                   bwd_bar(dtype))
+        if dtype != torch.bfloat16:     # timed in the main path's type
+            continue
         row = {
+            'max_abs_err': err,
             'kernel_ms': median_ms(lambda: rnn_cuda.bilstm_bwd(*args)),
             'device_ms': device_ms(lambda: rnn_cuda.bilstm_bwd(*args),
                                    ['bilstm_bwd_']),
@@ -1100,8 +986,7 @@ def bilstm_bwd_phase(rnn_cuda, build):
                 warmup=2),
             'library_ms': median_ms(cudnn_backward_yardstick(c)),
         }
-        row['bound_ms'], row['bound_by'] = bilstm_bwd_bound_ms(
-            c, torch.bfloat16)
+        row['bound_ms'], row['bound_by'] = bilstm_bounds(c, torch.bfloat16)[1]
         row['device_tflops'] = achieved(
             'bilstm_bwd H=256 ' + label,
             2 * int(c['lens'].sum()) * 4 * 256 * 1024, row['device_ms'],
@@ -1110,99 +995,29 @@ def bilstm_bwd_phase(rnn_cuda, build):
         print('bilstm_bwd timing {:16s} {}'.format(label, json.dumps(row)),
               flush=True)
     timings['ptxas'] = ptxas
-    return errs, timings
-
-
-# (label, T, L, N, timed): the main path (S=13, the warp kernels with K=1),
-# longline (S=49, K=2), both sides of each of the kernels' path boundaries
-# (S=31/33: K=1/2; S=63/65: K=2/the block kernels), the block kernels'
-# widths up to their 1023 states, and the warp kernels' edges: one state
-# (L=0 alone), T=1, T on both sides of one and two ring chunks (16 steps
-# each), one example
-CTC_CASES = [('N=64 T=23 L=6', 23, 6, 64, True),
-             ('N=64 T=111 L=24', 111, 24, 64, True),
-             ('N=64 T=50 L=15', 50, 15, 64, False),
-             ('N=64 T=50 L=16', 50, 16, 64, False),
-             ('N=64 T=100 L=31', 100, 31, 64, False),
-             ('N=64 T=100 L=32', 100, 32, 64, False),
-             ('N=64 T=160 L=64', 160, 64, 64, False),
-             ('N=64 T=560 L=511', 560, 511, 64, False),
-             ('N=64 T=23 L=0', 23, 0, 64, False),
-             ('N=64 T=1 L=6', 1, 6, 64, False),
-             ('N=64 T=15 L=6', 15, 6, 64, False),
-             ('N=64 T=16 L=6', 16, 6, 64, False),
-             ('N=64 T=17 L=6', 17, 6, 64, False),
-             ('N=64 T=31 L=15', 31, 15, 64, False),
-             ('N=64 T=32 L=24', 32, 24, 64, False),
-             ('N=64 T=33 L=24', 33, 24, 64, False),
-             ('N=1 T=23 L=6', 23, 6, 1, False),
-             ('N=1 T=111 L=24', 111, 24, 1, False)]
-
-
-def ctc_check(ctc, ctc_cuda, label, case, l_max):
-    """``ctc_fwd`` / ``ctc_bwd`` on one case against their plain versions:
-    ``ctc_fwd``'s logZ and alphas bit-identical, the gradient f32 <= 1e-5,
-    the empty label's logZ finite, the infeasible example's at -inf with a
-    zero gradient, two calls of each bit-identical. Returns the gaps and
-    the kernels' and the plain versions' (logZ, alphas)."""
-    g, masks, lens = case['g'], case['masks'], case['logit_lens']
-    n = g.shape[0]
-    logz, alphas = ctc_cuda.ctc_forward(g, *masks)
-    logz2, alphas2 = ctc_cuda.ctc_forward(g, *masks)
-    grad = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
-    again = ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens)
-    logz_r, alphas_r = ctc.ctc_forward_reference(g, *masks)
-    grad_r = ctc.ctc_backward_reference(g, *masks, alphas_r, logz_r, lens)
-    torch.cuda.synchronize()
-
-    def close(a, b):
-        return float((a - b).abs().max()), bool(
-            ((a - b).abs() <= 1e-5 + 1e-5 * b.abs()).all())
-    e_z, _ = close(logz, logz_r)
-    e_a, _ = close(alphas, alphas_r)
-    e_g, ok_g = close(grad, grad_r)
-    fwd_equal = torch.equal(logz, logz_r) and torch.equal(alphas, alphas_r)
-    special = True
-    if n > 1:                                  # the empty label
-        special = bool(torch.isfinite(logz[1]))
-    if n > 2 and l_max > 1:                    # the infeasible example
-        special = special and float(logz[2]) <= ctc.NEG_INF / 2 \
-            and not bool(grad[2].any())
-    same = (torch.equal(grad, again) and torch.equal(logz, logz2)
-            and torch.equal(alphas, alphas2))
-    print('ctc check {:16s} S={:4d} max|diff| logz {:.2e} alphas {:.2e} '
-          'grad {:.2e}; ctc_fwd bit-identical to its plain version: {}; '
-          'infeasible row: zero gradient, empty label finite: {}; two '
-          'calls of each bit-identical: {}'.format(
-              label, g.shape[2], e_z, e_a, e_g, fwd_equal, special, same),
-          flush=True)
-    check(fwd_equal and ok_g and special and same,
-          'ctc {}: out of tolerance, not bit-identical or calls differ'
-          .format(label))
-    return ({'ctc_fwd': max(e_z, e_a), 'ctc_bwd': e_g},
-            (logz, alphas, logz_r, alphas_r))
+    return timings
 
 
 def ctc_phase(ctc, ctc_cuda, build):
-    """``ctc_fwd`` / ``ctc_bwd`` against their plain versions on every case
-    (``ctc_fwd`` bit-identical; two calls of each bit-identical), then
-    timings beside ``torch.nn.functional.ctc_loss``."""
-    errs, timings = {}, {}
+    """``ctc_fwd`` / ``ctc_bwd`` at the main path's (S=13, the warp kernels
+    with K=1) and longline's (S=49, K=2) shapes, held against their plain
+    versions (:func:`ctc_held`), then timed beside them and
+    ``torch.nn.functional.ctc_loss``."""
+    timings = {}
     timings['ptxas'] = ptxas_report(build, 'ctc', [
         'ctc_fwd_warp_kernelILi1', 'ctc_fwd_warp_kernelILi2',
         'ctc_bwd_warp_kernelILi1', 'ctc_bwd_warp_kernelILi2',
         'ctc_bwd_kernel', 'ctc_fwd_kernel'])
-    for label, t_len, l_max, n, timed in CTC_CASES:
-        case = ctc_case(ctc, t_len, l_max, seed=t_len, n=n)
+    for label, t_len, l_max in (('N=64 T=23 L=6', 23, 6),
+                                ('N=64 T=111 L=24', 111, 24)):
+        case = ctc_case(ctc, t_len, l_max, seed=t_len)
         g, masks, lens = case['g'], case['masks'], case['logit_lens']
-        errs[label], (logz, alphas, logz_r, alphas_r) = ctc_check(
-            ctc, ctc_cuda, label, case, l_max)
-        if not timed:
-            continue
-
+        errs, (logz, alphas) = ctc_held(ctc, ctc_cuda, label, case)
         lib, lib_fwd, lib_losses = ctc_library_yardstick(case)
         feasible = logz > ctc.NEG_INF / 2
         row = {
+            'fwd_max_abs_err': errs['ctc_fwd'],
+            'bwd_max_abs_err': errs['ctc_bwd'],
             'fwd_ms': median_ms(lambda: ctc_cuda.ctc_forward(g, *masks)),
             'fwd_device_ms': device_ms(
                 lambda: ctc_cuda.ctc_forward(g, *masks), ['ctc_fwd_']),
@@ -1217,16 +1032,15 @@ def ctc_phase(ctc, ctc_cuda, build):
                 lambda: ctc.ctc_forward_reference(g, *masks), reps=10,
                 warmup=2),
             'bwd_plain_ms': median_ms(
-                lambda: ctc.ctc_backward_reference(g, *masks, alphas_r,
-                                                   logz_r, lens), reps=10,
-                warmup=2),
+                lambda: ctc.ctc_backward_reference(g, *masks, alphas, logz,
+                                                   lens), reps=10, warmup=2),
             'library_fwd_ms': median_ms(lib_fwd),
             'library_fwd_bwd_ms': median_ms(lib),
             'library_vs_kernel_max_abs_diff': float(
                 (lib_losses + logz)[feasible].abs().max()),
         }
-        row['fwd_bound_ms'], row['fwd_bound_by'] = ctc_bound_ms(case, False)
-        row['bwd_bound_ms'], row['bwd_bound_by'] = ctc_bound_ms(case, True)
+        (row['fwd_bound_ms'], row['fwd_bound_by']), \
+            (row['bwd_bound_ms'], row['bwd_bound_by']) = ctc_bounds(case)
         for d in ('fwd', 'bwd'):
             row[d + '_device_tflops'] = achieved(
                 'ctc_{} {}'.format(d, label), 14 * g.numel(),
@@ -1235,41 +1049,13 @@ def ctc_phase(ctc, ctc_cuda, build):
         timings[label] = row
         print('ctc timing {:16s} {}'.format(label, json.dumps(row)),
               flush=True)
-    return errs, timings
-
-
-def bilstm_fwd_check(rnn_cuda, label, c, dtype, forget_bias=1.0):
-    """``bilstm_fwd`` on one case, residuals off and on, against
-    ``bilstm_fwd_reference`` (:func:`max_err`'s bars), two calls
-    bit-identical; returns ``{residuals: largest gap}``."""
-    errs = {}
-    for res in (False, True):
-        def call(fn):
-            return fn(*kernel_args(c), forget_bias=forget_bias,
-                      save_residuals=res)
-        got, again = call(rnn_cuda.bilstm_fwd), call(rnn_cuda.bilstm_fwd)
-        want = call(rnn_cuda.bilstm_fwd_reference)
-        torch.cuda.synchronize()
-        err, ok = max_err(got, want, dtype)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        print('kernel check {:24s} residuals={!s:5s} max|diff| {:.3e} '
-              'within tolerance: {}, two calls bit-identical: {}'.format(
-                  label, res, err, ok, same), flush=True)
-        check(ok and same, '{} residuals={}: max|diff| {} out of '
-              'tolerance or calls differ'.format(label, res, err))
-        errs[res] = err
-    return errs
+    return timings
 
 
 def bilstm_fwd_phase(rnn_cuda, build):
-    """Correctness on every case (bf16 also two calls bit-identical), then
-    timings at the eval shapes and the bf16 cluster's ptxas report."""
-    cases = [('f32 N=64 T=23', 23, 64, torch.float32, False),
-             ('bf16 N=64 T=23', 23, 64, torch.bfloat16, False),
-             ('bf16 N=64 T=111', 111, 64, torch.bfloat16, False),
-             ('bf16 ragged N=37 T=23', 23, 37, torch.bfloat16, True),
-             ('bf16 ragged N=37 T=7', 7, 37, torch.bfloat16, True),
-             ('bf16 N=3 T=1', 1, 3, torch.bfloat16, False)]
+    """``bilstm_fwd`` at the eval shapes, held against its plain version
+    (:func:`held`, residuals off and on) in f32 and bf16 and timed in bf16,
+    and the bf16 cluster's ptxas report."""
     ptxas = ptxas_report(build, 'bilstm_fwd', ['bilstm_fwd_cluster_kernel'])
     ptxas['cluster'] = rnn_cuda.cluster_report(
         'bilstm_fwd', 256, rnn_cuda.units_per_block(256))
@@ -1278,16 +1064,18 @@ def bilstm_fwd_phase(rnn_cuda, build):
     # batch 64 is eight clusters (four row groups, two directions)
     check(ptxas['cluster']['max_active_clusters'] > 0,
           'no bilstm_fwd cluster fits the card')
-    errs = {}
-    for i, (label, t_len, n, dtype, ragged) in enumerate(cases):
-        c = bilstm_case(t_len, n, dtype, ragged, seed=i)
-        for res, err in bilstm_fwd_check(rnn_cuda, label, c, dtype).items():
-            errs[(label, res)] = err
-
     timings = {}
-    for label, t_len in (('bf16 N=64 T=23', 23), ('bf16 N=64 T=111', 111)):
-        c = bilstm_case(t_len, 64, torch.bfloat16, False, seed=7)
+    for label, t_len, dtype in MAIN_CASES:
+        c = bilstm_case(t_len, 64, dtype, seed=7)
         args = kernel_args(c)
+        errs = [held(
+            'bilstm_fwd {} residuals={}'.format(label, on),
+            rnn_cuda.bilstm_fwd,
+            lambda: rnn_cuda.bilstm_fwd(*args, save_residuals=on),
+            lambda: rnn_cuda.bilstm_fwd_reference(*args, save_residuals=on),
+            fwd_bar(dtype)) for on in (False, True)]
+        if dtype != torch.bfloat16:     # timed in the main path's type
+            continue
         x2d = c['x'].reshape(-1, c['x'].shape[2])
 
         def with_projection():
@@ -1303,6 +1091,7 @@ def bilstm_fwd_phase(rnn_cuda, build):
                           - torch.cat([of, ob], -1).float()).abs().max())
         with torch.no_grad():
             row = {
+                'max_abs_err': max(errs),
                 'kernel_ms': median_ms(lambda: rnn_cuda.bilstm_fwd(*args)),
                 'device_ms': device_ms(lambda: rnn_cuda.bilstm_fwd(*args),
                                        ['bilstm_fwd_']),
@@ -1315,7 +1104,7 @@ def bilstm_fwd_phase(rnn_cuda, build):
                 'kernel_plus_proj_ms': median_ms(with_projection),
                 'library_ms': median_ms(lambda: lstm(packed)),
             }
-        row['bound_ms'], row['bound_by'] = bound_ms(c, torch.bfloat16)
+        row['bound_ms'], row['bound_by'] = bilstm_bounds(c, torch.bfloat16)[0]
         row['device_tflops'] = achieved(
             'bilstm_fwd H=256 ' + label,
             2 * int(c['lens'].sum()) * 2 * 256 * 1024, row['device_ms'],
@@ -1325,13 +1114,13 @@ def bilstm_fwd_phase(rnn_cuda, build):
         print('kernel timing {:16s} {}'.format(label, json.dumps(row)),
               flush=True)
     timings['ptxas'] = ptxas
-    return errs, timings
+    return timings
 
 
 # the htr_puigcerver.train_graphed cell's shapes: batch 16 at the store's
 # width of 1,792 px (T=224), each line's own 137-222 frames, H=256 a
-# direction, the first layer reading 1,280 features and each later one
-# 512, forget bias 0; CTC over 80 classes with labels of 22-24 characters
+# direction, the first layer reading 1,280 features, forget bias 0; CTC
+# over 80 classes with labels of 22-24 characters
 HTR_T, HTR_N, HTR_LENS, HTR_FEATURES, HTR_FORGET_BIAS = 224, 16, (137, 222), \
     1280, 0.0
 
@@ -1342,8 +1131,7 @@ def htr_stack(fwd, bwd, c, top, dout):
     1 on ``c``'s projections, layer 2 on layer 1's output through ``top``'s
     W; layer 2's backward from the cotangents ``dout``, its input gradient
     ``dxp W^T`` split by direction into layer 1's backward. Returns layer
-    2's outputs, layer 1's cotangents, layer 1's backward inputs after them
-    and layer 1's gradients."""
+    2's outputs and layer 1's gradients, then layer 1's backward inputs."""
     t_len, n, four_h = c['xpf'].shape
     h, lens, fb = four_h // 4, c['lens'], HTR_FORGET_BIAS
     r1 = fwd(*kernel_args(c), forget_bias=fb, save_residuals=True)
@@ -1355,116 +1143,90 @@ def htr_stack(fwd, bwd, c, top, dout):
     dx2 = (g2[0].reshape(t_len * n, four_h) @ top['w'][:, :four_h].t()
            + g2[1].reshape(t_len * n, four_h) @ top['w'][:, four_h:].t()
            ).reshape(t_len, n, 2 * h)
-    d1 = (dx2[:, :, :h].contiguous(), dx2[:, :, h:].contiguous())
-    res1 = (*r1[1:4], *r1[5:8], c['uf'], c['ub'], lens)
-    return (r2[0], r2[4]), d1, res1, bwd(*d1, *res1)
+    back = (dx2[:, :, :h].contiguous(), dx2[:, :, h:].contiguous(),
+            *r1[1:4], *r1[5:8], c['uf'], c['ub'], lens)
+    return (r2[0], r2[4]) + tuple(bwd(*back)), back
 
 
 def htr_phase(rnn_cuda, ctc_cuda, ctc):
-    """Kernels 1-4 at the htr_puigcerver.train_graphed cell's shapes
-    (:data:`HTR_T` and beside it), each case's launches counted from 0:
-    ``bilstm_fwd`` and ``bilstm_bwd`` on one layer, f32 and bf16, at
-    :func:`bilstm_fwd_check`'s and :func:`bilstm_bwd_check`'s bars; two
-    layers chained (:func:`htr_stack`), layer 1's backward fed layer 2's
-    input gradient, at the one-layer bar against the plain backward on the
-    same inputs, and the whole chain against the plain versions chained at
-    twice the bar, two chains bit-identical; ``ctc_fwd``/``ctc_bwd`` at
-    :func:`ctc_check`'s bars. Then the kernels' device time at these
-    shapes in bf16 (CTC in f32). Returns ``{kernel: {case: row}}``."""
+    """Kernels 1-4 at the htr_puigcerver.train_graphed cell's shapes, held
+    against their plain versions (:func:`held`): ``bilstm_fwd`` (residuals
+    off and on) and ``bilstm_bwd`` on one layer in f32 and bf16; two layers
+    chained (:func:`htr_stack`), layer 1's backward fed layer 2's input
+    gradient at the one-layer bar, the chain against the plain versions
+    chained at twice it; ``ctc_fwd`` / ``ctc_bwd`` (:func:`ctc_held`). Then
+    their device time there, in bf16 (CTC in f32). Returns ``{kernel:
+    {case: row}}``."""
     out = {k: {} for k in ('bilstm_fwd', 'bilstm_bwd', 'ctc_fwd',
                            'ctc_bwd')}
-
-    def counted(label, want):
-        got = launch_counts(rnn_cuda, ctc_cuda)
-        check(all(got[k] == want.get(k, 0) for k in got),
-              'htr {}: launches {}, expected {}'.format(label, got, want))
-        return got
-    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
-        name = 'f32' if dtype == torch.float32 else 'bf16'
-        label = '{} N={} T={} lens {}-{}'.format(name, HTR_N, HTR_T,
-                                                 *HTR_LENS)
-        launch_counts(rnn_cuda, ctc_cuda, reset=True)
-        c = bilstm_case(HTR_T, HTR_N, dtype, False, seed=60 + 2 * i,
-                        d=HTR_FEATURES, lens_range=HTR_LENS)
-        fwd_errs = bilstm_fwd_check(rnn_cuda, 'htr ' + label, c, dtype,
-                                    HTR_FORGET_BIAS)
-        n = counted(label + ' fwd', {'bilstm_fwd': 4})
-        out['bilstm_fwd'][label] = {'max_abs_err': max(fwd_errs.values()),
-                                    'launches': n['bilstm_fwd']}
-        launch_counts(rnn_cuda, ctc_cuda, reset=True)
-        args = bilstm_bwd_args(c, rnn_cuda, 60 + 2 * i, HTR_FORGET_BIAS)
-        err = bilstm_bwd_check(rnn_cuda, 'htr ' + label, args, dtype)
-        n = counted(label + ' bwd', {'bilstm_fwd': 1, 'bilstm_bwd': 2})
-        out['bilstm_bwd'][label] = {'max_abs_err': err,
-                                    'launches': n['bilstm_bwd']}
-
-        stacked = name + ' two layers chained'
-        launch_counts(rnn_cuda, ctc_cuda, reset=True)
-        top = bilstm_case(HTR_T, HTR_N, dtype, False, seed=61 + 2 * i)
-        g = torch.Generator().manual_seed(62 + 2 * i)
-        dout = tuple((torch.randn(HTR_T, HTR_N, 256, generator=g) * 0.1)
-                     .cuda().to(dtype) for _ in range(2))
-        got = htr_stack(rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, c, top,
-                        dout)
-        again = htr_stack(rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, c, top,
-                          dout)
-        block = bilstm_bwd_check(rnn_cuda, 'htr {} layer 1'.format(stacked),
-                                 (*got[1], *got[2]), dtype)
-        want = htr_stack(rnn_cuda.bilstm_fwd_reference,
-                         rnn_cuda.bilstm_bwd_reference, c, top, dout)
-        torch.cuda.synchronize()
-        flat = [t for part in (got[0], got[3]) for t in part]
-        chain, rel, ok = rel_err(
-            flat, [t for part in (want[0], want[3]) for t in part], dtype,
-            layers=2)
-        same = all(torch.equal(a, b) for a, b in zip(
-            flat, [t for part in (again[0], again[3]) for t in part]))
-        print('bilstm check htr {:24s} layer 2 outputs and layer 1 '
-              'gradients against the plain chain: max|diff| {:.3e} ({:.2e} '
-              'of the largest entry) within twice the tolerance: {}, two '
-              'chains bit-identical: {}'.format(stacked, chain, rel, ok,
-                                                same), flush=True)
-        check(ok and same, 'htr {}: {} of the largest entry, identical '
-              '{}'.format(stacked, rel, same))
-        n = counted(stacked, {'bilstm_fwd': 4, 'bilstm_bwd': 6})
-        out['bilstm_bwd'][stacked] = {
-            'max_abs_err': block, 'chain_max_abs_err': chain,
-            'chain_rel_err': rel, 'launches': n['bilstm_bwd']}
-        out['bilstm_fwd'][stacked] = {'launches': n['bilstm_fwd']}
-
-    label = 'N={} T={} C=80 L=24 lens {}-{}'.format(HTR_N, HTR_T, *HTR_LENS)
-    launch_counts(rnn_cuda, ctc_cuda, reset=True)
-    case = ctc_case(ctc, HTR_T, 24, seed=HTR_T, n=HTR_N, c=80,
-                    t_min=HTR_LENS[0])
-    errs, (logz, alphas, _, _) = ctc_check(ctc, ctc_cuda, 'htr ' + label,
-                                           case, 24)
-    n = counted(label, {'ctc_fwd': 2, 'ctc_bwd': 2})
-    g, masks, lens = case['g'], case['masks'], case['logit_lens']
-    for k in ('ctc_fwd', 'ctc_bwd'):
-        out[k][label] = {'max_abs_err': errs[k], 'launches': n[k]}
-    out['ctc_fwd'][label]['device_ms'] = device_ms(
-        lambda: ctc_cuda.ctc_forward(g, *masks), ['ctc_fwd_'])
-    out['ctc_bwd'][label]['device_ms'] = device_ms(
-        lambda: ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens),
-        ['ctc_bwd_'])
-
-    label = 'bf16 N={} T={} lens {}-{}'.format(HTR_N, HTR_T, *HTR_LENS)
-    c = bilstm_case(HTR_T, HTR_N, torch.bfloat16, False, seed=7,
-                    d=HTR_FEATURES, lens_range=HTR_LENS)
-    args = bilstm_bwd_args(c, rnn_cuda, 7, HTR_FORGET_BIAS)
-    with torch.no_grad():
-        out['bilstm_fwd'][label]['device_ms'] = device_ms(
+    for dtype in (torch.float32, torch.bfloat16):
+        label = '{} N={} T={} lens {}-{}'.format(
+            'f32' if dtype == torch.float32 else 'bf16', HTR_N, HTR_T,
+            *HTR_LENS)
+        c = bilstm_case(HTR_T, HTR_N, dtype, seed=7, d=HTR_FEATURES,
+                        lens_range=HTR_LENS)
+        fwd_errs = [held(
+            'htr bilstm_fwd {} residuals={}'.format(label, on),
+            rnn_cuda.bilstm_fwd,
             lambda: rnn_cuda.bilstm_fwd(*kernel_args(c),
                                         forget_bias=HTR_FORGET_BIAS,
-                                        save_residuals=True),
-            ['bilstm_fwd_'])
-        out['bilstm_bwd'][label]['device_ms'] = device_ms(
-            lambda: rnn_cuda.bilstm_bwd(*args), ['bilstm_bwd_'])
+                                        save_residuals=on),
+            lambda: rnn_cuda.bilstm_fwd_reference(
+                *kernel_args(c), forget_bias=HTR_FORGET_BIAS,
+                save_residuals=on), fwd_bar(dtype)) for on in (False, True)]
+        args = bilstm_bwd_args(c, rnn_cuda, 7, HTR_FORGET_BIAS)
+        bwd_err = held('htr bilstm_bwd ' + label, rnn_cuda.bilstm_bwd,
+                       lambda: rnn_cuda.bilstm_bwd(*args),
+                       lambda: rnn_cuda.bilstm_bwd_reference(*args),
+                       bwd_bar(dtype))
+        top = bilstm_case(HTR_T, HTR_N, dtype, seed=8)
+        g = torch.Generator().manual_seed(9)
+        dout = tuple((torch.randn(HTR_T, HTR_N, 256, generator=g) * 0.1)
+                     .cuda().to(dtype) for _ in range(2))
+        back = htr_stack(rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, c, top,
+                         dout)[1]
+        block = held('htr bilstm_bwd {} layer 1 of two'.format(label),
+                     rnn_cuda.bilstm_bwd, lambda: rnn_cuda.bilstm_bwd(*back),
+                     lambda: rnn_cuda.bilstm_bwd_reference(*back),
+                     bwd_bar(dtype))
+        chain = held('htr two layers chained ' + label, rnn_cuda.bilstm_bwd,
+                     lambda: htr_stack(rnn_cuda.bilstm_fwd,
+                                       rnn_cuda.bilstm_bwd, c, top, dout)[0],
+                     lambda: htr_stack(rnn_cuda.bilstm_fwd_reference,
+                                       rnn_cuda.bilstm_bwd_reference, c, top,
+                                       dout)[0],
+                     bwd_bar(dtype, layers=2), launches=2)
+        out['bilstm_fwd'][label] = {'max_abs_err': max(fwd_errs)}
+        out['bilstm_bwd'][label] = {'max_abs_err': bwd_err,
+                                    'layer_1_of_two_max_abs_err': block,
+                                    'chain_max_abs_err': chain}
+        if dtype == torch.bfloat16:     # the cell's compute type
+            with torch.no_grad():
+                out['bilstm_fwd'][label]['device_ms'] = device_ms(
+                    lambda: rnn_cuda.bilstm_fwd(*kernel_args(c),
+                                                forget_bias=HTR_FORGET_BIAS,
+                                                save_residuals=True),
+                    ['bilstm_fwd_'])
+                out['bilstm_bwd'][label]['device_ms'] = device_ms(
+                    lambda: rnn_cuda.bilstm_bwd(*args), ['bilstm_bwd_'])
+
+    label = 'N={} T={} C=80 L=24 lens {}-{}'.format(HTR_N, HTR_T, *HTR_LENS)
+    case = ctc_case(ctc, HTR_T, 24, seed=HTR_T, n=HTR_N, c=80,
+                    t_min=HTR_LENS[0])
+    errs, (logz, alphas) = ctc_held(ctc, ctc_cuda, 'htr ' + label, case)
+    g, masks, lens = case['g'], case['masks'], case['logit_lens']
+    out['ctc_fwd'][label] = {'max_abs_err': errs['ctc_fwd'],
+                             'device_ms': device_ms(
+        lambda: ctc_cuda.ctc_forward(g, *masks), ['ctc_fwd_'])}
+    out['ctc_bwd'][label] = {'max_abs_err': errs['ctc_bwd'],
+                             'device_ms': device_ms(
+        lambda: ctc_cuda.ctc_backward(g, *masks, alphas, logz, lens),
+        ['ctc_bwd_'])}
     print('htr kernels {}'.format(json.dumps(out)), flush=True)
     return out
 
 
-def beam_case(n, t_len, c, dtype, seed):
+def beam_case(n, t_len, c, seed, dtype=torch.float32):
     """[N, T, C] logits on the card, row r at scale 1 or 10 by its parity,
     and ragged [N] int32 lengths with T first and 0 second."""
     g = torch.Generator().manual_seed(seed)
@@ -1481,42 +1243,28 @@ def beam_bound_ms(logits):
     about K (C + 1) scores a row and frame, is far below the peak)."""
     n, t_len, _ = logits.shape
     moved = logits.numel() * logits.element_size() + 4 * n * (t_len + 1)
-    return 1e3 * moved / HBM_BYTES_PER_S
+    return 1e3 * moved / flops.HBM_BYTES_PER_S
 
 
 def beam_phase(beam, beam_cuda):
     """The beam kernel through the entry point ``ops/beam.py:beam_decode``
-    against the plain search at the longline cell's shapes (ids equal, two
-    calls bit-identical, one launch a call), then its timings; returns its
+    held against the plain search at the longline cell's shapes
+    (:func:`held`: ids equal), then its timings; returns the timings'
     launches and the timings by shape."""
-    beam_cuda.beam_decode.launches = 0
-    calls = 0
     cases = [(t_len, dtype, False) for t_len in (79, 95, 111)
              for dtype in (torch.float32, torch.bfloat16)]
     cases.append((111, torch.float32, True))
     for i, (t_len, dtype, merge) in enumerate(cases):
-        logits, lens = beam_case(64, t_len, 64, dtype, seed=100 + i)
-        got = beam.beam_decode(logits, lens, 16, 0, merge)
-        again = beam.beam_decode(logits, lens, 16, 0, merge)
-        calls += 2
-        want = beam.beam_decode_reference(logits, lens, 16, 0, merge)
-        torch.cuda.synchronize()
-        bad = (got != want).any(dim=1).nonzero().flatten().tolist()
-        same = torch.equal(got, again)
-        label = '{} N=64 T={} K=16 C=64 merge={}'.format(
-            str(dtype).split('.')[-1], t_len, merge)
-        print('kernel check beam_decode {:36s} rows differing from the plain '
-              'search {}, two calls bit-identical: {}'.format(
-                  label, len(bad), same), flush=True)
-        check(not bad and same, 'beam_decode {}: rows {} differ from the '
-              'plain search, or calls differ'.format(label, bad[:8]))
-    check(beam_cuda.beam_decode.launches == calls,
-          'beam kernel launched {} times in {} calls'.format(
-              beam_cuda.beam_decode.launches, calls))
-
+        logits, lens = beam_case(64, t_len, 64, 100 + i, dtype)
+        held('beam_decode {} N=64 T={} K=16 C=64 merge={}'.format(
+                 dtype_name(dtype), t_len, merge), beam_cuda.beam_decode,
+             lambda: beam.beam_decode(logits, lens, 16, 0, merge),
+             lambda: beam.beam_decode_reference(logits, lens, 16, 0, merge),
+             exact)
+    beam_cuda.beam_decode.launches = 0
     timings = {}
     for t_len in (23, 111, 1209):
-        logits, lens = beam_case(64, t_len, 64, torch.float32, seed=7)
+        logits, lens = beam_case(64, t_len, 64, 7)
 
         def call():
             beam.beam_decode(logits, lens, 16)
@@ -4514,75 +4262,15 @@ def shifted_phase(mods, card, rec_path, eval_predictions, log,
 
 # --- phase 14: every hidden width and label length the JAX package runs ----
 
-# hidden sizes of phase 14 (a), per direction: no multiple of 8 (padded), the
-# f32 wide path and the bf16 cluster's limit, past one cluster
-WIDTHS = (50, 300, 512, 768, 1024)
-# (label, T, N, ragged) of phase 14 (a), each at every width and type
-WIDTH_CASES = [('N=64 T=23', 23, 64, False), ('N=64 T=111', 111, 64, False),
-               ('ragged N=37 T=23', 23, 37, True), ('N=3 T=1', 1, 3, False)]
 WIDE_HID = 1024          # TRAIN.NUM_HID of phase 14 (b): H = 512 a direction
-
-
-def width_kernels(rnn_cuda, label, c, uni, dtype):
-    """Phase 14 (a) at one case: the four LSTM wrappers against their plain
-    versions, each kernel called twice (bit for bit), the forwards with
-    residuals. Returns the worst shares of the bars by kernel."""
-    args = kernel_args(c)
-    h = c['uf'].shape[0]
-    fwd = rnn_cuda.bilstm_fwd(*args, save_residuals=True)
-    fwd2 = rnn_cuda.bilstm_fwd(*args, save_residuals=True)
-    want = rnn_cuda.bilstm_fwd_reference(*args, save_residuals=True)
-    g = torch.Generator().manual_seed(h)
-    dof, dob = ((torch.randn(fwd[2].shape, generator=g) * 0.1).cuda()
-                .to(dtype) for _ in range(2))
-    res = fwd[1:4] + fwd[5:8]
-    bwd_args = (dof, dob) + res + (c['uf'], c['ub'], c['lens'])
-    bwd = rnn_cuda.bilstm_bwd(*bwd_args)
-    bwd2 = rnn_cuda.bilstm_bwd(*bwd_args)
-    want_b = rnn_cuda.bilstm_bwd_reference(*bwd_args)
-    uargs = (uni['xp'], uni['u'], uni['b'], uni['lens'])
-    ufwd = rnn_cuda.lstm_fwd(*uargs, save_residuals=True)
-    ufwd2 = rnn_cuda.lstm_fwd(*uargs, save_residuals=True)
-    want_u = rnn_cuda.lstm_fwd_reference(*uargs, save_residuals=True)
-    ubargs = (dof,) + tuple(ufwd[1:]) + (uni['u'], uni['lens'])
-    ubwd = rnn_cuda.lstm_bwd(*ubargs)
-    ubwd2 = rnn_cuda.lstm_bwd(*ubargs)
-    want_ub = rnn_cuda.lstm_bwd_reference(*ubargs)
-    torch.cuda.synchronize()
-    out = {}
-    for name, got, again, ref, backward, lens in (
-            ('bilstm_fwd', fwd, fwd2, want, False, c['lens']),
-            ('bilstm_bwd', bwd, bwd2, want_b, True, c['lens']),
-            ('lstm_fwd', ufwd, ufwd2, want_u, False, uni['lens']),
-            ('lstm_bwd', ubwd, ubwd2, want_ub, True, uni['lens'])):
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        if backward:      # phase 2's backward bar: of each output's largest
-            err, share, ok = rel_err(got, ref, dtype)
-            share /= 1e-4 if dtype == torch.float32 else 4 / 256
-        else:
-            err, ok = max_err(got, ref, dtype)
-            share = max(
-                float((a.float() - r.float()).abs().max())
-                / (1e-4 if dtype == torch.float32
-                   else 4 * (float(r.float().abs().max()) or 1.0) / 256)
-                for a, r in zip(got, ref))
-        dead = torch.arange(got[0].shape[0], device='cuda')[:, None] \
-            >= lens[None, :]
-        zero = backward or not got[0][dead].any()
-        check(ok and same and zero and all(
-            a.shape == r.shape for a, r in zip(got, ref)),
-            'phase 14 {} H={} {} {}: max|diff| {}, bit for bit {}, zero past '
-            'lens {}'.format(name, h, label, dtype, err, same, zero))
-        out[name] = share
-    return out
 
 
 def width_timing(rnn_cuda, h, dtype):
     """Phase 14 (a)'s times at one width (batch 64, T=23): each wrapper
     beside cuDNN's ``nn.LSTM`` at the same H (forward, and backward alone)
     and its bound; median CUDA-event ms."""
-    c = bilstm_case(23, 64, dtype, False, seed=h, h=h, d=512)
-    uni = lstm_case(23, 64, dtype, False, seed=h + 1, h=h, d=512)
+    c = bilstm_case(23, 64, dtype, seed=h, h=h, d=512)
+    uni = lstm_case(23, 64, dtype, seed=h + 1, h=h, d=512)
     reps = 10 if h > 512 else 30
     bargs = bilstm_bwd_args(c, rnn_cuda, h)
     ures = rnn_cuda.lstm_fwd(uni['xp'], uni['u'], uni['b'], uni['lens'],
@@ -4611,10 +4299,9 @@ def width_timing(rnn_cuda, h, dtype):
     uni_c = dict(uni, xpf=uni['xp'])
     row['lstm_bwd']['library_ms'] = median_ms(
         cudnn_backward_yardstick(uni_c), reps=reps)
-    row['bilstm_fwd']['bound_ms'], row['bilstm_fwd']['bound_by'] = \
-        bound_ms(c, dtype)
-    row['bilstm_bwd']['bound_ms'], row['bilstm_bwd']['bound_by'] = \
-        bilstm_bwd_bound_ms(c, dtype)
+    (row['bilstm_fwd']['bound_ms'], row['bilstm_fwd']['bound_by']), \
+        (row['bilstm_bwd']['bound_ms'], row['bilstm_bwd']['bound_by']) = \
+        bilstm_bounds(c, dtype)
     row['lstm_fwd']['bound_ms'], row['lstm_fwd']['bound_by'] = \
         lstm_bound_ms(uni, dtype, False)
     row['lstm_bwd']['bound_ms'], row['lstm_bwd']['bound_by'] = \
@@ -4624,94 +4311,26 @@ def width_timing(rnn_cuda, h, dtype):
 
 
 def ctc_long_phase(ctc, ctc_cuda):
-    """Phase 14 (c): the CTC kernels past 511 characters, one block per
-    example walking several states a thread, against their plain versions:
-    logZ and alphas bit for bit, the gradient f32 <= 1e-5, two calls of each
-    bit for bit; ragged, with an empty label, an infeasible and a one-frame
-    example. Also each kernel's time at L=600."""
-    out = {}
-    for l_max in (512, 600, 1024):
-        t_len = 2 * l_max + 9
-        case = ctc_case(ctc, t_len, l_max, seed=l_max, n=16)
-        g, (skip, valid, final) = case['g'], case['masks']
-        check(g.shape[2] == 2 * l_max + 1, 'CTC case S {}'.format(g.shape))
-        logz, alphas = ctc_cuda.ctc_forward(g, skip, valid, final)
-        again = ctc_cuda.ctc_forward(g, skip, valid, final)
-        want_z, want_a = ctc.ctc_forward_reference(g, skip, valid, final)
-        grad = ctc_cuda.ctc_backward(g, skip, valid, final, want_a, want_z,
-                                     case['logit_lens'])
-        grad2 = ctc_cuda.ctc_backward(g, skip, valid, final, want_a, want_z,
-                                      case['logit_lens'])
-        want_g = ctc.ctc_backward_reference(g, skip, valid, final, want_a,
-                                            want_z, case['logit_lens'])
-        torch.cuda.synchronize()
-        bits = torch.equal(logz, want_z) and torch.equal(alphas, want_a)
-        same = torch.equal(logz, again[0]) and torch.equal(alphas, again[1]) \
-            and torch.equal(grad, grad2)
-        err = float((grad - want_g).abs().max())
-        infeasible = float(logz[2]) <= ctc.NEG_INF / 2 and not grad[2].any()
-        print('phase 14 ctc L={} T={} S={} N=16: logZ and alphas bit for bit '
-              '{}, grad max|diff| {:.3e} (bar 1e-5), two calls bit for bit {}, '
-              'infeasible example zero {}'.format(
-                  l_max, t_len, g.shape[2], bits, err, same, infeasible),
-              flush=True)
-        check(bits and same and err <= 1e-5 and infeasible,
-              'phase 14 ctc L={}: bit for bit {}, grad {}, same {}'.format(
-                  l_max, bits, err, same))
-        row = {'t': t_len, 's': int(g.shape[2]), 'grad_max_abs_err': err}
-        if l_max == 600:
-            row['fwd_ms'] = median_ms(
-                lambda: ctc_cuda.ctc_forward(g, skip, valid, final), reps=10)
-            row['bwd_ms'] = median_ms(
-                lambda: ctc_cuda.ctc_backward(g, skip, valid, final, want_a,
-                                              want_z, case['logit_lens']),
-                reps=10)
-            row['fwd_plain_ms'] = median_ms(
-                lambda: ctc.ctc_forward_reference(g, skip, valid, final),
-                reps=3, warmup=1)
-            row['fwd_bound_ms'], row['fwd_bound_by'] = ctc_bound_ms(case,
-                                                                    False)
-            row['bwd_bound_ms'], row['bwd_bound_by'] = ctc_bound_ms(case, True)
-        out['L={}'.format(l_max)] = row
-    return out
-
-
-def conv_bn_any_phase(conv_bn_cuda):
-    """Phase 14 (d): ``conv3x3_bn_relu`` at C_in 1 (a first conv layer, W=96
-    by 32) and 24 (W=24 by 4), batch 64, against its plain version at phase
-    2's bars (f32 2e-5, bf16 2e-2, absolute + relative), two runs bit for
-    bit."""
-    out = {}
-    g = torch.Generator().manual_seed(14)
-    for ci, co, w, h in ((1, 64, 96, 32), (24, 128, 24, 4)):
-        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-            def rnd(*shape, scale=1.0, shift=0.0):
-                return (torch.randn(*shape, generator=g) * scale + shift
-                        ).cuda()
-            x = rnd(64, ci, w, h).to(dtype)
-            args = (rnd(co, ci, 3, 3, scale=(9 * ci) ** -0.5),
-                    rnd(co, scale=0.1), rnd(co, scale=0.1, shift=1.0),
-                    rnd(co, scale=0.1))
-            with torch.no_grad():
-                got = conv_bn_cuda.conv3x3_bn_relu(x, *args)
-                again = conv_bn_cuda.conv3x3_bn_relu(x, *args)
-                want = conv_bn_cuda.conv3x3_bn_relu_reference(x, *args)
-            torch.cuda.synchronize()
-            d = (got.float() - want.float()).abs()
-            share = float((d / (tol + tol * want.float().abs())).max())
-            same = torch.equal(got, again)
-            label = 'C_in={} {}'.format(ci, 'f32' if dtype == torch.float32
-                                        else 'bf16')
-            print('phase 14 conv_bn {} [64, {}, {}, {}] -> {}: max|diff| '
-                  '{:.3e} ({:.0%} of the bar), two runs bit for bit {}'.format(
-                      label, ci, w, h, co, float(d.max()), share, same),
-                  flush=True)
-            check(share <= 1.0 and same
-                  and tuple(got.shape) == (64, co, w, h),
-                  'phase 14 conv_bn {}: {} of the bar, same {}'.format(
-                      label, share, same))
-            out[label] = float(d.max())
-    return out
+    """Phase 14 (c): the CTC kernels' times at L=600 (T=1,209, S=1,201,
+    batch 16, ragged), one block per example walking several states a
+    thread, beside the plain forward and the bound."""
+    l_max, t_len = 600, 1209
+    case = ctc_case(ctc, t_len, l_max, seed=l_max, n=16)
+    g, masks, lens = case['g'], case['masks'], case['logit_lens']
+    logz, alphas = ctc_cuda.ctc_forward(g, *masks)
+    row = {'t': t_len, 's': int(g.shape[2]),
+           'fwd_ms': median_ms(lambda: ctc_cuda.ctc_forward(g, *masks),
+                               reps=10),
+           'bwd_ms': median_ms(lambda: ctc_cuda.ctc_backward(
+               g, *masks, alphas, logz, lens), reps=10),
+           'fwd_plain_ms': median_ms(
+               lambda: ctc.ctc_forward_reference(g, *masks), reps=3,
+               warmup=1)}
+    (row['fwd_bound_ms'], row['fwd_bound_by']), \
+        (row['bwd_bound_ms'], row['bwd_bound_by']) = ctc_bounds(case)
+    print('phase 14 ctc timing L={} {}'.format(l_max, json.dumps(row)),
+          flush=True)
+    return {'L={}'.format(l_max): row}
 
 
 def wide_stacked_model(mods, cfg):
@@ -4914,10 +4533,10 @@ def wide_path_phase(mods, card, rec_path, log):
 
 
 def width_phase(mods, card, rec_path, log):
-    """Phase 14: (a) the four LSTM kernels at every width of ``WIDTHS``
-    against their plain versions, with times beside cuDNN; (b) the
-    NUM_HID 1024 path; (c) CTC past 511 characters; (d) conv_bn at any
-    C_in. Returns the launches by path of (b) and the phase's numbers."""
+    """Phase 14: (a) the four LSTM kernels' times past the main path's
+    width, beside cuDNN; (b) the NUM_HID 1024 path; (c) CTC past 511
+    characters. Returns the launches by path of (b) and the phase's
+    numbers."""
     rnn_cuda, ctc_cuda, ctc = mods['rnn_cuda'], mods['ctc_cuda'], mods['ctc']
     build = mods['build']
     t_phase = time.perf_counter()
@@ -4929,25 +4548,6 @@ def width_phase(mods, card, rec_path, log):
             name, 512, rnn_cuda.units_per_block(512))
         print('phase 14 {} bf16 cluster at H=512: {}'.format(
             name, json.dumps(ptxas[name]['cluster_h512'])), flush=True)
-    shares = {}
-    for h in WIDTHS:
-        for dtype in (torch.float32, torch.bfloat16):
-            tag = '{} H={}'.format('f32' if dtype == torch.float32 else 'bf16',
-                                   h)
-            worst = {}
-            for label, t_len, n, ragged in WIDTH_CASES:
-                seed = h + t_len + n
-                c = bilstm_case(t_len, n, dtype, ragged, seed, h=h, d=64)
-                uni = lstm_case(t_len, n, dtype, ragged, seed + 1, h=h, d=64)
-                for k, v in width_kernels(rnn_cuda, label, c, uni,
-                                          dtype).items():
-                    worst[k] = max(worst.get(k, 0.0), v)
-            print('phase 14 {}: worst share of the bar over {} cases {}, '
-                  'the {} kernels, two calls bit for bit'.format(
-                      tag, len(WIDTH_CASES), json.dumps(
-                          {k: round(v, 4) for k, v in worst.items()}),
-                      rnn_cuda.kernel_path(dtype, h)), flush=True)
-            shares[tag] = worst
     timings = {}
     for h in (512, 768, 1024):
         for dtype in (torch.bfloat16, torch.float32):
@@ -4959,13 +4559,11 @@ def width_phase(mods, card, rec_path, log):
     t_a = time.perf_counter() - t_phase
     launches, wide = wide_path_phase(mods, card, rec_path, log)
     ctc_long = ctc_long_phase(ctc, ctc_cuda)
-    conv_any = conv_bn_any_phase(mods['conv_bn_cuda'])
     seconds = time.perf_counter() - t_phase
     print('phase 14: took {:.1f} s ((a) {:.1f} s) on {}'.format(
         seconds, t_a, card), flush=True)
-    return launches, {'shares': shares, 'timings': timings, 'ptxas': ptxas,
-                      'wide_path': wide, 'ctc_long': ctc_long,
-                      'conv_bn_any_c_in': conv_any, 'seconds': seconds}
+    return launches, {'timings': timings, 'ptxas': ptxas, 'wide_path': wide,
+                      'ctc_long': ctc_long, 'seconds': seconds}
 
 
 def phase_alone(mods, card, kind, phase):
@@ -5108,12 +4706,12 @@ def main():
               '--phase takes 12, 13 or 14, got {}'.format(sys.argv[2:]))
         return phase_alone(mods, card, kind, sys.argv[2])
 
-    errs, timings = bilstm_fwd_phase(rnn_cuda, _build)
-    bwd_errs, bwd_timings = bilstm_bwd_phase(rnn_cuda, _build)
-    lstm_errs, lstm_timings = lstm_phase(rnn, rnn_cuda, _build)
-    ctc_errs, ctc_timings = ctc_phase(ctc, ctc_cuda, _build)
-    conv_errs, conv_timings, conv_launches = conv_bn_phase(
-        bench_conv_bn, conv_bn_cuda, _build)
+    timings = bilstm_fwd_phase(rnn_cuda, _build)
+    bwd_timings = bilstm_bwd_phase(rnn_cuda, _build)
+    lstm_timings = lstm_phase(rnn, rnn_cuda, _build)
+    ctc_timings = ctc_phase(ctc, ctc_cuda, _build)
+    conv_timings, conv_launches = conv_bn_phase(bench_conv_bn, conv_bn_cuda,
+                                                _build)
     beam_kernel_launches, beam_timings = beam_phase(beam, beam_cuda)
     htr = htr_phase(rnn_cuda, ctc_cuda, ctc)
 
@@ -5245,7 +4843,7 @@ def main():
             'train': train_launches['bilstm_fwd'],
             'dispatch_train': dispatch_launches['bilstm_fwd']},
             **later_paths('bilstm_fwd')),
-        'max_abs_err': errs[('bf16 N=64 T=23', False)],
+        'max_abs_err': fwd['max_abs_err'],
         'ms': fwd['kernel_ms'],
         'device_ms': fwd['device_ms'],
         'kernel_ms': fwd['kernel_ms'],
@@ -5281,7 +4879,7 @@ def main():
             'train': train_launches['bilstm_bwd'],
             'dispatch_train': dispatch_launches['bilstm_bwd']},
             **later_paths('bilstm_bwd')),
-        'max_abs_err': bwd_errs['bf16 N=64 T=23'],
+        'max_abs_err': bwd['max_abs_err'],
         'ms': bwd['kernel_ms'],
         'device_ms': bwd['device_ms'],
         'plain_ms': bwd['plain_ms'],
@@ -5305,7 +4903,7 @@ def main():
         'source': 'lstm_ctc_ocr_torch/csrc/ctc.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/ctc_pallas.py:54',
         'tpu_kernel': 'ops/ctc_pallas.py:_fwd_kernel',
-        'max_abs_err': ctc_errs['N=64 T=23 L=6']['ctc_fwd'],
+        'max_abs_err': ctc_row['fwd_max_abs_err'],
         'ms': ctc_row['fwd_ms'],
         'device_ms': ctc_row['fwd_device_ms'],
         'plain_ms': ctc_row['fwd_plain_ms'],
@@ -5317,6 +4915,7 @@ def main():
         'shape': 'f32 T=23 N=64 S=13',
         'device_tflops': ctc_row['fwd_device_tflops'],
         'host_ms': ctc_row['fwd_host_ms'],
+        'ms_reads': CTC_MS_READS,
         'ptxas': ctc_timings['ptxas'],
         't111': dict({k[4:]: ctc111[k] for k in (
             'fwd_ms', 'fwd_device_ms', 'fwd_host_ms', 'fwd_plain_ms',
@@ -5328,7 +4927,7 @@ def main():
         'source': 'lstm_ctc_ocr_torch/csrc/ctc.cu',
         'replaces': 'lstm_ctc_ocr_tpu/ops/ctc_pallas.py:89',
         'tpu_kernel': 'ops/ctc_pallas.py:_bwd_kernel',
-        'max_abs_err': ctc_errs['N=64 T=23 L=6']['ctc_bwd'],
+        'max_abs_err': ctc_row['bwd_max_abs_err'],
         'ms': ctc_row['bwd_ms'],
         'device_ms': ctc_row['bwd_device_ms'],
         'plain_ms': ctc_row['bwd_plain_ms'],
@@ -5340,6 +4939,7 @@ def main():
         'shape': 'f32 T=23 N=64 S=13',
         'device_tflops': ctc_row['bwd_device_tflops'],
         'host_ms': ctc_row['bwd_host_ms'],
+        'ms_reads': CTC_MS_READS,
         'ptxas': ctc_timings['ptxas'],
         't111': dict({k[4:]: ctc111[k] for k in (
             'bwd_ms', 'bwd_device_ms', 'bwd_plain_ms', 'bwd_bound_ms',
@@ -5355,7 +4955,7 @@ def main():
             'stacked_lstm': stacked_launches['lstm_fwd'],
             'serve': serve_launches['lstm_fwd']},
             **later_paths('lstm_fwd')),
-        'max_abs_err': lstm_errs['bf16 N=64 T=23']['lstm_fwd'],
+        'max_abs_err': uni['fwd_max_abs_err'],
         'ms': uni['fwd_ms'],
         'device_ms': uni['fwd_device_ms'],
         'kernel_with_residuals_ms': uni['fwd_residuals_ms'],
@@ -5383,7 +4983,7 @@ def main():
         'launches_by_path': dict(
             {'stacked_lstm': stacked_launches['lstm_bwd']},
             **later_paths('lstm_bwd')),
-        'max_abs_err': lstm_errs['bf16 N=64 T=23']['lstm_bwd'],
+        'max_abs_err': uni['bwd_max_abs_err'],
         'ms': uni['bwd_ms'],
         'device_ms': uni['bwd_device_ms'],
         'plain_ms': uni['bwd_plain_ms'],
@@ -5402,7 +5002,7 @@ def main():
         'tpu_kernel': 'ops/conv_bn_pallas.py:_kernel',
         'launches': conv_launches,
         'launches_by_path': {'bench_conv_bn': conv_launches},
-        'max_abs_err': conv_errs['conv4_1 bf16'],
+        'max_abs_err': conv_row['max_abs_err'],
         'ms': conv_row['kernel_ms'],
         'device_ms': conv_row['device_ms'],
         'plain_ms': conv_row['plain_ms'],
@@ -5421,7 +5021,7 @@ def main():
         'tpu_kernel': None,
         'launches': beam_cuda.beam_decode.launches + serve_launches['beam'],
         'launches_by_path': {
-            'kernel_check': beam_kernel_launches, 'eval': eval_beam_launches,
+            'kernel_phase': beam_kernel_launches, 'eval': eval_beam_launches,
             'serve': serve_launches['beam'],
             'later_phases_in_process': beam_cuda.beam_decode.launches
             - beam_kernel_launches - eval_beam_launches},

@@ -10,7 +10,8 @@ On the card (skipped without one): the kernel's ids equal the plain
 version's, entry for entry, over K in {1, 2, 16}, C in {2, 12, 64}, T in
 {1, 23, 111, 191, 1209}, ragged lengths with 0 and T, logits at scales 1
 and 10, both ``merge_repeated`` settings, f32 and bf16 logits and N in {1,
-64, 300}; two calls give the same bits; the wrapper's shared-memory total
+64, 300}; at the longline cell's shapes (T = 79, 95, 111) the same, and
+two calls give the same bits; the wrapper's shared-memory total
 equals the built kernel's; and the 200 ``data/val_longline``
 lines through the tracked longline release decode to the plain version's
 strings. The file imports no JAX, so it runs on the GPU machine::
@@ -177,15 +178,29 @@ def test_shared_bytes_equal_the_kernels_layout(cuda_device):
                     beam_cuda.kernel_shared_bytes(t, k, c), (t, k, c)
 
 
-def test_kernel_is_deterministic_and_takes_strided_logits(cuda_device):
-    logits, lens = _logits(64, 111, 64, 5, (1.0, 10.0))
-    logits, lens = logits.to(cuda_device), lens.to(cuda_device)
-    a = beam.beam_decode(logits, lens)
-    b = beam.beam_decode(logits, lens)
+@pytest.mark.parametrize('t,dtype,merge', [
+    (79, 'float32', False), (79, 'bfloat16', False), (95, 'float32', False),
+    (95, 'bfloat16', False), (111, 'float32', False),
+    (111, 'bfloat16', False), (111, 'float32', True)])
+def test_kernel_is_deterministic_and_takes_strided_logits(cuda_device, t,
+                                                          dtype, merge):
+    """At the crnn_longline.eval_beam cell's shapes (N = 64, K = 16, C = 64,
+    T = 79, 95 and 111, its buckets' frames): the ids equal the plain
+    search's, and a second call and time-major logits give the same bits,
+    one launch a call."""
+    logits, lens = _logits(64, t, 64, 5, (1.0, 10.0))
+    logits = logits.to(cuda_device, getattr(torch, dtype))
+    lens = lens.to(cuda_device)
+    before = beam_cuda.beam_decode.launches
+    a = beam.beam_decode(logits, lens, merge_repeated=merge)
+    b = beam.beam_decode(logits, lens, merge_repeated=merge)
     # time-major storage, as the model hands logits over
     strided = logits.transpose(0, 1).contiguous().transpose(0, 1)
-    c = beam.beam_decode(strided, lens)
+    c = beam.beam_decode(strided, lens, merge_repeated=merge)
+    assert beam_cuda.beam_decode.launches == before + 3
+    want = beam.beam_decode_reference(logits, lens, 16, 0, merge)
     torch.cuda.synchronize()
+    assert torch.equal(a, want)
     assert torch.equal(a, b) and torch.equal(a, c)
 
 

@@ -5,20 +5,28 @@ no JAX, so it runs on the GPU machine without the repo's conftest::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
+This file, tests/test_torch_beam_cuda.py and tests/test_torch_htr_cuda.py
+hold the kernels' cases on the card, edge cases among them (ragged and
+partial batches, every width, the CTC kernels' path boundaries and long
+labels); ``chip_smoke.py`` holds each kernel at the main path's shapes at
+these bars and times it there. A new edge case is one more tuple in the
+test that checks the same property.
+
 Tolerances: f32 max |difference| <= 1e-4 (the kernel and the plain version
 sum the recurrent product in different orders); bf16 <= 4 bf16 ulps of each
 output's magnitude, 4 * max|ref| / 256, as tests/test_rnn_pallas.py
 defines it. The BiLSTM backward's f32 bar is 1e-4 relative to each
-output's largest entry (dU sums T*N products). CTC: 1e-5 on loss, alphas
-and gradient (f32 throughout, same operation order), and the forward
-bit-identical to its plain version at its path boundaries. The unidirectional
-LSTM kernels carry the BiLSTM kernels' bars at H = 512. The fused
+output's largest entry (dU sums T*N products). CTC: the forward
+bit-identical to its plain version, the gradient within 1e-5 of it (f32
+throughout, same operation order). The unidirectional LSTM kernels carry
+the BiLSTM kernels' bars at H = 512 and at every width. The fused
 conv3x3+BN+ReLU kernel: 2e-5 absolute and relative in f32, 2e-2 in bf16
-(the bars of tests/test_conv_bn_pallas.py), and two runs bit-identical, as
-for the LSTM backward at the edges of its bf16 cluster tiling.
-Two tests train from the synthetic stream, with worker processes forked
-after CUDA has started, and count the kernels' launches; the last exports a
-decode program (``engine/serve.py``) and counts kernel 1's launch in it.
+(the bars of tests/test_conv_bn_pallas.py), against its plain version and
+the unfused layer, and two runs bit-identical, as for the LSTM kernels at
+the edges of their bf16 cluster tiling. Two tests train from the synthetic
+stream, with worker processes forked after CUDA has started, and count the
+kernels' launches; the last exports a decode program (``engine/serve.py``)
+and counts kernel 1's launch in it.
 """
 
 import os
@@ -28,6 +36,7 @@ import pytest
 import torch
 
 from lstm_ctc_ocr_torch.ops import conv_bn_cuda, ctc, ctc_cuda, rnn, rnn_cuda
+from lstm_ctc_ocr_torch.tools import bench_conv_bn
 
 
 @pytest.fixture
@@ -41,7 +50,22 @@ def cuda_device():
 def _atol(ref, dtype):
     if dtype == torch.float32:
         return 1e-4
-    return 4 * max(float(ref.abs().max()), 1.0) / 256.0
+    return 4 * (float(ref.abs().max()) or 1.0) / 256.0
+
+
+# every hidden width a direction the JAX package runs off the main path's:
+# no multiple of 8 (zero-padded), the bf16 cluster's limit of 512 and past
+# it the wide recurrence; at the eval buckets' T = 23 and 111 with batch 64,
+# a ragged batch of 37 and T = 1. test_kernels_take_every_width is their one
+# home; the edge tests below take the main path's widths and the tiling's
+WIDTH_CASES = [(t, n, h) for h in (50, 300, 512, 768, 1024)
+               for t, n in ((23, 64), (111, 64), (23, 37), (1, 3))]
+# the htr_puigcerver.train_graphed cell's layer: batch 16 at T = 224, H = 256;
+# its rows run their own 137-222 frames and its forget bias is 0
+HTR = (224, 16, 256)
+# its CTC case, (T, L, N, C, frames): labels of 22-24 of 80 classes, each
+# line's own 137-222 frames
+HTR_CTC = (224, 24, 16, 80, (137, 222))
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
@@ -80,6 +104,15 @@ def _ragged_lens(t, n, dev):
     return torch.from_numpy(lens.astype(np.int32)).to(dev)
 
 
+def _bilstm_lens(t, n, h, dev):
+    """A BiLSTM case's lengths and forget bias: at :data:`HTR` the cell's
+    own (137-222 frames, forget bias 0), else :func:`_ragged_lens` and 1."""
+    if (t, n, h) == HTR:
+        lens = np.linspace(137, 222, n).astype(np.int32)
+        return torch.from_numpy(lens).to(dev), 0.0
+    return _ragged_lens(t, n, dev), 1.0
+
+
 def _check_fwd(got, again, want, dt, lens, outputs):
     """A forward's results within the bar of the plain version, a second
     call bit-identical, and the ``outputs`` (indices) zero at dead steps."""
@@ -96,28 +129,29 @@ def _check_fwd(got, again, want, dt, lens, outputs):
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('t,n,h', [(23, 64, 256), (111, 64, 256),
-                                   (7, 37, 256), (1, 3, 256), (5, 20, 136),
-                                   (3, 4, 8)])
+@pytest.mark.parametrize('t,n,h', [
+    (23, 64, 256), (111, 64, 256), (7, 37, 256), (1, 3, 256), (5, 20, 136),
+    (3, 4, 8), (23, 37, 256), HTR])
 def test_bilstm_fwd_cluster_edges_and_determinism(cuda_device, dtype, t, n,
                                                   h):
     """``bilstm_fwd`` at the edges of the bf16 cluster tiling (f32 runs the
     wide recurrence on the same cases): the eval buckets' T = 23
     and 111 at batch 64, rows dying inside a 16-row group and a row of
     length 0, T = 1, a partial last row group, H = 136 (the last block owns
-    fewer units) and H = 8 (one block); residuals off and on, each called
-    twice: bit-identical."""
+    fewer units) and H = 8 (one block); the handwriting cell's layer
+    (:data:`HTR`); residuals off and on, each called twice:
+    bit-identical."""
     dt = getattr(torch, dtype)
     rng = np.random.RandomState(3 * t + n + h)
 
     def mk(*shape, scale=1.0):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)
                                 * scale).to(cuda_device, dt)
-    lens = _ragged_lens(t, n, cuda_device)
+    lens, fb = _bilstm_lens(t, n, h, cuda_device)
     xp = mk(t, n, 8 * h)           # both projections as slices of one
     args = (xp[:, :, :4 * h], xp[:, :, 4 * h:], mk(h, 4 * h, scale=h ** -0.5),
             mk(h, 4 * h, scale=h ** -0.5), mk(4 * h, scale=0.1),
-            mk(4 * h, scale=0.1), lens)
+            mk(4 * h, scale=0.1), lens, fb)
     for residuals in (False, True):
         before = rnn_cuda.bilstm_fwd.launches
         got = rnn_cuda.bilstm_fwd(*args, save_residuals=residuals)
@@ -131,14 +165,14 @@ def test_bilstm_fwd_cluster_edges_and_determinism(cuda_device, dtype, t, n,
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('t,n,h', [(23, 64, 512), (111, 64, 512),
-                                   (7, 37, 512), (1, 3, 256), (6, 20, 136),
-                                   (11, 1, 8)])
+@pytest.mark.parametrize('t,n,h', [
+    (23, 64, 512), (111, 64, 512), (7, 37, 512), (1, 3, 256), (6, 20, 136),
+    (11, 1, 8), (23, 37, 512), (11, 5, 8)])
 def test_lstm_fwd_cluster_edges_and_determinism(cuda_device, dtype, t, n, h):
     """``lstm_fwd`` at the edges of the bf16 cluster tiling (f32 runs the
     wide recurrence on the same cases): the stacked head's H = 512
     at T = 23 and 111, rows dying inside a 16-row group and a row of length
-    0, T = 1, N = 1 and 3 (a partial row group), H = 136 (the last block
+    0, T = 1, N = 1, 3 and 5 (a partial row group), H = 136 (the last block
     owns fewer units than the others, U's columns zero-filled past H) and
     H = 8 (a cluster of one block); residuals off and on, each called
     twice: bit-identical."""
@@ -247,28 +281,30 @@ def test_bilstm_bwd_kernel_matches_reference(cuda_device, dtype, t, n):
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('t,n,h', [(23, 37, 256), (111, 64, 256), (1, 5, 256),
-                                   (11, 1, 8), (6, 20, 136), (4, 17, 200)])
+@pytest.mark.parametrize('t,n,h', [
+    (23, 37, 256), (111, 64, 256), (1, 5, 256), (11, 1, 8), (6, 20, 136),
+    (4, 17, 200), (23, 64, 256), (7, 37, 256), (1, 3, 256), HTR])
 def test_bilstm_bwd_cluster_edges_and_determinism(cuda_device, dtype, t, n,
                                                   h):
     """``bilstm_bwd`` at the edges of the bf16 cluster tiling, both
     directions: rows that die at different t inside one 16-row group and a
     row of length 0; T = 1 (both directions' carries are zero); a partial
-    last row group (N = 37, 5, 1, 20, 17); H from one block of 8 units to
-    16 blocks of 16, and H = 136 and 200, whose last cluster block owns
-    fewer units than the others. Two calls are bit-identical, and dead
-    steps give dx = 0."""
+    last row group (N = 37, 5, 3, 1, 20, 17); H from one block of 8 units
+    to 16 blocks of 16, and H = 136 and 200, whose last cluster block owns
+    fewer units than the others; the handwriting cell's layer
+    (:data:`HTR`). Two calls are bit-identical, and dead steps give
+    dx = 0."""
     dt = getattr(torch, dtype)
     rng = np.random.RandomState(3 * t + n + h)
 
     def mk(*shape, scale=1.0):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)
                                 * scale).to(cuda_device, dt)
-    lens = _ragged_lens(t, n, cuda_device)
+    lens, fb = _bilstm_lens(t, n, h, cuda_device)
     uf, ub = mk(h, 4 * h, scale=h ** -0.5), mk(h, 4 * h, scale=h ** -0.5)
     _, gf, hf, cf, _, gb, hb, cb = rnn_cuda.bilstm_fwd(
         mk(t, n, 4 * h), mk(t, n, 4 * h), uf, ub, mk(4 * h, scale=0.1),
-        mk(4 * h, scale=0.1), lens, save_residuals=True)
+        mk(4 * h, scale=0.1), lens, fb, save_residuals=True)
     args = (mk(t, n, h), mk(t, n, h), gf, hf, cf, gb, hb, cb, uf, ub, lens)
     before = rnn_cuda.bilstm_bwd.launches
     got = rnn_cuda.bilstm_bwd(*args)
@@ -277,7 +313,7 @@ def test_bilstm_bwd_cluster_edges_and_determinism(cuda_device, dtype, t, n,
     want = rnn_cuda.bilstm_bwd_reference(*args)
     torch.cuda.synchronize()
     for i, (g, a, w) in enumerate(zip(got, again, want)):
-        assert torch.equal(g, a), i
+        assert torch.equal(g, a) and g.shape == w.shape, i
         w = w.float()
         scale = max(float(w.abs().max()), 1e-6)
         tol = 1e-4 * scale if dt == torch.float32 else 4 * scale / 256.0
@@ -315,29 +351,50 @@ def test_bilstm_gradients_through_kernels(cuda_device):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
 
 
-def _ctc_case(rng, n, t, l, c=64):
-    """Logits, labels and lengths with a ragged batch, a repeated label, an
-    empty label and an infeasible example."""
+def _ctc_case(rng, n, t, l, c=64, frames=None):
+    """Logits, labels and lengths with a ragged batch (rows of ``frames``,
+    (least, most), by default T/2 to T frames), a repeated label, an empty
+    label and an infeasible example. At L = 0 every label is empty, in a
+    label matrix one wide, as the port's callers pad it
+    (``ops/ctc.py:ctc_loss_flat``)."""
     logits = (rng.randn(n, t, c) * 2).astype(np.float32)
-    labels = rng.randint(1, c, (n, l)).astype(np.int32)
-    label_lens = rng.randint(1, l + 1, n).astype(np.int32)
-    logit_lens = rng.randint(max(1, t // 2), t + 1, n).astype(np.int32)
-    labels[0, 1] = labels[0, 0]
+    labels = rng.randint(1, c, (n, max(l, 1))).astype(np.int32)
+    label_lens = (rng.randint(1, l + 1, n) if l else np.zeros(n)) \
+        .astype(np.int32)
+    least, most = frames or (max(1, t // 2), t)
+    logit_lens = rng.randint(least, most + 1, n).astype(np.int32)
     label_lens[0], logit_lens[0] = l, t
-    label_lens[1] = 0                              # empty label
-    label_lens[2], logit_lens[2] = l, min(l - 1, t)   # infeasible
     logit_lens[3] = 1
-    label_lens[3] = 1
+    if l:
+        labels[0, 1] = labels[0, 0]
+        label_lens[1] = 0                              # empty label
+        label_lens[2], logit_lens[2] = l, min(l - 1, t)   # infeasible
+        label_lens[3] = 1
     for i in range(n):
         labels[i, label_lens[i]:] = 0
     return logits, labels, label_lens, logit_lens
 
 
-@pytest.mark.parametrize('t,l', [(23, 6), (111, 24), (1, 2), (40, 63),
-                                 (140, 64), (300, 200), (600, 511)])
+@pytest.mark.parametrize('t,l', [
+    (23, 6), (111, 24), (1, 2), (40, 63), (140, 64), (300, 200), (600, 511),
+    # both sides of each path boundary (S = 31/33: one or two states a lane
+    # of the warp kernels; S = 63/65: the block kernels past them), L = 0
+    # alone, T = 1, T around one and two of the warp kernels' 16-step chunks
+    (50, 15), (50, 16), (100, 31), (100, 32), (160, 64), (560, 511), (23, 0),
+    (1, 6), (15, 6), (16, 6), (17, 6), (31, 15), (32, 24), (33, 24),
+    # the htr_puigcerver cell's labels at its T; past 511 characters, the
+    # block kernels' threads walking several states each
+    (224, 24), (1033, 512), (1209, 600), (2057, 1024)])
 def test_ctc_kernels_match_reference(cuda_device, t, l):
+    """``ctc_fwd``'s logZ and alphas bit-identical to the plain version and
+    ``ctc_bwd`` within 1e-5 of it, each called twice with the same bits, on
+    a ragged batch of 64 (at :data:`HTR_CTC` the cell's batch, classes and
+    frames), with the masks the port's loss builds: the empty label's logZ
+    finite, the infeasible example's at -inf with a zero gradient."""
     rng = np.random.RandomState(t + l)
-    logits, labels, label_lens, logit_lens = _ctc_case(rng, 64, t, l)
+    n, c, frames = HTR_CTC[2:] if (t, l) == HTR_CTC[:2] else (64, 64, None)
+    logits, labels, label_lens, logit_lens = _ctc_case(rng, n, t, l, c,
+                                                       frames)
     dev = cuda_device
     logp = torch.log_softmax(torch.from_numpy(logits).to(dev), -1)
     ext = ctc.extended_labels(torch.from_numpy(labels).to(dev))
@@ -348,25 +405,31 @@ def test_ctc_kernels_match_reference(cuda_device, t, l):
     g = ctc._gather_logp(logp, ext, tl).contiguous()
     f0, b0 = ctc_cuda.ctc_forward.launches, ctc_cuda.ctc_backward.launches
     logz, alphas = ctc_cuda.ctc_forward(g, skip, valid, final)
+    fwd_again = ctc_cuda.ctc_forward(g, skip, valid, final)
     grad = ctc_cuda.ctc_backward(g, skip, valid, final, alphas, logz, tl)
+    again = ctc_cuda.ctc_backward(g, skip, valid, final, alphas, logz, tl)
     torch.cuda.synchronize()
-    assert ctc_cuda.ctc_forward.launches == f0 + 1
-    assert ctc_cuda.ctc_backward.launches == b0 + 1
+    assert ctc_cuda.ctc_forward.launches == f0 + 2
+    assert ctc_cuda.ctc_backward.launches == b0 + 2
     logz_r, alphas_r = ctc.ctc_forward_reference(g, skip, valid, final)
     grad_r = ctc.ctc_backward_reference(g, skip, valid, final, alphas_r,
                                         logz_r, tl)
-    assert float(logz[2]) <= ctc.NEG_INF / 2 and not grad[2].any()
-    torch.testing.assert_close(logz, logz_r, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(alphas, alphas_r, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(grad, grad_r, rtol=1e-5, atol=1e-5)
+    assert torch.equal(logz, logz_r) and torch.equal(alphas, alphas_r)
+    assert torch.equal(fwd_again[0], logz) and \
+        torch.equal(fwd_again[1], alphas) and torch.equal(again, grad)
+    assert float((grad - grad_r).abs().max()) <= 1e-5
+    assert bool(torch.isfinite(logz[1]))
+    if l:
+        assert float(logz[2]) <= ctc.NEG_INF / 2 and not grad[2].any()
 
 
 @pytest.mark.parametrize('t,l', [(40, 15), (40, 16), (80, 31), (80, 32),
-                                 (1, 6), (17, 15), (33, 24)])
+                                 (1, 6), (17, 15), (33, 24), (23, 6),
+                                 (111, 24)])
 def test_ctc_bwd_paths_on_both_sides_of_each_boundary(cuda_device, t, l):
     """The CTC kernels' warp paths with one state a lane (S = 31), with two
-    (S = 33 and 63) and the block kernels past them (S = 65), at T = 1 and
-    odd T, on a batch of 37 and on its first example alone: ``ctc_fwd``
+    (S = 33, 49 and 63) and the block kernels past them (S = 65), at T = 1
+    and odd T, on a batch of 37 and on its first example alone: ``ctc_fwd``
     bit-identical to the plain version, ``ctc_bwd`` within 1e-5 of it, two
     calls of each bit-identical, and the same bits from copies of the
     inputs that start 4 bytes past a 16-byte boundary."""
@@ -392,9 +455,10 @@ def test_ctc_bwd_paths_on_both_sides_of_each_boundary(cuda_device, t, l):
     for got, twice, want in zip(fwd, fwd_again, (logz, alphas)):
         assert torch.equal(got, want) and torch.equal(twice, got)
     assert torch.equal(grad, again)
-    want = ctc.ctc_backward_reference(g, skip, valid, final, alphas, logz, tl)
+    grad_r = ctc.ctc_backward_reference(g, skip, valid, final, alphas, logz,
+                                        tl)
     assert float(logz[2]) <= ctc.NEG_INF / 2 and not grad[2].any()
-    torch.testing.assert_close(grad, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grad, grad_r, rtol=1e-5, atol=1e-5)
 
     def off16(x):
         buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
@@ -406,14 +470,16 @@ def test_ctc_bwd_paths_on_both_sides_of_each_boundary(cuda_device, t, l):
     for got, want in zip(ctc_cuda.ctc_forward(*shifted[:4]), (logz, alphas)):
         assert torch.equal(got, want)
 
-    # N = 1: the first example alone (full length, the longest label)
+    # N = 1: the first example alone (full length, the longest label), each
+    # kernel called twice, against the plain version's first example
     one = [x[:1].contiguous() for x in (g, skip, valid, final)]
-    for got, want in zip(ctc_cuda.ctc_forward(*one), (logz, alphas)):
-        assert torch.equal(got, want[:1])
-    torch.testing.assert_close(
-        ctc_cuda.ctc_backward(*one, alphas[:1].contiguous(),
-                              logz[:1].contiguous(), tl[:1].contiguous()),
-        grad[:1], rtol=1e-5, atol=1e-5)
+    one_bwd = one + [x[:1].contiguous() for x in (alphas, logz, tl)]
+    for _ in range(2):
+        for got, want in zip(ctc_cuda.ctc_forward(*one), (logz, alphas)):
+            assert torch.equal(got, want[:1])
+    grad_one = ctc_cuda.ctc_backward(*one_bwd)
+    assert torch.equal(ctc_cuda.ctc_backward(*one_bwd), grad_one)
+    torch.testing.assert_close(grad_one, grad_r[:1], rtol=1e-5, atol=1e-5)
 
 
 def test_ctc_loss_on_cuda_matches_cpu(cuda_device):
@@ -487,7 +553,7 @@ def _lstm_case(rng, dev, dt, t, n, h):
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('t,n,h', [(23, 64, 512), (7, 37, 512), (9, 5, 256),
-                                   (1, 3, 8)])
+                                   (1, 3, 8), (111, 64, 512), (23, 37, 512)])
 def test_lstm_kernels_match_reference(cuda_device, dtype, t, n, h):
     """``lstm_fwd`` (residuals off and on) and ``lstm_bwd`` on the forward's
     residuals, at the stacked head's H = 512 and below."""
@@ -523,8 +589,8 @@ def test_lstm_kernels_match_reference(cuda_device, dtype, t, n, h):
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('t,n,h', [(23, 37, 512), (1, 5, 256), (11, 1, 8),
-                                   (6, 20, 136), (4, 17, 264)])
+@pytest.mark.parametrize('t,n,h', [
+    (23, 37, 512), (1, 5, 256), (11, 1, 8), (6, 20, 136), (4, 17, 264)])
 def test_lstm_bwd_kernel_edges_and_determinism(cuda_device, dtype, t, n, h):
     """``lstm_bwd`` at the edges of the bf16 cluster tiling: rows that die
     at different t inside one 16-row group and a row of length 0; T = 1; a
@@ -552,13 +618,40 @@ def test_lstm_bwd_kernel_edges_and_determinism(cuda_device, dtype, t, n, h):
     want = rnn_cuda.lstm_bwd_reference(*args)
     torch.cuda.synchronize()
     for i, (g, a, w) in enumerate(zip(got, again, want)):
-        assert torch.equal(g, a), i
+        assert torch.equal(g, a) and g.shape == w.shape, i
         w = w.float()
         scale = max(float(w.abs().max()), 1e-6)
         tol = 1e-4 * scale if dt == torch.float32 else 4 * scale / 256.0
         assert float((g.float() - w).abs().max()) <= tol, i
     dead = torch.arange(t, device=cuda_device)[:, None] >= lens[None, :]
     assert not got[0][dead].any()           # dead steps: dg = 0
+
+
+@pytest.mark.parametrize('t', [23, 111])
+def test_lstm_scan_pair_matches_the_fused_bilstm(cuda_device, t):
+    """The BiLSTM as two scans of kernel 5 (``bilstm_scan_pair`` with
+    ``scan=rnn.lstm``, the A/B of the JAX package's ``tools/bench_rnn.py``)
+    against the fused kernel 1, bf16, batch 64, H = 256, the eval buckets'
+    T: two [D, 4H] projections where the fused path takes one [D, 8H], so
+    cuBLAS may round a bf16 projection entry the other way; outputs are
+    below 1, and the bar is 8 bf16 ulps of 1."""
+    g = torch.Generator().manual_seed(t)
+    d, h, n = 512, 256, 64
+
+    def rnd(*shape, scale):
+        return (torch.randn(*shape, generator=g) * scale).to(cuda_device,
+                                                             torch.bfloat16)
+    cells = {k: {'w': rnd(d, 4 * h, scale=d ** -0.5),
+                 'u': rnd(h, 4 * h, scale=h ** -0.5),
+                 'bias': rnd(4 * h, scale=0.1)} for k in ('fw', 'bw')}
+    x = rnd(n, t, d, scale=0.5)
+    lens = torch.randint(max(1, t - 8), t + 1, (n,), generator=g) \
+        .to(cuda_device, torch.int32)
+    with torch.no_grad():
+        pair = rnn.bilstm_scan_pair(cells, x, lens, scan=rnn.lstm)
+        fused = rnn.bilstm(cells, x, lens)
+    torch.cuda.synchronize()
+    assert float((pair.float() - fused.float()).abs().max()) <= 8 / 256
 
 
 def test_lstm_gradients_through_kernels(cuda_device):
@@ -620,7 +713,13 @@ def test_lstm_kernels_reject_bad_inputs(cuda_device):
                                          # and odd
                                          (1, 24, 4, 16, 48),
                                          (5, 13, 3, 272, 48),
-                                         (2, 9, 5, 48, 37)])
+                                         (2, 9, 5, 48, 37),
+                                         # conv4_2 at batch 64; C_in 1 (a
+                                         # first layer) and 24, zero
+                                         # channels up to 16 and 32
+                                         (64, 24, 4, 512, 512),
+                                         (64, 96, 32, 1, 64),
+                                         (64, 24, 4, 24, 128)])
 def test_conv_bn_kernel_matches_reference(cuda_device, dtype, n, w, h, ci, co):
     dt = getattr(torch, dtype)
     rng = np.random.RandomState(n * co)
@@ -639,6 +738,28 @@ def test_conv_bn_kernel_matches_reference(cuda_device, dtype, n, w, h, ci, co):
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == want.shape == (n, co, w, h)
     assert torch.equal(got, again)          # fixed-order sums: bit for bit
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('shape', bench_conv_bn.SHAPES,
+                         ids=[tag for tag, *_ in bench_conv_bn.SHAPES])
+def test_conv_bn_kernel_matches_the_unfused_layer(cuda_device, dtype, shape):
+    """The fused kernel against the layer it replaces (``ConvSingle``:
+    cuDNN's conv, then bias, batch norm and ReLU) at the conv4_1 and conv4_2
+    geometry, batch 64, at the plain version's bars: the layer rounds the
+    bias apart, takes the two-pass variance and sums in cuDNN's order; its
+    f32 conv in full f32 (no TF32), as the plain version computes."""
+    from lstm_ctc_ocr_torch.engine.test import full_f32
+    _, w, h, ci, co = shape
+    dt = getattr(torch, dtype)
+    case = bench_conv_bn.make_case(64, w, h, ci, co, dt, cuda_device)
+    with torch.no_grad(), full_f32():
+        got = conv_bn_cuda.conv3x3_bn_relu(*bench_conv_bn.fused_args(case))
+        want = bench_conv_bn.unfused_layer(case)(
+            case['x'], None if dt == torch.float32 else dt)
+    torch.cuda.synchronize()
     tol = 2e-5 if dt == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -756,47 +877,51 @@ def test_cuda_program_launches_the_kernel(cuda_device, tmp_path):
 
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-@pytest.mark.parametrize('h', [50, 300, 512, 768])
-def test_kernels_take_every_width(cuda_device, dtype, h):
-    """All four LSTM wrappers at widths off the main path: H = 50 (no
-    multiple of 8: zero-padded), 300 and 512 per direction (bf16 cluster,
-    f32 wide), 768 (wide in both types), on a ragged batch of 37 with an
-    empty row: forward (residuals on) and backward against the plain
+@pytest.mark.parametrize('t,n,h', WIDTH_CASES)
+def test_kernels_take_every_width(cuda_device, dtype, t, n, h):
+    """All four LSTM wrappers at the widths of :data:`WIDTH_CASES`: H = 50
+    (no multiple of 8: zero-padded), 300 and 512 per direction (bf16
+    cluster, f32 wide), 768 and 1024 (wide in both types), each at batch 64
+    and the eval buckets' T, on ragged batches of 37 with an empty row and
+    at T = 1: forward (residuals on) and backward against the plain
     versions at the bars above (the backward's relative to each output's
-    largest entry), each kernel launched once a call."""
+    largest entry), each kernel called twice with the same bits and
+    launched once a call, the forwards' outputs zero past each row's
+    length."""
     dt = getattr(torch, dtype)
-    rng = np.random.RandomState(h)
-    t, n = 9, 37
+    rng = np.random.RandomState(h + 1000 * t + n)
     mk, (xp, u, b, lens) = _lstm_case(rng, cuda_device, dt, t, n, h)
     ub, bb, xpb = mk(h, 4 * h, scale=h ** -0.5), mk(4 * h, scale=0.1), \
         mk(t, n, 4 * h)
-    counts = [w.launches for w in (rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd,
-                                   rnn_cuda.lstm_fwd, rnn_cuda.lstm_bwd)]
-    fwd_args = (xp, xpb, u, ub, b, bb, lens)
-    got = rnn_cuda.bilstm_fwd(*fwd_args, save_residuals=True)
-    want = rnn_cuda.bilstm_fwd_reference(*fwd_args, save_residuals=True)
     dof, dob = mk(t, n, h), mk(t, n, h)
-    res = want[1:4] + want[5:8]
-    got_b = rnn_cuda.bilstm_bwd(dof, dob, *res, u, ub, lens)
-    want_b = rnn_cuda.bilstm_bwd_reference(dof, dob, *res, u, ub, lens)
-    got_u = rnn_cuda.lstm_fwd(xp, u, b, lens, save_residuals=True)
+    fwd_args = (xp, xpb, u, ub, b, bb, lens)
+    want = rnn_cuda.bilstm_fwd_reference(*fwd_args, save_residuals=True)
     want_u = rnn_cuda.lstm_fwd_reference(xp, u, b, lens, save_residuals=True)
-    got_ub = rnn_cuda.lstm_bwd(dof, *want_u[1:], u, lens)
-    want_ub = rnn_cuda.lstm_bwd_reference(dof, *want_u[1:], u, lens)
-    torch.cuda.synchronize()
-    assert [w.launches for w in (rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd,
-                                 rnn_cuda.lstm_fwd, rnn_cuda.lstm_bwd)] \
-        == [c + 1 for c in counts]
-    for g, w in zip(got + got_u, want + want_u):
-        assert g.dtype == dt and g.shape == w.shape
-        assert float((g.float() - w.float()).abs().max()) \
-            <= _atol(w.float(), dt)
-    for g, w in zip(got_b + got_ub, want_b + want_ub):
-        assert g.shape == w.shape
-        w = w.float()
-        scale = max(float(w.abs().max()), 1e-6)
-        bar = 1e-4 * scale if dt == torch.float32 else 4 * scale / 256
-        assert float((g.float() - w).abs().max()) <= bar
+    bwd_args = (dof, dob) + want[1:4] + want[5:8] + (u, ub, lens)
+    uni_bwd_args = (dof,) + want_u[1:] + (u, lens)
+    calls = [(rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_fwd_reference, fwd_args,
+              {'save_residuals': True}, (0, 4)),
+             (rnn_cuda.bilstm_bwd, rnn_cuda.bilstm_bwd_reference, bwd_args,
+              {}, None),
+             (rnn_cuda.lstm_fwd, rnn_cuda.lstm_fwd_reference,
+              (xp, u, b, lens), {'save_residuals': True}, (0,)),
+             (rnn_cuda.lstm_bwd, rnn_cuda.lstm_bwd_reference, uni_bwd_args,
+              {}, None)]
+    for kernel, plain, args, kw, outputs in calls:
+        before = kernel.launches
+        got, again = kernel(*args, **kw), kernel(*args, **kw)
+        assert kernel.launches == before + 2
+        ref = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if outputs is not None:
+            _check_fwd(got, again, ref, dt, lens, outputs)
+            continue
+        for i, (g, a, w) in enumerate(zip(got, again, ref)):
+            assert torch.equal(g, a) and g.shape == w.shape, i
+            w = w.float()
+            scale = max(float(w.abs().max()), 1e-6)
+            bar = 1e-4 * scale if dt == torch.float32 else 4 * scale / 256
+            assert float((g.float() - w).abs().max()) <= bar, i
 
 
 @pytest.mark.parametrize('ci', [1, 24])

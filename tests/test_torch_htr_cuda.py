@@ -14,8 +14,9 @@ fed the input the port's layer before produced and compared with the
 reference layer on that input, forward and, with the same output gradient,
 backward (the input's gradient, which the layer below's backward takes, and
 the layer's own weights'). So each comparison holds one layer's kernels,
-and an error does not compound through the stack. A last test runs the
-whole head against the reference stack.
+and an error does not compound through the stack. A test runs the whole
+head against the reference stack, and a last one holds kernels 1 and 2 on
+two layers chained against their plain versions (``ops/rnn_cuda.py``).
 
 Tolerances, each with its reason:
 
@@ -165,3 +166,80 @@ def test_the_head_matches_the_reference_stack(cuda_device):
                       p['logits.layers.0.cells.fw.w'].grad)]
     print('head gaps: logits, input gradient, layer 0 w', gaps)
     assert max(gaps) <= 5 * F32_RTOL, gaps
+
+
+def _two_layers(fwd, bwd, first, top, lens, dout):
+    """Two BiLSTM layers chained as the head chains them, through ``fwd`` and
+    ``bwd`` (kernels 1 and 2 or their plain versions), forget bias 0: layer
+    1 on the projections and weights ``first``, layer 2 on its outputs
+    through ``top``'s W; layer 2's backward from ``dout``, its input
+    gradient split by direction into layer 1's backward. Returns layer 2's
+    outputs, layer 1's backward inputs and layer 1's gradients."""
+    t, n, four_h = first[0].shape
+    h = four_h // 4
+    r1 = fwd(*first, lens, 0.0, save_residuals=True)
+    x2 = torch.cat([r1[0], r1[4]], dim=-1).reshape(t * n, 2 * h)
+    xp2 = (x2 @ top['w']).reshape(t, n, 2 * four_h)
+    r2 = fwd(xp2[:, :, :four_h], xp2[:, :, four_h:], *top['cells'], lens,
+             0.0, save_residuals=True)
+    g2 = bwd(*dout, *r2[1:4], *r2[5:8], *top['cells'][:2], lens)
+    dx2 = (g2[0].reshape(t * n, four_h) @ top['w'][:, :four_h].t()
+           + g2[1].reshape(t * n, four_h) @ top['w'][:, four_h:].t()
+           ).reshape(t, n, 2 * h)
+    back = (dx2[:, :, :h].contiguous(), dx2[:, :, h:].contiguous(),
+            *r1[1:4], *r1[5:8], *first[2:4], lens)
+    return (r2[0], r2[4]), back, bwd(*back)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_two_layers_chained_match_the_plain_kernels(cuda_device, dtype):
+    """Kernels 1 and 2 on two layers chained at the cell's widths (layer 1
+    reading 1,280 features, each line its own 137-222 frames of T): layer
+    1's backward, fed layer 2's input gradient, holds the one-layer bar of
+    tests/test_torch_cuda.py against the plain backward on the same inputs
+    (1e-4 in f32, 4 bf16 ulps in bf16, of each output's largest entry), and
+    the chain's layer-2 outputs and layer-1 gradients hold twice it against
+    the plain versions chained; each kernel call and each chain gives the
+    same bits twice, and the kernels launch exactly as called."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    h = NUM_HID // 2
+
+    def rnd(*shape, scale):
+        return (torch.randn(*shape, generator=gen, device=cuda_device)
+                * scale).to(dt)
+
+    def direction_weights():          # U and b of both directions
+        return (rnd(h, 4 * h, scale=h ** -0.5), rnd(h, 4 * h, scale=h ** -0.5),
+                rnd(4 * h, scale=0.1), rnd(4 * h, scale=0.1))
+    xp = (rnd(T * N, FEATURES, scale=0.5)
+          @ rnd(FEATURES, 8 * h, scale=FEATURES ** -0.5)).reshape(T, N, 8 * h)
+    first = (xp[:, :, :4 * h], xp[:, :, 4 * h:]) + direction_weights()
+    top = {'w': rnd(2 * h, 8 * h, scale=(2 * h) ** -0.5),
+           'cells': direction_weights()}
+    lens = torch.from_numpy(np.linspace(137, 222, N).astype(np.int32)) \
+        .to(cuda_device)
+    dout = (rnd(T, N, h, scale=0.1), rnd(T, N, h, scale=0.1))
+    fwd0, bwd0 = rnn_cuda.bilstm_fwd.launches, rnn_cuda.bilstm_bwd.launches
+    got = _two_layers(rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, first, top,
+                      lens, dout)
+    again = _two_layers(rnn_cuda.bilstm_fwd, rnn_cuda.bilstm_bwd, first, top,
+                        lens, dout)
+    block = rnn_cuda.bilstm_bwd(*got[1])
+    block_again = rnn_cuda.bilstm_bwd(*got[1])
+    assert rnn_cuda.bilstm_fwd.launches == fwd0 + 4
+    assert rnn_cuda.bilstm_bwd.launches == bwd0 + 6
+    block_want = rnn_cuda.bilstm_bwd_reference(*got[1])
+    want = _two_layers(rnn_cuda.bilstm_fwd_reference,
+                       rnn_cuda.bilstm_bwd_reference, first, top, lens, dout)
+    torch.cuda.synchronize()
+    bar = 1e-4 if dt == torch.float32 else 4 / 256
+    for layers, outs, twice, refs in (
+            (1, block, block_again, block_want),
+            (2, got[0] + got[2], again[0] + again[2], want[0] + want[2])):
+        for i, (g, a, w) in enumerate(zip(outs, twice, refs)):
+            assert torch.equal(g, a), (layers, i)
+            w = w.float()
+            gap = float((g.float() - w).abs().max())
+            assert gap <= layers * bar * (float(w.abs().max()) or 1.0), \
+                (layers, i, gap)
